@@ -7,11 +7,15 @@ and replaces each Pallas TPU kernel with a hand-written CUDA kernel
 beside it. It imports ``torch`` and numpy, and nothing of JAX or of the JAX
 package.
 
-- ``ctagan_tpu_torch.data``    — the DICOM codec and host preprocessing.
-- ``ctagan_tpu_torch.models``  — ``Generator`` and its NHWC layers, the
-  JAX-param converter.
-- ``ctagan_tpu_torch.ops``     — the fused conv kernels K1-K3.
+- ``ctagan_tpu_torch.data``    — the DICOM codec, host preprocessing, the
+  dual-window dataset and the prefetching loader.
+- ``ctagan_tpu_torch.models``  — ``Generator``, ``RegNet``,
+  ``Discriminator``, their NHWC layers and the JAX-param converters.
+- ``ctagan_tpu_torch.ops``     — the fused conv kernels K1-K3, the residual
+  body's backward kernels K4-K5, and the training step's plain ops (warp,
+  augmentation, losses, resize, device windowing).
 - ``ctagan_tpu_torch.serving`` — the HTTP synthesis service.
+- ``ctagan_tpu_torch.train``   — the HD stage-1 step and trainer.
 - ``ctagan_tpu_torch.utils``   — the config reader.
 """
 

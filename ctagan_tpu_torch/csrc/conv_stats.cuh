@@ -10,6 +10,9 @@
 //   ZERO_S2     stride-2 conv, zero pad 1             (ops/fused_down.py)
 //   CONVT_S2    ConvTranspose k3 s2 p1 op1, one output phase per blockIdx.z
 //               (1/2/2/4 taps; no dilated buffer)     (ops/fused_convt.py)
+//   ZERO_S1     stride-1 correlation, zero pad 1, no bias and no stats: the
+//               interior of the reflect conv's input gradient
+//                                                     (ops/fused_resblock_grad.py)
 //
 // Block = one tile of BM output pixels of one sample x BN output channels.
 // K = taps x C is walked in BK-channel chunks: the block stages a BK x BM
@@ -26,7 +29,7 @@
 
 namespace ctk {
 
-enum Mode { REFLECT_S1 = 0, ZERO_S2 = 1, CONVT_S2 = 2 };
+enum Mode { REFLECT_S1 = 0, ZERO_S2 = 1, CONVT_S2 = 2, ZERO_S1 = 3 };
 
 constexpr int BM = 64;   // output pixels per block
 constexpr int BN = 64;   // output channels per block
@@ -37,10 +40,11 @@ struct Params {
   const void* x;       // (N, H, W, C) input, T
   const void* skip;    // (N, H, W, C) residual stream, T, or null (REFLECT_S1)
   const void* weight;  // (3, 3, C, Cout) weight, T
-  const float* b;      // (Cout,) bias, f32
+  const float* b;      // (Cout,) bias, f32 (unused by ZERO_S1)
   const float* norm;   // (N, 2, C) [mean, rstd], f32, or null
   void* out;           // (N, Ho, Wo, Cout), T
   float* stats;        // (N, 2, Cout) [sum, sum^2], f32, zeroed by the caller
+                       // (unused by ZERO_S1)
   void* xnew;          // (N, H, W, C) emitted conv input, T, or null
   int n, h, w, c, cout;
   int ho, wo;
@@ -65,6 +69,7 @@ template <typename T> __device__ __forceinline__ float round_to(float v) {
 
 template <int MODE, typename T>
 __global__ void __launch_bounds__(NT) conv_stats_kernel(Params p) {
+  constexpr bool kStats = MODE != ZERO_S1;  // also: no bias
   __shared__ float As[BK][BM + 4];
   __shared__ float Bs[BK][BN];
   __shared__ float red[2][NT / 16][BN];
@@ -144,6 +149,10 @@ __global__ void __launch_bounds__(NT) conv_stats_kernel(Params p) {
           iy = 2 * gy[i] + ky - 1;
           ix = 2 * gx[i] + kx - 1;
           ok = ok && iy >= 0 && iy < H && ix >= 0 && ix < W;
+        } else if (MODE == ZERO_S1) {
+          iy = gy[i] + ky - 1;
+          ix = gx[i] + kx - 1;
+          ok = ok && iy >= 0 && iy < H && ix >= 0 && ix < W;
         } else {
           iy = gy[i] + (ky == 0 ? 1 : 0);
           ix = gx[i] + (kx == 0 ? 1 : 0);
@@ -214,13 +223,14 @@ __global__ void __launch_bounds__(NT) conv_stats_kernel(Params p) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int col = tx + 16 * j;
-      const T r = from_f<T>(acc[i][j] + p.b[n0 + col]);
+      const T r = from_f<T>(kStats ? acc[i][j] + p.b[n0 + col] : acc[i][j]);
       orow[col] = r;
       const float rf = to_f(r);
       s[j] += rf;
       s2[j] += rf * rf;
     }
   }
+  if (!kStats) return;  // uniform across the block: no barrier is skipped
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     red[0][ty][tx + 16 * j] = s[j];

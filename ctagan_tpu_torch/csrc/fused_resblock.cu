@@ -1,7 +1,9 @@
 // K1: reflect-padded 3x3 conv + output [sum, sum^2], with the previous
 // InstanceNorm (+ReLU) and the previous block's skip-add folded into the
 // input read. Replaces ops/fused_resblock.py::conv3x3_reflect_stats.
+// Its backward kernels K4 and K5 (fused_resblock_grad.cuh) build with it.
 #include "conv_stats.cuh"
+#include "fused_resblock_grad.cuh"
 
 extern "C" int ctk_conv3x3_reflect_stats(
     const void* x, const void* skip, const void* w, const void* b,

@@ -1,2 +1,3 @@
-"""Host side of the serving path: the DICOM codec, the dual-window
-preprocessing and the synthetic slices, in numpy."""
+"""Host side of the port, in numpy: the DICOM codec, the dual-window
+preprocessing, synthetic slices and corpora, the dual-window dataset and
+the prefetching loader."""

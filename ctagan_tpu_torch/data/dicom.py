@@ -300,8 +300,15 @@ def dicom_bytes(ds: DicomFile) -> bytes:
     return b"".join(out)
 
 
+def write_dicom(ds: DicomFile, path: str) -> None:
+    """Write ``dicom_bytes(ds)`` to a part-10 file at ``path``."""
+    with open(path, "wb") as f:
+        f.write(dicom_bytes(ds))
+
+
 def make_ct_slice(pixels: np.ndarray, *, series_uid: Optional[str] = None,
-                  slice_location: float = 0.0) -> DicomFile:
+                  slice_location: float = 0.0, series_description: str = "C-",
+                  patient_id: str = "P0", accession: str = "A0") -> DicomFile:
     """An in-memory CT slice (explicit VR, 16-bit unsigned, 12 bits stored,
     WC 50 / WW 400, intercept -1024) holding the stored values ``pixels``
     (0..4095): the synthetic request body of the tests and the smoke."""
@@ -310,10 +317,10 @@ def make_ct_slice(pixels: np.ndarray, *, series_uid: Optional[str] = None,
     ds.meta = [Element(0x0002, 0x0010, b"UI", ts + b"\x00" * (len(ts) % 2))]
     ds.set_str(TAG_SOP_CLASS, "1.2.840.10008.5.1.4.1.1.2", b"UI")  # CT Image
     ds.set_str(TAG_SOP_INSTANCE, generate_uid(), b"UI")
-    ds.set_str(TAG_ACCESSION, "A0", b"SH")
+    ds.set_str(TAG_ACCESSION, accession, b"SH")
     ds.set_str(TAG_MANUFACTURER, "GE MEDICAL SYSTEMS", b"LO")
-    ds.set_str(TAG_SERIES_DESC, "C-", b"LO")
-    ds.set_str(TAG_PATIENT_ID, "P0", b"LO")
+    ds.set_str(TAG_SERIES_DESC, series_description, b"LO")
+    ds.set_str(TAG_PATIENT_ID, patient_id, b"LO")
     ds.set_str(TAG_PATIENT_SEX, "M", b"CS")
     ds.set_str(TAG_PATIENT_AGE, "060Y", b"AS")
     ds.set_str(TAG_SERIES_UID, series_uid or generate_uid(), b"UI")

@@ -1,4 +1,4 @@
-__all__ = ["Generator"]
+__all__ = ["Discriminator", "Generator", "RegNet"]
 
 
 def __getattr__(name):
@@ -8,4 +8,12 @@ def __getattr__(name):
         from ctagan_tpu_torch.models.generator import Generator
 
         return Generator
+    if name == "RegNet":
+        from ctagan_tpu_torch.models.reg import RegNet
+
+        return RegNet
+    if name == "Discriminator":
+        from ctagan_tpu_torch.models.discriminator import Discriminator
+
+        return Discriminator
     raise AttributeError(name)

@@ -1,7 +1,8 @@
-"""JAX Generator parameter tree -> the port's (reference-format) state dict.
+"""JAX parameter trees -> the port's (reference-format) state dicts.
 
-A reimplementation of ``ctagan_tpu/models/torch_export.py::
-generator_state_dict`` that needs no JAX: the tree is nested dicts of numpy
+Reimplementations of ``ctagan_tpu/models/torch_export.py``'s
+``generator_state_dict``, ``discriminator_state_dict`` and
+``regnet_state_dict`` that need no JAX: the tree is nested dicts of numpy
 arrays, ``{"params": {"ConvTorch_0": {"Conv_0": {"kernel", "bias"}}, ...}}``.
 
 - Conv kernel (kh, kw, I, O)                        -> Conv2d (O, I, kh, kw)
@@ -42,4 +43,49 @@ def generator_state_dict(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     _weight(sd, "model_tail.0", params["ConvTransposeTorch_0"]["ConvTranspose_0"])
     _weight(sd, "model_tail.3", params["ConvTransposeTorch_1"]["ConvTranspose_0"])
     _weight(sd, "model_tail.7", params["ConvTorch_3"]["Conv_0"])
+    return sd
+
+
+def discriminator_state_dict(tree: Dict[str, Any]
+                             ) -> Dict[str, torch.Tensor]:
+    """models.Discriminator params -> the scalar PatchGAN's
+    ``model.{0,2,5,8,11}`` state dict."""
+    params = tree["params"] if "params" in tree else tree
+    sd: Dict[str, torch.Tensor] = {}
+    for i, idx in enumerate((0, 2, 5, 8, 11)):
+        _weight(sd, f"model.{idx}", params[f"ConvTorch_{i}"]["Conv_0"])
+    return sd
+
+
+def _resnet_block(sd, prefix, sub) -> None:
+    _weight(sd, f"{prefix}.conv_block.1", sub["ConvTorch_0"]["Conv_0"])
+    _weight(sd, f"{prefix}.conv_block.5", sub["ConvTorch_1"]["Conv_0"])
+
+
+def regnet_state_dict(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """models.RegNet params -> the reference Reg's ``offset_map.*`` state
+    dict, for the port's ``RegNet``."""
+    from ctagan_tpu_torch.models.reg import NDF, NUF
+
+    params = tree["params"] if "params" in tree else tree
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(len(NDF)):
+        sub = params[f"down_{i + 1}"]
+        _weight(sd, f"offset_map.down_{i + 1}.conv_0.conv2d",
+                sub["ConvTorch_0"]["Conv_0"])
+        _resnet_block(sd, f"offset_map.down_{i + 1}.conv_0.resnet_block."
+                      "model.0", sub["RegResnetBlock_0"])
+    _weight(sd, "offset_map.c1.conv2d", params["c1"]["ConvTorch_0"]["Conv_0"])
+    for j in range(3):
+        _resnet_block(sd, f"offset_map.t.model.{j}", params[f"t_{j}"])
+    _weight(sd, "offset_map.c2.conv2d", params["c2"]["ConvTorch_0"]["Conv_0"])
+    for i in range(len(NUF)):
+        level = len(NDF) - i
+        _weight(sd, f"offset_map.up_{level}.conv2d",
+                params[f"up_{level}"]["ConvTorch_0"]["Conv_0"])
+    _resnet_block(sd, "offset_map.refine.0.model.0", params["refine_res"])
+    _weight(sd, "offset_map.refine.1.conv2d",
+            params["refine_conv"]["ConvTorch_0"]["Conv_0"])
+    _weight(sd, "offset_map.output.conv2d",
+            params["output"]["ConvTorch_0"]["Conv_0"])
     return sd

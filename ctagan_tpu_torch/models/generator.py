@@ -14,10 +14,17 @@ InstanceNorm folded into its input read. On a CUDA tensor those are the
 CUDA kernels at every batch size (a shape a kernel cannot take raises); on a
 CPU tensor they are their plain versions. ``fused_body=False`` runs the
 plain layer-by-layer path.
+
+``fused_body_grad`` (the training route, JAX's ``fused_body_grad``) runs
+the head, the two downs, the two ups and the tail as plain layers and the
+residual body through :class:`~ctagan_tpu_torch.ops.fused_resblock_grad.
+FusedChainFunction`: K1 launches forward, K4 and K5 launches backward.
+``'auto'`` turns it on for a CUDA tensor (JAX: on a TPU); ``True`` also runs
+it on a CPU tensor, through the kernels' plain versions.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 from torch import nn
@@ -38,6 +45,7 @@ from ctagan_tpu_torch.ops.fused_resblock import (
     _stats_to_norm,
     fused_residual_chain,
 )
+from ctagan_tpu_torch.ops.fused_resblock_grad import fused_chain
 
 EPS = 1e-5
 
@@ -46,12 +54,16 @@ class Generator(nn.Module):
     def __init__(self, input_nc: int = 1, output_nc: int = 1,
                  n_residual_blocks: int = 9, base_features: int = 64,
                  dtype: Optional[torch.dtype] = None,
-                 pad_mode: str = "reflect", fused_body: bool = True):
+                 pad_mode: str = "reflect", fused_body: bool = True,
+                 fused_body_grad: Union[bool, str] = False):
         super().__init__()
         if pad_mode not in ("reflect", "zero"):
             raise ValueError("pad_mode must be 'reflect' or 'zero'")
+        if fused_body_grad not in (True, False, "auto"):
+            raise ValueError("fused_body_grad must be True, False or 'auto'")
         f = base_features
         self.dtype, self.pad_mode, self.fused_body = dtype, pad_mode, fused_body
+        self.fused_body_grad = fused_body_grad
         zero = pad_mode == "zero"
 
         def pad(p):  # zero mode: the pad folds into the conv instead
@@ -89,17 +101,30 @@ class Generator(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (N, H, W, input_nc) -> (N, H, W, output_nc) in [-1, 1]."""
-        if not self.fused_body:
-            return self._forward_layers(x)
-        if self.pad_mode == "zero":
-            if x.is_cuda:
-                raise NotImplementedError(
-                    "pad_mode 'zero' has no fused CUDA path yet")
-            return self._forward_layers(x)
-        return self._forward_fused(x)
+        if self.fused_body:
+            if self.pad_mode == "zero":
+                if x.is_cuda:
+                    raise NotImplementedError(
+                        "pad_mode 'zero' has no fused CUDA path yet")
+                return self._forward_layers(x)
+            return self._forward_fused(x)
+        grad_route = (x.is_cuda if self.fused_body_grad == "auto"
+                      else self.fused_body_grad)
+        if grad_route and self.pad_mode == "reflect" and len(self.model_body):
+            return self._forward_body_grad(x)
+        return self._forward_layers(x)
 
     def _forward_layers(self, x):
         return self.model_tail(self.model_body(self.model_head(x)))
+
+    def _forward_body_grad(self, x):
+        # plain head/downs and ups/tail, as JAX keeps them in XLA on the
+        # training path; the body's custom VJP runs the K1/K4/K5 kernels
+        h = self.model_head(x).to(self.dtype or x.dtype)
+        params = [(blk.conv_block[1].hwio(), blk.conv_block[1].bias,
+                   blk.conv_block[5].hwio(), blk.conv_block[5].bias)
+                  for blk in self.model_body]
+        return self.model_tail(fused_chain(h, params, eps=EPS))
 
     def _forward_fused(self, x):
         head, tail = self.model_head, self.model_tail

@@ -23,9 +23,15 @@ def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The statistics / accumulation type: f32 for f32 and bf16, f64 for f64
+    (so gradient checks in float64 see no f32 rounding)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def channel_stats(x: torch.Tensor) -> torch.Tensor:
     """(N, H, W, C) -> (N, 2, C) f32 [sum, sum²] over H, W."""
-    xf = x.float()
+    xf = x.to(acc_dtype(x.dtype))
     return torch.stack([xf.sum(dim=(1, 2)), (xf * xf).sum(dim=(1, 2))], dim=1)
 
 
@@ -33,7 +39,7 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """InstanceNorm2d(affine=False) over H, W with the JAX package's one-pass
     clamped f32 statistics, var = max(E[x²] − E[x]², 0), cast back to
     x.dtype (``F.instance_norm`` takes two passes and rounds differently)."""
-    xf = x.float()
+    xf = x.to(acc_dtype(x.dtype))
     mean = xf.mean(dim=(1, 2), keepdim=True)
     m2 = (xf * xf).mean(dim=(1, 2), keepdim=True)
     var = torch.clamp(m2 - mean * mean, min=0.0)
@@ -142,3 +148,110 @@ class ResidualBlock(nn.Module):
 
     def forward(self, x):
         return x + self.conv_block(x)
+
+
+def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
+    return F.leaky_relu(x, negative_slope)
+
+
+def max_pool(x: torch.Tensor, window: int = 2) -> torch.Tensor:
+    """Non-overlapping max pool (torch MaxPool2d(window)) as a reshape + axis
+    max, as ``ctagan_tpu/models/layers.py::max_pool``: tied maxima share the
+    gradient (``amax``), where ``F.max_pool2d`` routes it to one of them."""
+    n, h, w, c = x.shape
+    if h % window or w % window:
+        x = x[:, : h - h % window, : w - w % window]
+        h, w = x.shape[1], x.shape[2]
+    xr = x.reshape(n, h // window, window, w // window, window, c)
+    return xr.amax(dim=(2, 4))
+
+
+def global_avg_pool_logit(x: torch.Tensor) -> torch.Tensor:
+    """avg_pool2d over the full spatial extent -> (N, C)."""
+    return x.mean(dim=(1, 2))
+
+
+def _normal_(t: torch.Tensor, std: float, gen: torch.Generator) -> None:
+    with torch.no_grad():
+        t.copy_(torch.randn(t.shape, generator=gen) * std)
+
+
+class _RegConv2d(ConvTorch):
+    """The registration net's conv: kaiming-normal (fan_in, gain² =
+    2 / (1 + slope²)) or near-zero N(0, 1e-5) weights, zero bias."""
+
+    def __init__(self, cin, cout, kernel_size, stride=1, padding=0,
+                 slope: float = 0.0, zero_init: bool = False, dtype=None):
+        super().__init__(cin, cout, kernel_size, stride, padding, dtype)
+        self.slope, self.zero_init = slope, zero_init
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        fan_in = self.weight[0].numel()
+        std = 1e-5 if self.zero_init else math.sqrt(
+            2.0 / (1.0 + self.slope ** 2) / fan_in)
+        _normal_(self.weight, std, gen)
+        with torch.no_grad():
+            self.bias.zero_()
+
+
+class RegResnetBlock(nn.Module):
+    """``ctagan_tpu/models/layers.py::RegResnetBlock``: reflect 3×3 conv + IN
+    + ReLU + reflect 3×3 conv + IN, additive skip; kaiming init, zero bias.
+    ``conv_block`` indices 1 and 5 as the reference's."""
+
+    def __init__(self, features: int, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.conv_block = nn.Sequential(
+            ReflectPad(1), _RegConv2d(features, features, 3, dtype=dtype),
+            InstanceNorm(), nn.ReLU(),
+            ReflectPad(1), _RegConv2d(features, features, 3, dtype=dtype),
+            InstanceNorm(),
+        )
+
+    def forward(self, x):
+        return x + self.conv_block(x)
+
+
+class RegResnetStack(nn.Module):
+    """``model``: a Sequential of RegResnetBlocks (the reference's
+    ``ResnetTransformer`` key layout, ``<name>.model.<i>.conv_block``)."""
+
+    def __init__(self, features: int, n_blocks: int,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.model = nn.Sequential(*[RegResnetBlock(features, dtype)
+                                     for _ in range(n_blocks)])
+
+    def forward(self, x):
+        return self.model(x)
+
+
+class RegConv(nn.Module):
+    """``ctagan_tpu/models/layers.py::RegConv``: conv (no norm) -> activation
+    -> optional single resnet block; kaiming init, zero bias. Keys
+    ``conv2d`` and ``resnet_block.model.0`` as the reference's. The TPU
+    routes ``taps`` and ``im2col`` are not ported (ROADMAP queue 1)."""
+
+    def __init__(self, cin: int, features: int, kernel_size: int = 3,
+                 stride: int = 1, padding: int = 1,
+                 activation: Optional[str] = "leaky_relu",
+                 use_resnet: bool = False, zero_init: bool = False,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        if activation not in ("leaky_relu", None):
+            raise ValueError(f"RegConv activation {activation!r}: the "
+                             "RegNet uses 'leaky_relu' or None")
+        slope = 0.2 if activation == "leaky_relu" else 0.0
+        self.activation = activation
+        self.conv2d = _RegConv2d(cin, features, kernel_size, stride, padding,
+                                 slope=slope, zero_init=zero_init, dtype=dtype)
+        self.resnet_block = (RegResnetStack(features, 1, dtype)
+                             if use_resnet else None)
+
+    def forward(self, x):
+        x = self.conv2d(x)
+        if self.activation == "leaky_relu":
+            x = leaky_relu(x, 0.2)
+        if self.resnet_block is not None:
+            x = self.resnet_block(x)
+        return x

@@ -28,6 +28,9 @@ import torch.nn.functional as F
 from ctagan_tpu_torch.models.layers import reflect_pad
 from ctagan_tpu_torch.ops import _build
 from ctagan_tpu_torch.ops._common import (
+    DTYPES,
+    PLAIN_DTYPES,
+    acc_dtype,
     apply_norm,
     check_bias,
     check_input,
@@ -38,8 +41,8 @@ from ctagan_tpu_torch.ops._common import (
 )
 
 
-def _check_args(x, w, b, norm, skip, emit_input):
-    check_input("conv3x3_reflect_stats", x)
+def _check_args(x, w, b, norm, skip, emit_input, dtypes=DTYPES):
+    check_input("conv3x3_reflect_stats", x, dtypes=dtypes)
     n, h, wd, c = x.shape
     if w.dim() != 4 or tuple(w.shape[:3]) != (3, 3, c):
         raise ValueError(f"w must be (3, 3, {c}, Cout), got {tuple(w.shape)}")
@@ -61,16 +64,17 @@ def conv3x3_reflect_stats_plain(
     skip: Optional[torch.Tensor] = None, emit_input: bool = False,
 ):
     """Plain PyTorch version of :func:`conv3x3_reflect_stats`: the same
-    prologue, an f32 conv of the dtype-rounded operands, and stats of the
-    dtype-rounded output."""
-    _check_args(x, w, b, norm, skip, emit_input)
+    prologue, an f32 conv of the dtype-rounded operands (f64 for f64
+    input), and stats of the dtype-rounded output."""
+    _check_args(x, w, b, norm, skip, emit_input, PLAIN_DTYPES)
     dt = x.dtype
+    ad = acc_dtype(dt)
     xs = apply_norm(x, norm, relu)
     if skip is not None:
         xs = skip.to(dt) + xs  # normalize, cast, then add (JAX order)
     y = F.conv2d(
-        reflect_pad(xs, 1).float().permute(0, 3, 1, 2),
-        w.to(dt).float().permute(3, 2, 0, 1), b.float(),
+        reflect_pad(xs, 1).to(ad).permute(0, 3, 1, 2),
+        w.to(dt).to(ad).permute(3, 2, 0, 1), b.to(ad),
     )
     out, stats = round_with_stats(y, dt)
     if skip is not None or emit_input:

@@ -1,5 +1,6 @@
-"""The port's config: the fields the serving slice reads, from the same
-``configs/*.yaml`` files as ``ctagan_tpu/utils/config.py``.
+"""The port's config: the fields the serving and HD stage-1 training slices
+read, from the same ``configs/*.yaml`` files as ``ctagan_tpu/utils/
+config.py``, with the same defaults.
 
 The repo's configs are flat ``key: value`` YAML. This reader parses that
 subset without PyYAML (scalars: quoted or bare strings, ints, floats,
@@ -38,7 +39,39 @@ class Config:
     pad_mode: str = "reflect"
     seed: int = 42
     generator_ckpt: str = ""
+    # --- HD stage-1 training ---
+    noise_level: int = 1
+    Adv_lamda1: float = 1.0
+    Corr_lamda1: float = 20.0
+    Smooth_lamda: float = 10.0
+    epoch: int = 0  # starting epoch
+    n_epochs: int = 60
+    decay_epoch: int = 20
+    decay_mode: str = "reference"  # accelerating decay quirk | 'linear'
+    lr: float = 1e-4
+    lrd: float = 1e-4  # discriminator lr (frozen in the HD family)
+    batchSize: int = 1
+    train_list: str = "./data/train.txt"
+    val_list: str = "./data/val.txt"
+    test_list: str = "./data/test.txt"
+    n_cpu: int = 4
+    device_windowing: bool = True  # feed raw uint16, window on the device
+    fused_body_grad: Any = "auto"  # True/'on', False/'off', 'auto' = on CUDA
+    d_refwd: bool = True  # D's update re-forwards the updated G
+    aligned_aug: bool = False  # A and B share one affine draw
+    log_every: int = 50
+    # semantic knobs this slice does not port: a non-default value raises
+    # NotImplementedError naming its ROADMAP item (train/steps.py)
+    grad_accum: int = 1
+    ema_decay: float = 0.0
+    r1_gamma: float = 0.0
+    warp_max_disp: int = 0
+    reg_downsample: int = 1
     extras: Dict[str, Any] = field(default_factory=dict)
+
+    @property
+    def total_epochs(self) -> int:
+        return self.n_epochs + self.decay_epoch
 
     @property
     def serve_port(self) -> int:
@@ -61,6 +94,13 @@ class Config:
             raise ValueError("pad_mode must be 'reflect' or 'zero'")
         if self.context_slices % 2 != 1:
             raise ValueError("context_slices must be odd")
+        if self.decay_mode not in ("reference", "linear"):
+            raise ValueError(f"unknown decay_mode {self.decay_mode}")
+        if self.batchSize < 1:
+            raise ValueError("batchSize must be >= 1")
+        if self.fused_body_grad not in (True, False, "auto", "on", "off"):
+            raise ValueError(
+                "fused_body_grad must be a bool, 'auto', 'on' or 'off'")
         return self
 
 

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Where the time goes in the port's serving path, on one CUDA card.
+"""Where the time goes in the port's serving and training paths, on one
+CUDA card.
 
-Run from the repository root: ``python3 tools/profile_port.py``. It imports
-nothing of JAX. Phases, all at 512² on ``configs/HdGan.yaml``'s generator
-(9 blocks, base 64, seeded weights):
+Run from the repository root: ``python3 tools/profile_port.py [--only
+training]``. It imports nothing of JAX. Phases, all at 512² on
+``configs/HdGan.yaml``'s generator (9 blocks, base 64, seeded weights):
 
 1. generator forward at b=16 under ``torch.profiler`` (3 forwards after 2
    warm-ups) for f32 with TF32 off, f32 with cuDNN's TF32 on (PyTorch's
@@ -18,22 +19,36 @@ nothing of JAX. Phases, all at 512² on ``configs/HdGan.yaml``'s generator
    latency p50/p99, batches), then the same 64-client window under
    ``torch.profiler`` for the device idle share.
 
+4. the HD stage-1 training step (``HdTrainerStage1`` on a seeded 512²
+   corpus, b=1, f32) under ``torch.profiler`` over 20 steps after 2 warm-up
+   steps, for the kernel route with cuDNN's TF32 off and on (PyTorch's
+   default, which ``--mode train`` keeps) and the plain route: device time
+   per step of K1, K4, K5 (by kernel name), of the RegNet, the
+   discriminator and the generator's plain layers (each profiled alone on
+   the step's shapes, doing the step's share of work: R forward + backward;
+   D three forwards, one input backward and one weight backward; the
+   generator's head and tail forward twice and backward once), the rest,
+   and the device idle share of the window.
+
 The device idle share is 1 − (union of the device activity intervals) /
 (host wall time of the window). Results are printed and written to
 ``chiprun_out/profile_port.json`` in the repository.
 """
+import argparse
 import concurrent.futures
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import urllib.request
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_SERVE = 256
-KERNEL_MODE = {"0": "K1", "1": "K3", "2": "K2"}  # conv_stats.cuh's Mode
+KERNEL_MODE = {"0": "K1", "1": "K3", "2": "K2", "3": "K4"}  # conv_stats.cuh
+TRAIN_STEPS = 20
 
 
 def card_line():
@@ -253,7 +268,138 @@ def profile_serving(torch, config, bodies, card):
     return results
 
 
+def kernel_part(name):
+    """K1-K5 by the kernel's name (conv_stats.cuh's Mode, K5's wgrad)."""
+    if "wgrad_kernel" in name:
+        return "K5"
+    m = re.search(r"conv_stats_kernel<(\d)", name)
+    return KERNEL_MODE[m.group(1)] if m else None
+
+
+def device_ms(torch, fn, reps=5):
+    """Device time per call of ``fn`` under torch.profiler (sum of its
+    device events / reps), after one untraced call."""
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=act) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = device_events(torch, prof)
+    return sum(e.time_range.elapsed_us() for e in dev) / 1e3 / reps
+
+
+def component_ms(torch, trainer):
+    """Device ms per step of R, D and the generator's plain layers, each run
+    alone on the step's shapes with the step's share of work."""
+    dev = trainer.device
+    g, r, d = trainer.g_model, trainer.r_model, trainer.d_model
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def rand(*shape, grad=False):
+        return (torch.rand(*shape, generator=gen, device=dev) * 2 - 1
+                ).requires_grad_(grad)
+
+    img, real = rand(1, 512, 512, 1), rand(1, 512, 512, 1)
+    body = rand(1, 128, 128, 256, grad=True)
+    fake = rand(1, 512, 512, 1, grad=True)
+
+    def g_plain():
+        head = g.model_head(img)
+        tail = g.model_tail(body)
+        torch.autograd.backward([head, tail], [torch.ones_like(head),
+                                               torch.ones_like(tail)])
+        with torch.no_grad():  # the D update's re-forward
+            g.model_tail(g.model_head(img))
+
+    def r_step():
+        flow = r(fake, real)
+        flow.backward(torch.ones_like(flow))
+
+    def d_step():
+        out = d(fake)  # G's adversarial term: input gradient only
+        torch.autograd.grad(out.sum(), fake)
+        loss = d(fake.detach()).square().mean() + d(real).square().mean()
+        torch.autograd.grad(loss, list(d.parameters()))
+
+    out = {"G plain layers": device_ms(torch, g_plain),
+           "RegNet": device_ms(torch, r_step), "D": device_ms(torch, d_step)}
+    for m in (g, r, d):
+        m.zero_grad(set_to_none=True)
+    return out
+
+
+def _train_config(tmp, train_list, extra=""):
+    with open(os.path.join(REPO, "configs", "HdGan.yaml")) as f:
+        text = f.read()
+    text += "".join(f"\n{k}_list: '{train_list}'"
+                    for k in ("train", "val", "test")) + "\n" + extra
+    path = os.path.join(tmp, f"HdGan_profile{len(extra)}.yaml")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def profile_training(torch, card):
+    """HD stage-1 step breakdown over TRAIN_STEPS profiled steps."""
+    from ctagan_tpu_torch.data.fixtures import make_corpus
+    from ctagan_tpu_torch.train.trainers import HdTrainerStage1
+    from ctagan_tpu_torch.utils.config import load_config
+
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        lists = make_corpus(tmp, n_patients=2, slices_per_patient=6,
+                            size=512, seed=0, lists=("train",))
+        for route, tf32, extra in (
+                ("kernel route, TF32 off", False, ""),
+                ("kernel route, cuDNN TF32 on (--mode train)", True, ""),
+                ("plain route, TF32 off", False, "fused_body_grad: off\n")):
+            torch.backends.cudnn.allow_tf32 = tf32
+            config = load_config(_train_config(tmp, lists["train"], extra))
+            trainer = HdTrainerStage1(config, torch.device("cuda"),
+                                      quiet=True)
+            trainer.train(max_steps=2)
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=act) as prof:
+                t0 = time.perf_counter()
+                trainer.train(max_steps=2 + TRAIN_STEPS)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            dev = device_events(torch, prof)
+            per = {"K1": 0.0, "K4": 0.0, "K5": 0.0}
+            for e in dev:
+                part = kernel_part(e.name)
+                if part in per:
+                    per[part] += e.time_range.elapsed_us()
+            busy = busy_us(dev)
+            total = sum(e.time_range.elapsed_us() for e in dev)
+            row = {k: v / 1e3 / TRAIN_STEPS for k, v in per.items()}
+            row.update(component_ms(torch, trainer))
+            row["device total ms"] = total / 1e3 / TRAIN_STEPS
+            row["rest"] = row["device total ms"] - sum(
+                row[k] for k in ("K1", "K4", "K5", "G plain layers",
+                                 "RegNet", "D"))
+            row["step ms (traced, host wall)"] = wall / TRAIN_STEPS * 1e3
+            row["idle share"] = 1.0 - busy / (wall * 1e6)
+            results[route] = row
+            print(f"training step 512^2 b=1 f32, {route}: " + ", ".join(
+                f"{k} {v:.4f}" if k == "idle share" else f"{k} {v:.2f}"
+                for k, v in row.items()) + f" [{card}]", flush=True)
+            del trainer
+            torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = False
+    return results
+
+
 def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", choices=["forward", "serving", "training"],
+                    help="run one part (default: all)")
+    only = ap.parse_args().only
     import torch
 
     if not torch.cuda.is_available():
@@ -272,13 +418,19 @@ def main():
     _build.load_library()
     config = load_config(os.path.join(REPO, "configs", "HdGan.yaml"))
     report = {"card": card, "torch": torch.__version__}
-    report["forward"] = profile_forward(torch, card)
-    report["host"], bodies = host_costs(config)
-    torch.backends.cudnn.allow_tf32 = True  # as the entry point serves
-    report["serving"] = profile_serving(torch, config, bodies, card)
+    if only in (None, "forward"):
+        report["forward"] = profile_forward(torch, card)
+    if only in (None, "serving"):
+        report["host"], bodies = host_costs(config)
+        torch.backends.cudnn.allow_tf32 = True  # as the entry point serves
+        report["serving"] = profile_serving(torch, config, bodies, card)
+        torch.backends.cudnn.allow_tf32 = False
+    if only in (None, "training"):
+        report["training"] = profile_training(torch, card)
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "profile_port.json"), "w") as f:
+    name = "profile_port.json" if only is None else f"profile_{only}.json"
+    with open(os.path.join(out_dir, name), "w") as f:
         json.dump(report, f, indent=1)
     print(json.dumps(report), flush=True)
     return 0
