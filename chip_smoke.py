@@ -10,27 +10,38 @@ card, ``nvcc`` and no network, and imports nothing of JAX. Phases:
 2. ``kernels``: each kernel against its plain PyTorch version at the main
    paths' shapes, f32 and bf16, every variant a path uses (K1, K3, K2 at the
    serving generator's 512² shapes with N=2; K4 conv3x3_input_grad and K5
-   conv3x3_weight_grad at the training body's (1, 128, 128, 256)); times the
-   kernel, the plain version and one PyTorch library call of the same
-   function (cuDNN: a yardstick the port never calls) with CUDA events, and
-   computes each case's bound from its FLOPs and bytes;
+   conv3x3_weight_grad at the training body's (1, 128, 128, 256); K7
+   conv3x3_reflect_s8 at the int8 body's (2, 128, 128, 256) in both input
+   modes, f32 and bf16 out; K6 instance_norm_pallas at the int8 forward's
+   norm shapes, f32 and bf16 I/O); times the kernel, the plain version and
+   one PyTorch library call (cuDNN, ``F.instance_norm``, or for K7 the int8
+   GEMM alone: yardsticks the port never calls) with CUDA events, and
+   computes each case's bound from its operations and bytes;
 3. ``generator``: the full-width generator (9 blocks, base 64, 11,365,633
    parameters, seeded weights) at 512², b=2: the serving kernel route
    against the plain layer route, 18 K1, 2 K3 and 2 K2 launches per forward;
    forward times at b=1 and b=16;
-4. ``grad``: the generator's training route (``fused_body_grad``) against
+4. ``int8``: the same generator quantized (``ops/quantize.py``) at 512²,
+   b=2, with the InstanceNorm switch on: ``generator_int8_forward`` through
+   K7 and K6 against the same forward through their plain versions and
+   against the f32 plain route (PSNR), 18 K7 and 5 K6 launches per forward;
+   forward times at b=1 and b=16 beside the f32 kernel route;
+5. ``grad``: the generator's training route (``fused_body_grad``) against
    the plain layer route at 512², b=1, f32: output and every parameter's
    gradient, 18 K1 launches per forward, 18 K4 and 18 K5 per backward;
-5. ``serving``, a main path: ``serve_async`` on ``configs/HdGan.yaml``,
+6. ``serving``, a main path: ``serve_async`` on ``configs/HdGan.yaml``,
    concurrent POST /synthesize of synthetic DICOM slices, each response
    checked, one against the plain route;
-6. ``training``, a main path: ``python -m ctagan_tpu_torch --mode train``'s
+7. ``int8_serving``, a main path: the same on a copy of the config with
+   ``serve_quantize: int8`` and the InstanceNorm switch on, every response
+   against the f32 plain route (JAX's int8 service bound);
+8. ``training``, a main path: ``python -m ctagan_tpu_torch --mode train``'s
    ``train()`` on ``configs/HdGan.yaml`` with its list paths pointed at a
    seeded 512² corpus: finite losses, G, R and D all updated, 36 K1, 18 K4
    and 18 K5 launches per step; the p50 step time of the kernel route and
    of the plain route (``fused_body_grad: off``).
 
-The launch counts of the two main paths (each counted from zero) are the
+The launch counts of the three main paths (each counted from zero) are the
 ``launches`` of the kernels line. ``--phases a,b`` runs a subset and stops
 before the result lines. Any failure exits nonzero before the last line.
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
@@ -38,6 +49,7 @@ the kernels JSON, and the one before that the card's name and power limit.
 """
 import argparse
 import concurrent.futures
+import contextlib
 import json
 import os
 import subprocess
@@ -74,13 +86,43 @@ GRAD_TOL = 1e-3
 GRAD_FLOOR = 1e-3
 # served pixel (0..4095 stored values) vs the plain route on the same input
 PIXEL_TOL = 4.0
+# K7: the int32 sums are exact and the dequant is one rounding per operation
+# in a fixed order, so out equals the plain version's exactly; its stats are
+# summed with atomics in another order: 1e-4 relative
+K7_OUT_TOL = {"float32": 0.0, "bfloat16": 0.0}
+# K6: f32 1e-5 relative (rsqrtf, sum order of the statistics); bf16 two
+# bf16 ulps (the OUT_TOL bound)
+K6_OUT_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+# the int8 forward through K7/K6 vs the same forward through their plain
+# versions: a last-bit difference of a statistic (atomics) can move a value
+# across an int8 rounding boundary, one step of that tensor's scale, and each
+# later InstanceNorm and re-quantization carries it on through 9 blocks, so
+# the two int8 routes differ by int8-grade noise, only a little less than
+# int8 differs from f32 on this random-weight net. Held to a max of an eighth
+# of the [-1, 1] range, a mean below what int8 vs f32 gives, and a PSNR
+# between the two int8 routes above int8 vs f32 by INT8_PSNR_MARGIN dB (a
+# forward that skipped the quantization sits at the f32 distance). Measured
+# on an H100: mean 0.0189-0.0193 kernel vs plain, 0.0234 int8 vs f32; PSNR
+# 38.3-38.5 against 36.6 dB.
+INT8_MAX_TOL = 0.25
+INT8_MEAN_TOL = 0.021
+INT8_PSNR_MARGIN = 1.0
+# an int8 forward vs the f32 route: JAX's quality contract
+# (tests/test_quantize.py), PSNR over the [-1, 1] range
+INT8_PSNR_MIN = 30.0
+# a served int8 slice vs the f32 route on the same DICOM: the JAX int8
+# service's own bound (tests/test_quantize.py::
+# test_int8_through_serving_service), mean |error| over the [-1, 1] range
+INT8_SERVED_MEAN_TOL = 0.05
 N_REQUESTS = 16
 TRAIN_STEPS = 12  # kernel route; the p50 skips the first 2 steps
 PLAIN_STEPS = 6   # plain route, for its p50 beside the kernel route's
 # H100 SXM peaks (NVIDIA's H100 data sheet, 700 W): f32 outside
-# the tensor cores, bf16 dense tensor cores, HBM3 bytes/s
+# the tensor cores, bf16 and int8 dense tensor cores, HBM3 bytes/s
 PEAK_F32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
-ALL_PHASES = ("kernels", "generator", "grad", "serving", "training")
+PEAK_INT8 = 1979e12
+ALL_PHASES = ("kernels", "generator", "int8", "grad", "serving",
+              "int8_serving", "training")
 
 
 def fail(msg):
@@ -130,11 +172,17 @@ def as_tuple(r):
     return r if isinstance(r, tuple) else (r,)
 
 
+CONV_PEAKS = {"float32": (PEAK_F32, "f32 CUDA cores"),
+              "bfloat16": (PEAK_BF16, "bf16 tensor cores")}
+
+
 def kernel_cases(torch):
-    """(kernel, case, fn, plain_fn, make_inputs, library_fn, flops): the
-    main paths' shapes; make_inputs(dtype) returns the keyword arguments,
-    library_fn(kw) one PyTorch call of the same function on them (cuDNN, a
-    yardstick only) and flops(kw) the case's operations."""
+    """(kernel, case, fn, plain_fn, make_inputs, library_fn, flops[, spec]):
+    the main paths' shapes; make_inputs(dtype) returns the keyword
+    arguments, library_fn(kw) one PyTorch call of the same function on them
+    (a yardstick only) and flops(kw) the case's operations. ``spec``
+    overrides the tolerances (``out_tol``, ``stats_tol``) and the peak rate
+    of each dtype (``peaks``: dtype -> (ops/s, label))."""
     import torch.nn.functional as F
 
     from ctagan_tpu_torch.ops import (
@@ -142,6 +190,8 @@ def kernel_cases(torch):
         fused_down,
         fused_resblock,
         fused_resblock_grad,
+        fused_s8,
+        pallas_kernels,
     )
 
     dev = torch.device("cuda")
@@ -262,8 +312,55 @@ def kernel_cases(torch):
         n, h, w, c = kw["x"].shape
         return conv_flops(n, h // 2, w // 2, c, kw["w"].shape[3])
 
+    def k7(mode):
+        # dt is the output dtype; mode (i) takes the int8 trunk, mode (ii)
+        # the chain's bf16 raw h1 with its norm
+        def make(dt):
+            kw = dict(w_q=torch.randint(-127, 128, (3, 3, 256, 256),
+                                        generator=gen, device=dev,
+                                        dtype=torch.int8),
+                      w_scale=torch.rand(256, generator=gen, device=dev)
+                      * 1e-3 + 1e-4,
+                      b=randn(256, scale=0.1), out_dtype=dt)
+            x = randn(2, 128, 128, 256)
+            if mode == "i":
+                kw["x_scale"] = x.abs().amax() / 127.0
+                kw["x"] = torch.round(x / kw["x_scale"]).to(torch.int8)
+            else:
+                kw["x"] = (x * 3.0 + 0.5).to(torch.bfloat16)
+                kw["norm"] = normed(kw["x"])
+            return kw
+        return make
+
+    def k7_lib(kw):  # the int8 GEMM alone, on a pre-unfolded matrix
+        n, h, wd, c = kw["x"].shape
+        cols = torch.randint(-127, 128, (n * h * wd, 9 * c), generator=gen,
+                             device=dev, dtype=torch.int8)
+        wmat = kw["w_q"].reshape(9 * c, -1).t().contiguous().t()  # faster
+        return lambda: torch._int_mm(cols, wmat)
+
+    def k6(shape, activation):
+        def make(dt):
+            return dict(x=(randn(*shape) * 2.0 + 0.5).to(dt),
+                        activation=activation)
+        return make
+
+    def k6_lib(kw):
+        return lambda: F.instance_norm(nchw(kw["x"]))
+
+    def k6_flops(kw):  # sum, square-sum, subtract, multiply, activation
+        return 5.0 * kw["x"].numel()
+
     r, d, t = fused_resblock, fused_down, fused_convt
     gr = fused_resblock_grad
+    s8, pk = fused_s8, pallas_kernels
+    k7_spec = {"out_tol": K7_OUT_TOL, "stats_tol": {"float32": 1e-4,
+                                                    "bfloat16": 1e-4},
+               "peaks": {dt: (PEAK_INT8, "int8 tensor cores")
+                         for dt in CONV_PEAKS}}
+    k6_spec = {"out_tol": K6_OUT_TOL,
+               "peaks": {dt: (PEAK_F32, "f32 CUDA cores")
+                         for dt in CONV_PEAKS}}
     return [
         ("conv3x3_reflect_stats", f"K1 {v} N=2 128^2x256->256",
          r.conv3x3_reflect_stats, r.conv3x3_reflect_stats_plain, k1(v),
@@ -290,12 +387,22 @@ def kernel_cases(torch):
          gr.conv3x3_weight_grad, gr.conv3x3_weight_grad_plain, k5(v), k5_lib,
          x_flops(lambda kw: kw["g"].shape[3]))
         for v in ("norm_relu", "plain", "norm_relu_skip")
+    ] + [
+        ("conv3x3_reflect_s8", f"K7 mode ({m}) N=2 128^2x256->256 (dtype: out)",
+         s8.conv3x3_reflect_s8, s8.conv3x3_reflect_s8_plain, k7(m), k7_lib,
+         x_flops(lambda kw: kw["w_q"].shape[3]), k7_spec)
+        for m in ("i", "ii")
+    ] + [
+        ("instance_norm_pallas", f"K6 N=2 {h}^2x{c} {act}",
+         pk.instance_norm_pallas, pk.instance_norm_pallas_plain,
+         k6((2, h, h, c), act), k6_lib, k6_flops, k6_spec)
+        for h, c, act in ((512, 64, "relu"), (128, 256, None),
+                          (256, 128, "leaky_relu"))
     ]
 
 
-def bound_of(flops, moved, dt_name):
+def bound_of(flops, moved, peak):
     """(bound ms, 'operations' or 'bytes'): the larger of the two times."""
-    peak = PEAK_F32 if dt_name == "float32" else PEAK_BF16
     ops_ms, bytes_ms = flops / peak * 1e3, moved / PEAK_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
                                                               "bytes")
@@ -306,7 +413,12 @@ def check_kernels(torch):
     Returns {kernel: {...}}; the times and bound are those of the first
     case listed for the kernel, in f32."""
     results = {}
-    for name, case, fn, plain, make, library, flops_of in kernel_cases(torch):
+    for name, case, fn, plain, make, library, flops_of, *spec in (
+            kernel_cases(torch)):
+        spec = spec[0] if spec else {}
+        out_tol = spec.get("out_tol", OUT_TOL)
+        stats_tol = spec.get("stats_tol", STATS_TOL)
+        peaks = spec.get("peaks", CONV_PEAKS)
         for dt_name in ("float32", "bfloat16"):
             dt = getattr(torch, dt_name)
             kw = make(dt)
@@ -324,24 +436,26 @@ def check_kernels(torch):
             library_ms = cuda_ms(torch, library(kw))
             flops = flops_of(kw)
             moved = nbytes(*kw.values()) + nbytes(*got)
-            bound_ms, bound_by = bound_of(flops, moved, dt_name)
-            other = bound_of(flops, moved, "bfloat16" if dt_name == "float32"
-                             else "float32")[0]
-            ok = (out_rel <= OUT_TOL[dt_name] and xn_rel <= OUT_TOL[dt_name]
-                  and st_rel <= STATS_TOL[dt_name]
+            bound_ms, bound_by = bound_of(flops, moved, peaks[dt_name][0])
+            others = "; ".join(
+                f"{label} {bound_of(flops, moved, pk)[0]:.3f} ms"
+                for pk, label in sorted(set(peaks.values()))
+                if label != peaks[dt_name][1])
+            ok = (out_rel <= out_tol[dt_name] and xn_rel <= out_tol[dt_name]
+                  and st_rel <= stats_tol[dt_name]
                   and got[0].dtype == want[0].dtype and bool(torch.isfinite(
                       got[0].float()).all()))
             print(f"kernel {case} {dt_name}: out max_abs_err {out_err:.3e} "
-                  f"(scaled {out_rel:.3e}, tol {OUT_TOL[dt_name]:.3e}), "
+                  f"(scaled {out_rel:.3e}, tol {out_tol[dt_name]:.3e}), "
                   f"x_new scaled err {xn_rel:.3e}, stats rel err "
-                  f"{st_rel:.3e} (tol {STATS_TOL[dt_name]:.0e}); "
+                  f"{st_rel:.3e} (tol {stats_tol[dt_name]:.0e}); "
                   f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
-                  f"{library_ms:.3f} ms; {flops / 1e9:.2f} GFLOP, "
+                  f"{library_ms:.3f} ms; {flops / 1e9:.2f} G ops, "
                   f"{moved / 1e6:.1f} MB: bound {bound_ms:.3f} ms by "
-                  f"{bound_by} ({'f32 CUDA cores' if dt_name == 'float32' else 'bf16 tensor cores'}"
-                  f"; {'bf16 tensor cores' if dt_name == 'float32' else 'f32 CUDA cores'} "
-                  f"{other:.3f} ms), kernel at {flops / ms / 1e9:.1f} "
-                  f"TFLOP/s -> {'ok' if ok else 'MISMATCH'}", flush=True)
+                  f"{bound_by} ({peaks[dt_name][1]}"
+                  f"{'; ' + others if others else ''}), kernel at "
+                  f"{flops / ms / 1e9:.1f} T ops/s -> "
+                  f"{'ok' if ok else 'MISMATCH'}", flush=True)
             if not ok:
                 fail(f"{case} {dt_name} disagrees with its plain version")
             entry = results.setdefault(name, {
@@ -359,6 +473,8 @@ def _counted():
         fused_down,
         fused_resblock,
         fused_resblock_grad,
+        fused_s8,
+        pallas_kernels,
     )
 
     return {
@@ -367,6 +483,8 @@ def _counted():
         "convt2x_stats": fused_convt.convt2x_stats,
         "conv3x3_input_grad": fused_resblock_grad.conv3x3_input_grad,
         "conv3x3_weight_grad": fused_resblock_grad.conv3x3_weight_grad,
+        "instance_norm_pallas": pallas_kernels.instance_norm_pallas,
+        "conv3x3_reflect_s8": fused_s8.conv3x3_reflect_s8,
     }
 
 
@@ -388,6 +506,46 @@ PER_FORWARD = counts_of(conv3x3_reflect_stats=18, conv3x3_s2_zero_stats=2,
                         convt2x_stats=2)
 PER_TRAIN_STEP = counts_of(conv3x3_reflect_stats=36, conv3x3_input_grad=18,
                            conv3x3_weight_grad=18)
+# int8 forward with the InstanceNorm switch on: 2 K7 per residual block; K6
+# after the head, the two downs and the two ups
+PER_INT8_FORWARD = counts_of(conv3x3_reflect_s8=18, instance_norm_pallas=5)
+
+
+def psnr(a, b):
+    """PSNR over the [-1, 1] range (peak 2)."""
+    import numpy as np
+
+    mse = float(np.mean((np.asarray(a, np.float64) - b) ** 2))
+    return 10.0 * np.log10(4.0 / max(mse, 1e-12))
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """K7 and K6 swapped for their plain versions inside the block: the
+    module attributes through which the int8 forward reaches them."""
+    from ctagan_tpu_torch.ops import fused_s8, pallas_kernels
+
+    saved = fused_s8.conv3x3_reflect_s8, pallas_kernels.instance_norm_pallas
+    fused_s8.conv3x3_reflect_s8 = fused_s8.conv3x3_reflect_s8_plain
+    pallas_kernels.instance_norm_pallas = (
+        pallas_kernels.instance_norm_pallas_plain)
+    try:
+        yield
+    finally:
+        fused_s8.conv3x3_reflect_s8, pallas_kernels.instance_norm_pallas = saved
+
+
+@contextlib.contextmanager
+def pallas_norm_switch(on=True):
+    """``models.layers.USE_PALLAS_INSTANCE_NORM`` set inside the block, as a
+    deployment that sets JAX's switch would run the int8 forward."""
+    from ctagan_tpu_torch.models import layers
+
+    layers.USE_PALLAS_INSTANCE_NORM = on
+    try:
+        yield
+    finally:
+        layers.USE_PALLAS_INSTANCE_NORM = False
 
 
 def check_generator(torch, card):
@@ -438,8 +596,84 @@ def check_generator(torch, card):
                   f"iters) [{card}]", flush=True)
 
 
+def check_int8_generator(torch, card):
+    """Phase 4: the full-width generator quantized, int8 forward through
+    K7/K6 vs the same forward through their plain versions and vs the f32
+    plain route, at 512² b=2; forward times at b=1 and b=16."""
+    import numpy as np
+
+    from ctagan_tpu_torch.models import Generator
+    from ctagan_tpu_torch.ops.quantize import (
+        generator_int8_forward,
+        quantize_generator,
+        quantized_size_bytes,
+    )
+
+    dev = torch.device("cuda")
+    g = Generator(1, 1).reset_parameters(0).to(dev).eval()
+    qp = quantize_generator(g)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.rand(2, 512, 512, 1, generator=gen, device=dev) * 2 - 1
+    with torch.inference_mode():
+        with pallas_norm_switch():
+            reset_counts()
+            y = generator_int8_forward(qp, x)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            with plain_versions():
+                y_plain = generator_int8_forward(qp, x)
+                torch.cuda.synchronize()
+            plain_counts = launch_counts()
+        g.fused_body = False
+        y_f32 = g(x)
+        g.fused_body = True
+    y, y_plain, y_f32 = (t.float().cpu().numpy() for t in (y, y_plain, y_f32))
+    err = np.abs(y - y_plain)
+    p_k, p_p = psnr(y, y_f32), psnr(y_plain, y_f32)
+    finite = bool(np.isfinite(y).all())
+    p_kp = psnr(y, y_plain)
+    f32_mean = float(np.abs(y_plain - y_f32).mean())
+    print(f"int8 generator ({quantized_size_bytes(qp) / 1e6:.2f} MB of "
+          f"weights) 512^2 b=2: K7/K6 route vs plain versions max_abs_err "
+          f"{err.max():.3e} (tol {INT8_MAX_TOL}), mean {err.mean():.3e} (tol "
+          f"{INT8_MEAN_TOL}), PSNR {p_kp:.2f} dB (min {p_p:.2f} + "
+          f"{INT8_PSNR_MARGIN} dB); plain versions vs the f32 plain route "
+          f"mean {f32_mean:.3e}, PSNR {p_p:.2f} dB (K7/K6 route {p_k:.2f} "
+          f"dB); min {INT8_PSNR_MIN} dB; launches per forward {counts}; "
+          f"finite {finite}", flush=True)
+    if y.shape != (2, 512, 512, 1) or not finite:
+        fail("int8 generator: bad output")
+    if counts != PER_INT8_FORWARD or plain_counts != counts:
+        fail(f"int8 launches per forward {counts} (then {plain_counts} after "
+             f"the plain versions), expected {PER_INT8_FORWARD}")
+    if (err.max() > INT8_MAX_TOL or err.mean() > INT8_MEAN_TOL
+            or p_kp < p_p + INT8_PSNR_MARGIN
+            or min(p_k, p_p) < INT8_PSNR_MIN):
+        fail("int8 generator disagrees with its plain versions or the f32 "
+             "route")
+    for b in (1, 16):
+        xb = torch.rand(b, 512, 512, 1, generator=gen, device=dev) * 2 - 1
+        times = {}
+        with torch.inference_mode(), pallas_norm_switch():
+            for route in ("int8", "f32 kernels", "f32 kernels", "int8"):
+                fwd = ((lambda: generator_int8_forward(qp, xb))
+                       if route == "int8" else (lambda: g(xb)))
+                torch.cuda.reset_peak_memory_stats()
+                ms = cuda_ms(torch, fwd, iters=3, warmup=1)
+                times.setdefault(route, []).append(
+                    (ms, torch.cuda.max_memory_allocated() / 1e9))
+        best = {k: min(v) for k, v in times.items()}
+        print(f"generator forward 512^2 b={b}: int8 route (K7 + K6) "
+              f"{best['int8'][0]:.2f} ms (peak {best['int8'][1]:.2f} GB), "
+              f"f32 kernel route (K1-K3) {best['f32 kernels'][0]:.2f} ms "
+              f"(peak {best['f32 kernels'][1]:.2f} GB) (best of 2 turns x 3 "
+              f"iters) [{card}]", flush=True)
+    del g, qp
+    torch.cuda.empty_cache()
+
+
 def check_generator_grad(torch, card):
-    """Phase 4: the generator's training route (FusedChainFunction) vs the
+    """Phase 5: the generator's training route (FusedChainFunction) vs the
     plain layer route, output and every gradient, at 512² b=1 f32."""
     from ctagan_tpu_torch.models import Generator
 
@@ -500,8 +734,12 @@ def _post(port, body, timeout=300):
         return r.status, r.read()
 
 
-def check_serving(torch, card):
-    """Phase 5, a main path: the port's HTTP server on HdGan.yaml."""
+def check_serving(torch, card, quantize=""):
+    """Phase 6, a main path: the port's HTTP server on HdGan.yaml. With
+    ``quantize="int8"`` (phase 7, a main path of its own) the config copy
+    sets ``serve_quantize: int8``, the service runs the int8 forward with
+    the InstanceNorm switch on, and every response is held to the f32 plain
+    route by the JAX int8 service's bound."""
     import numpy as np
 
     from ctagan_tpu_torch.__main__ import build_generator
@@ -515,30 +753,42 @@ def check_serving(torch, card):
     from ctagan_tpu_torch.serving.server import serve_async
     from ctagan_tpu_torch.utils.config import load_config
 
-    config = load_config(os.path.join(REPO, "configs", "HdGan.yaml"))
+    path = os.path.join(REPO, "configs", "HdGan.yaml")
+    with tempfile.TemporaryDirectory() as tmp:
+        if quantize:  # the config a deployment writes: serve_quantize: int8
+            with open(path) as f:
+                text = f.read() + f"\nserve_quantize: {quantize}\n"
+            path = os.path.join(tmp, "HdGan_int8.yaml")
+            with open(path, "w") as f:
+                f.write(text)
+        config = load_config(path)
+    if config.serve_quantize != quantize:
+        fail(f"serve_quantize read as {config.serve_quantize!r}")
     dev = torch.device("cuda")
     g = build_generator(config, dev)
     rng = np.random.default_rng(config.seed)
     slices = [make_ct_slice(synthetic_ct_pixels(rng, config.size))
               for _ in range(N_REQUESTS)]
     bodies = [dicom_bytes(ds) for ds in slices]
-    reset_counts()
-    server, service, port = serve_async(
-        g, size=config.size, max_batch=config.max_batch,
-        channels=config.input_nc * config.context_slices)
-    try:
-        t0 = time.perf_counter()
-        with concurrent.futures.ThreadPoolExecutor(N_REQUESTS) as ex:
-            replies = list(ex.map(lambda b: _post(port, b), bodies))
-        wall = time.perf_counter() - t0
-        with urllib.request.urlopen(
-                f"http://127.0.0.1:{port}/healthz", timeout=60) as r:
-            health = json.loads(r.read())
-    finally:
-        server.shutdown()
-        server.server_close()
-        service.stop()
-    torch.cuda.synchronize()
+    with pallas_norm_switch(bool(quantize)):
+        reset_counts()
+        server, service, port = serve_async(
+            g, size=config.size, max_batch=config.max_batch,
+            quantize=config.serve_quantize,
+            channels=config.input_nc * config.context_slices)
+        try:
+            t0 = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(N_REQUESTS) as ex:
+                replies = list(ex.map(lambda b: _post(port, b), bodies))
+            wall = time.perf_counter() - t0
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/healthz", timeout=60) as r:
+                health = json.loads(r.read())
+        finally:
+            server.shutdown()
+            server.server_close()
+            service.stop()
+            torch.cuda.synchronize()
     counts = launch_counts()
     served = [read_dicom(body) for status, body in replies if status == 200]
     if len(served) != N_REQUESTS:
@@ -551,26 +801,41 @@ def check_serving(torch, card):
             fail("response kept the request's SeriesInstanceUID")
         if not (np.isfinite(px).all() and px.min() >= 0 and px.max() <= 4095):
             fail("response pixels outside [0, 4095]")
-    # one response against the plain layer route on the same input
-    _, full = dual_window_native(slices[0].pixel_array())
+    # the responses against the plain layer route on the same inputs: the
+    # first one (f32) or all of them (int8, whose per-tensor scales depend
+    # on which slices share a batch)
+    refs = slices[:N_REQUESTS if quantize else 1]
+    full = np.stack([dual_window_native(ds.pixel_array())[1] for ds in refs])
     with torch.inference_mode():
         g.fused_body = False
-        ref = g(torch.from_numpy(full[None, :, :, None]).to(dev))
+        ref = g(torch.from_numpy(full[..., None]).to(dev))
         g.fused_body = True
-    ref_px = (ref[0, :, :, 0].float().cpu().numpy() + 1.0) * 0.5 * 4095.0
-    px_err = float(np.abs(served[0].pixel_array() - ref_px).max())
-    if health.get("status") != "ok":
+    ref_px = (ref[..., 0].float().cpu().numpy() + 1.0) * 0.5 * 4095.0
+    px = np.stack([ds.pixel_array() for ds in served[:len(refs)]]).astype(
+        np.float64)
+    px_err = float(np.abs(px - ref_px).max())
+    got11, ref11 = px / 4095.0 * 2.0 - 1.0, ref_px / 4095.0 * 2.0 - 1.0
+    per_slice = np.abs(got11 - ref11).mean(axis=(1, 2))
+    px_mean, px_psnr = float(per_slice.max()), psnr(got11, ref11)
+    if health.get("status") != "ok" or health.get("quantize") != (
+            quantize or None):
         fail(f"/healthz: {health}")
     forwards = health["batches_served"] + 1  # + the warm-up forward
-    expect = {k: v * forwards for k, v in PER_FORWARD.items()}
-    print(f"serving {config.name} size {config.size}: {N_REQUESTS} concurrent "
+    per_forward = PER_INT8_FORWARD if quantize else PER_FORWARD
+    expect = {k: v * forwards for k, v in per_forward.items()}
+    check = (f"mean |error| per slice over [-1, 1] largest {px_mean:.4f} "
+             f"(tol {INT8_SERVED_MEAN_TOL}), average {per_slice.mean():.4f}; "
+             f"PSNR over the {len(refs)} slices {px_psnr:.2f} dB"
+             if quantize else f"max_abs_err {px_err:.2f} (tol {PIXEL_TOL})")
+    print(f"serving {config.name} size {config.size}"
+          f"{' int8' if quantize else ''}: {N_REQUESTS} concurrent "
           f"requests answered 200 with valid DICOM in {wall:.3f} s "
           f"({N_REQUESTS / wall:.2f} slices/s over this liveness window, not "
           f"a throughput; {health['batches_served']} batches, p50 batch "
-          f"{health['p50_batch_ms']:.1f} ms); pixels vs "
-          f"plain route max_abs_err {px_err:.2f} (tol {PIXEL_TOL}); launches "
-          f"{counts} [{card}]", flush=True)
-    if px_err > PIXEL_TOL:
+          f"{health['p50_batch_ms']:.1f} ms); pixels vs the f32 plain route "
+          f"{check}; launches {counts} [{card}]", flush=True)
+    if ((px_mean > INT8_SERVED_MEAN_TOL) if quantize
+            else (px_err > PIXEL_TOL)):
         fail("served pixels disagree with the plain route")
     if counts != expect:
         fail(f"main-path launches {counts}, expected {expect}")
@@ -590,7 +855,7 @@ def _smoke_config(tmp, train_list, extra=""):
 
 
 def check_training(torch, card):
-    """Phase 6, a main path: HD stage 1 through the train entry point."""
+    """Phase 8, a main path: HD stage 1 through the train entry point."""
     from ctagan_tpu_torch.__main__ import train
     from ctagan_tpu_torch.data.fixtures import make_corpus
     from ctagan_tpu_torch.models import Discriminator, Generator, RegNet
@@ -661,7 +926,17 @@ SOURCES = {
                            "ctagan_tpu/ops/fused_resblock_grad.py:100"),
     "conv3x3_weight_grad": ("ctagan_tpu_torch/csrc/fused_resblock_grad.cuh",
                             "ctagan_tpu/ops/fused_resblock_grad.py:282"),
+    "instance_norm_pallas": ("ctagan_tpu_torch/csrc/instance_norm.cu",
+                             "ctagan_tpu/ops/pallas_kernels.py:65"),
+    "conv3x3_reflect_s8": ("ctagan_tpu_torch/csrc/fused_s8.cu",
+                           "ctagan_tpu/ops/fused_s8.py:105"),
 }
+
+
+MAIN_PATHS = {"serving": check_serving,
+              "int8_serving": lambda torch, card: check_serving(
+                  torch, card, quantize="int8"),
+              "training": check_training}
 
 
 def main():
@@ -702,11 +977,12 @@ def main():
             kernels = check_kernels(torch)
         elif phase == "generator":
             check_generator(torch, card)
+        elif phase == "int8":
+            check_int8_generator(torch, card)
         elif phase == "grad":
             check_generator_grad(torch, card)
-        elif phase in ("serving", "training"):
-            run = check_serving if phase == "serving" else check_training
-            for name, n in run(torch, card).items():
+        elif phase in MAIN_PATHS:
+            for name, n in MAIN_PATHS[phase](torch, card).items():
                 launches[name] += n
         else:
             fail(f"unknown phase {phase!r}")

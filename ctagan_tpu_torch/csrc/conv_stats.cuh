@@ -66,6 +66,10 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
 template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f(from_f<T>(v));
 }
+// reflect pad 1 of an index into [0, n): -1 -> 1, n -> n - 2
+__device__ __forceinline__ int reflect1(int i, int n) {
+  return i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
+}
 
 template <int MODE, typename T>
 __global__ void __launch_bounds__(NT) conv_stats_kernel(Params p) {
@@ -140,11 +144,8 @@ __global__ void __launch_bounds__(NT) conv_stats_kernel(Params p) {
         int iy, ix;
         bool ok = gv[i];
         if (MODE == REFLECT_S1) {
-          iy = gy[i] + ky - 1;
-          ix = gx[i] + kx - 1;
-          // reflect: -1 -> 1, H -> H - 2
-          iy = iy < 0 ? -iy : (iy >= H ? 2 * H - 2 - iy : iy);
-          ix = ix < 0 ? -ix : (ix >= W ? 2 * W - 2 - ix : ix);
+          iy = reflect1(gy[i] + ky - 1, H);
+          ix = reflect1(gx[i] + kx - 1, W);
         } else if (MODE == ZERO_S2) {
           iy = 2 * gy[i] + ky - 1;
           ix = 2 * gx[i] + kx - 1;

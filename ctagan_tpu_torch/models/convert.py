@@ -46,6 +46,18 @@ def generator_state_dict(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def quantized_generator_params(tree: Any) -> Any:
+    """The tree ``ctagan_tpu.ops.quantize.quantize_generator`` returns, as
+    numpy arrays -> the port's int8 inference tree
+    (``ops/quantize.py::quantize_generator``): the same structure and
+    layouts, each array a tensor of its own dtype (int8 ``q``, f32 the rest)."""
+    if isinstance(tree, dict):
+        return {k: quantized_generator_params(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [quantized_generator_params(v) for v in tree]
+    return torch.from_numpy(np.array(tree))
+
+
 def discriminator_state_dict(tree: Dict[str, Any]
                              ) -> Dict[str, torch.Tensor]:
     """models.Discriminator params -> the scalar PatchGAN's

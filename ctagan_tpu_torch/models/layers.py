@@ -35,15 +35,41 @@ def channel_stats(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([xf.sum(dim=(1, 2)), (xf * xf).sum(dim=(1, 2))], dim=1)
 
 
-def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+# When True, instance_norm runs the fused InstanceNorm kernel K6
+# (ops.pallas_kernels.instance_norm_pallas) where JAX's gate admits the shape
+# (H % 16 == 0 and W >= 128), as ``ctagan_tpu/models/layers.py``'s switch of
+# the same name. K6 has no backward: an input that requires grad raises.
+USE_PALLAS_INSTANCE_NORM = False
+
+
+def pallas_norm_applies(x: torch.Tensor) -> bool:
+    """Whether instance_norm takes K6 for ``x``: the switch and JAX's gate."""
+    return (USE_PALLAS_INSTANCE_NORM and x.shape[1] % 16 == 0
+            and x.shape[2] >= 128)
+
+
+def instance_norm(x: torch.Tensor, eps: float = 1e-5,
+                  activation: Optional[str] = None) -> torch.Tensor:
     """InstanceNorm2d(affine=False) over H, W with the JAX package's one-pass
     clamped f32 statistics, var = max(E[x²] − E[x]², 0), cast back to
-    x.dtype (``F.instance_norm`` takes two passes and rounds differently)."""
+    x.dtype (``F.instance_norm`` takes two passes and rounds differently),
+    then ``activation`` (None or ``"relu"``). With the switch
+    :data:`USE_PALLAS_INSTANCE_NORM` on, a shape JAX's gate admits goes
+    through :func:`~ctagan_tpu_torch.ops.pallas_kernels.instance_norm_pallas`
+    (K6) with the activation fused."""
+    if activation not in (None, "relu"):
+        raise ValueError(f"activation must be None or 'relu', got "
+                         f"{activation!r}")
+    if pallas_norm_applies(x):
+        from ctagan_tpu_torch.ops.pallas_kernels import instance_norm_pallas
+
+        return instance_norm_pallas(x, eps=eps, activation=activation)
     xf = x.to(acc_dtype(x.dtype))
     mean = xf.mean(dim=(1, 2), keepdim=True)
     m2 = (xf * xf).mean(dim=(1, 2), keepdim=True)
     var = torch.clamp(m2 - mean * mean, min=0.0)
-    return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+    out = ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+    return torch.relu(out) if activation == "relu" else out
 
 
 def _cast(t: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:

@@ -29,6 +29,7 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # entry point -> argtypes (pointers and the stream as c_void_p)
 _SIGNATURES = {
     # x, skip, w, b, norm, out, stats, xnew, n, h, w, c, cout, relu, bf16,
@@ -41,6 +42,11 @@ _SIGNATURES = {
     "ctk_conv3x3_zero_corr": [_P] * 3 + [_I] * 6 + [_P],
     # x, skip, g, norm, dw, n, h, w, c, cout, relu, bf16, stream
     "ctk_conv3x3_weight_grad": [_P] * 5 + [_I] * 7 + [_P],
+    # x, w, scale, b, norm, out, stats, n, h, w, c, cout, in_kind, out_bf16,
+    # qmul, stream
+    "ctk_conv3x3_reflect_s8": [_P] * 7 + [_I] * 7 + [_F, _P],
+    # x, out, stats, n, h, w, c, act, bf16, eps, stream
+    "ctk_instance_norm": [_P] * 3 + [_I] * 6 + [_F, _P],
 }
 
 _lock = threading.Lock()

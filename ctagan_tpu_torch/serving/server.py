@@ -7,10 +7,14 @@
 A collector thread drains the request queue up to ``max_batch`` (or
 ``batch_timeout_ms``) and runs one generator forward per batch under
 ``torch.inference_mode()`` on the service's own CUDA stream (or on the CPU).
+With ``quantize="int8"`` the generator is quantized once at construction
+and each batch runs ``ops/quantize.py::generator_int8_forward`` (the int8
+residual body through K7).
 Forwards are enqueued asynchronously; up to ``pipeline_depth`` batches stay
 in flight, each synced by its device→host copy in ``_resolve``. Batches are
 not padded to ``max_batch``: InstanceNorm is per sample, so a short batch
-gives the same per-slice result. The DICOM codec and the host preprocessing
+gives the same per-slice result (in int8 the per-tensor activation scales
+span the batch, as in JAX, whose padded batches share them too). The DICOM codec and the host preprocessing
 are the port's numpy modules (``data/dicom.py``, ``data/native.py``).
 """
 from __future__ import annotations
@@ -71,11 +75,18 @@ class SynthesisService:
         if channels % 2 != 1:
             raise ValueError("channels (context_slices) must be odd")
         if quantize == "int8":
-            raise NotImplementedError(
-                "int8 serving needs the int8 residual kernel, not ported yet")
-        if quantize:
+            from ctagan_tpu_torch.ops.quantize import (
+                generator_int8_forward,
+                quantize_generator,
+            )
+
+            qparams = quantize_generator(g_model)
+            self._fwd = lambda x: generator_int8_forward(qparams, x)
+        elif quantize:
             raise ValueError(f"unknown quantize mode {quantize!r}")
-        self.model = g_model.eval()
+        else:
+            self._fwd = g_model
+        g_model.eval()
         self.device = next(g_model.parameters()).device
         self.size = size
         self.channels = channels
@@ -105,7 +116,7 @@ class SynthesisService:
         """Enqueue one batch's forward; returns the (not yet synced) output."""
         with self._stream_ctx(), torch.inference_mode():
             xt = torch.from_numpy(x).to(self.device, non_blocking=True)
-            return self.model(xt)
+            return self._fwd(xt)
 
     def _fetch(self, y: torch.Tensor) -> np.ndarray:
         """Device→host copy of a forward's output; waits for the batch."""

@@ -231,5 +231,6 @@ def test_build_flags_target_hopper():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     cu, cuh = _build._sources()
     names = sorted(p.rsplit("/", 1)[-1] for p in cu)
-    assert names == ["fused_convt.cu", "fused_down.cu", "fused_resblock.cu"]
+    assert names == ["fused_convt.cu", "fused_down.cu", "fused_resblock.cu",
+                     "fused_s8.cu", "instance_norm.cu"]
     assert cuh and _build.BUILD_DIR.endswith("build/ctagan_tpu_torch")

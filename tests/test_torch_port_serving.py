@@ -172,11 +172,43 @@ def test_series_streaming_context():
                                               2 + 30 + 300]
 
 
-@pytest.mark.parametrize("mode,exc", [("int8", NotImplementedError),
-                                      ("fp4", ValueError)])
+@pytest.mark.parametrize("mode,exc", [("fp4", ValueError)])
 def test_quantize_modes_rejected(mode, exc):
     with pytest.raises(exc):
         SynthesisService(_Scale(1.0), size=8, quantize=mode)
+
+
+def test_int8_service_matches_jax_int8_service():
+    """quantize="int8" serves through the int8 forward: 4 requests answered
+    close to the JAX service's int8 answers on the same weights. Int8
+    rounding flips between the two frameworks (a last-bit difference of a
+    conv moves a value across a rounding boundary, which the next
+    re-quantization carries on) keep them a few int8 steps apart, well
+    inside JAX's own bound of its int8 service against f32 (mean 0.05)."""
+    g_jax = JaxGenerator(1, 1, n_residual_blocks=3)
+    params = g_jax.init(jax.random.PRNGKey(0), jnp.zeros((1, SIZE, SIZE, 1)))
+    g = Generator(1, 1, n_residual_blocks=3)
+    g.load_state_dict(generator_state_dict(jax.device_get(params)),
+                      strict=True)
+    from ctagan_tpu.serving.server import SynthesisService as JaxService
+
+    jsvc = JaxService(g_jax, params, size=SIZE, max_batch=2, quantize="int8")
+    svc = SynthesisService(g, size=SIZE, max_batch=2, quantize="int8")
+    try:
+        rng = np.random.default_rng(0)
+        imgs = [rng.uniform(-1, 1, (SIZE, SIZE)).astype(np.float32)
+                for _ in range(4)]
+        with concurrent.futures.ThreadPoolExecutor(4) as ex:
+            got = list(ex.map(svc.synthesize, imgs))
+            want = list(ex.map(jsvc.synthesize, imgs))
+        assert svc.stats()["quantize"] == "int8"
+    finally:
+        svc.stop()
+        jsvc.stop()
+    for w, o in zip(want, got):
+        assert o.shape == (SIZE, SIZE) and np.isfinite(o).all()
+        assert np.mean(np.abs(w - o)) < 0.02
+        assert np.abs(w - o).max() < 0.25
 
 
 def test_port_runs_without_jax(tmp_path):

@@ -8,10 +8,13 @@ training]``. It imports nothing of JAX. Phases, all at 512² on
 
 1. generator forward at b=16 under ``torch.profiler`` (3 forwards after 2
    warm-ups) for f32 with TF32 off, f32 with cuDNN's TF32 on (PyTorch's
-   default, which ``python -m ctagan_tpu_torch`` leaves in place) and
-   bf16: device time of K1, K3, K2 (by kernel name), of the 7×7 head and
-   tail convs (by the weight shape of their ``aten::convolution``), the rest,
-   and the device idle share of the window;
+   default, which ``python -m ctagan_tpu_torch`` leaves in place), bf16
+   and the int8 forward (``serve_quantize: int8``, TF32 off, the
+   InstanceNorm switch on): device time of K1, K3, K2, K7 and K6 (by kernel
+   name), of the int8 GEMMs of the downs and ups (``aten::_int_mm``), of the
+   7×7 head and tail convs (by the weight shape of their
+   ``aten::cudnn_convolution``; each op's own kernels), the rest, and the
+   device idle share of the window;
 2. host cost per 512² request: DICOM decode + dual window, and writeback +
    encode, mean over 64 requests;
 3. the HTTP service (``serve_async``, the config's ``max_batch``): 256
@@ -79,43 +82,52 @@ def busy_us(events):
     return total
 
 
-def device_us(evt):
-    """Device time of a CPU op and its children (torch >= 2.4 name first)."""
-    for attr in ("device_time_total", "cuda_time_total"):
-        v = getattr(evt, attr, None)
-        if v is not None:
-            return float(v)
-    return 0.0
-
-
 def breakdown(torch, prof, wall_s, n_fwd):
     """Per-forward device ms by part, and the idle share of the window."""
     dev = device_events(torch, prof)
     if not dev:
         return None
-    parts = {"K1": 0.0, "K3": 0.0, "K2": 0.0, "head 7x7": 0.0,
-             "tail 7x7": 0.0}
+    parts = {"K1": 0.0, "K3": 0.0, "K2": 0.0, "K7": 0.0, "K6": 0.0,
+             "int8 GEMM": 0.0, "head 7x7": 0.0, "tail 7x7": 0.0}
     for e in dev:
         m = re.search(r"conv_stats_kernel<(\d)", e.name)
         if m:
             parts[KERNEL_MODE[m.group(1)]] += e.time_range.elapsed_us()
+        elif "conv_s8_kernel" in e.name:
+            parts["K7"] += e.time_range.elapsed_us()
+        elif "in_stats_kernel" in e.name or "in_norm_kernel" in e.name:
+            parts["K6"] += e.time_range.elapsed_us()
+    seen = set()
     for e in prof.events():
-        if e.name != "aten::convolution" or not e.input_shapes:
+        # the op's own kernels, each event once: torch 2.11's device totals
+        # of CPU ops over-counted the int8 route's last 7x7 conv fourfold
+        if e.id in seen or e.name not in ("aten::_int_mm",
+                                          "aten::cudnn_convolution"):
             continue
-        w = e.input_shapes[1]  # (O, I, kh, kw)
+        seen.add(e.id)
+        own_us = sum(k.duration for k in e.kernels)
+        if e.name == "aten::_int_mm":
+            parts["int8 GEMM"] += own_us
+            continue
+        w = e.input_shapes[1] if e.input_shapes else ()  # (O, I, kh, kw)
         if len(w) == 4 and w[2] == 7:
-            parts["head 7x7" if w[1] == 1 else "tail 7x7"] += device_us(e)
+            parts["head 7x7" if w[1] == 1 else "tail 7x7"] += own_us
     busy = busy_us(dev)
     total = sum(e.time_range.elapsed_us() for e in dev)
     parts["rest"] = total - sum(parts.values())
-    out = {k: v / 1e3 / n_fwd for k, v in parts.items()}
+    out = {k: v / 1e3 / n_fwd for k, v in parts.items()
+           if v or k == "rest"}
     out["device busy ms"] = busy / 1e3 / n_fwd
     out["idle share"] = 1.0 - busy / (wall_s * 1e6)
     return out
 
 
 def profile_forward(torch, card):
-    from ctagan_tpu_torch.models import Generator
+    from ctagan_tpu_torch.models import Generator, layers
+    from ctagan_tpu_torch.ops.quantize import (
+        generator_int8_forward,
+        quantize_generator,
+    )
 
     dev = torch.device("cuda")
     base = Generator(1, 1).reset_parameters(0)
@@ -126,20 +138,30 @@ def profile_forward(torch, card):
     results = {}
     for route, dtype, tf32 in (("f32, TF32 off", torch.float32, False),
                                ("f32, cuDNN TF32 on", torch.float32, True),
-                               ("bf16", torch.bfloat16, False)):
+                               ("bf16", torch.bfloat16, False),
+                               ("int8, TF32 off", None, False)):
         torch.backends.cudnn.allow_tf32 = tf32
         g = Generator(1, 1, dtype=dtype)
         g.load_state_dict(base.state_dict())
         g = g.to(dev).eval()
+        if dtype is None:  # int8: K7 body, K6 norms (the switch on)
+            qp = quantize_generator(g)
+            layers.USE_PALLAS_INSTANCE_NORM = True
+
+            def fwd():
+                return generator_int8_forward(qp, x)
+        else:
+            def fwd():
+                return g(x)
         with torch.inference_mode():
             for _ in range(2):
-                g(x)
+                fwd()
             torch.cuda.synchronize()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             for _ in range(3):
-                g(x)
+                fwd()
             end.record()
             end.synchronize()
             untraced = start.elapsed_time(end) / 3
@@ -147,9 +169,10 @@ def profile_forward(torch, card):
                                         record_shapes=True) as prof:
                 t0 = time.perf_counter()
                 for _ in range(3):
-                    g(x)
+                    fwd()
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
+        layers.USE_PALLAS_INSTANCE_NORM = False
         b = breakdown(torch, prof, wall, 3)
         results[route] = {"forward ms (CUDA events)": untraced,
                           "forward ms (traced, host wall)": wall / 3 * 1e3,
