@@ -16,7 +16,9 @@ card, ``nvcc`` and no network, and imports nothing of JAX. Phases:
    norm shapes, f32 and bf16 I/O); times the kernel, the plain version and
    one PyTorch library call (cuDNN, ``F.instance_norm``, or for K7 the int8
    GEMM alone: yardsticks the port never calls) with CUDA events, and
-   computes each case's bound from its operations and bytes;
+   computes each case's bound from its operations and bytes; K1 also at a
+   ragged (1, 40, 40, 256) and at C = Cout = 128, and its built kernels are
+   held to hold ``HGMMA`` (``wgmma``) instructions (``cuobjdump -sass``);
 3. ``generator``: the full-width generator (9 blocks, base 64, 11,365,633
    parameters, seeded weights) at 512², b=2: the serving kernel route
    against the plain layer route, 18 K1, 2 K3 and 2 K2 launches per forward;
@@ -118,9 +120,10 @@ N_REQUESTS = 16
 TRAIN_STEPS = 12  # kernel route; the p50 skips the first 2 steps
 PLAIN_STEPS = 6   # plain route, for its p50 beside the kernel route's
 # H100 SXM peaks (NVIDIA's H100 data sheet, 700 W): f32 outside
-# the tensor cores, bf16 and int8 dense tensor cores, HBM3 bytes/s
+# the tensor cores, bf16, int8 and TF32 dense tensor cores, HBM3 bytes/s
 PEAK_F32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
-PEAK_INT8 = 1979e12
+PEAK_INT8, PEAK_TF32 = 1979e12, 495e12
+K1_KERNEL = "k1_wgmma_kernel"  # csrc/fused_resblock.cu
 ALL_PHASES = ("kernels", "generator", "int8", "grad", "serving",
               "int8_serving", "training")
 
@@ -182,7 +185,8 @@ def kernel_cases(torch):
     arguments, library_fn(kw) one PyTorch call of the same function on them
     (a yardstick only) and flops(kw) the case's operations. ``spec``
     overrides the tolerances (``out_tol``, ``stats_tol``) and the peak rate
-    of each dtype (``peaks``: dtype -> (ops/s, label))."""
+    of each dtype (``peaks``: dtype -> (ops/s, label)), and ``also`` adds
+    (ops/s, label) bounds printed beside the case's own."""
     import torch.nn.functional as F
 
     from ctagan_tpu_torch.ops import (
@@ -216,17 +220,17 @@ def kernel_cases(torch):
     def conv_flops(n, h, w, c, co):
         return 2.0 * n * h * w * 9 * c * co
 
-    def k1(variant, n=2):
+    def k1(variant, n=2, hw=128, c=256):
         def make(dt):
-            x = randn(n, 128, 128, 256).to(dt)
-            kw = dict(x=x, w=randn(3, 3, 256, 256, scale=0.02),
-                      b=randn(256, scale=0.1))
+            x = randn(n, hw, hw, c).to(dt)
+            kw = dict(x=x, w=randn(3, 3, c, c, scale=0.02),
+                      b=randn(c, scale=0.1))
             if variant != "plain":
                 kw["norm"] = normed(x)
             if variant in ("norm_relu", "emit_norm_relu"):
                 kw["relu"] = True
             if variant == "norm_skip":
-                kw["skip"] = randn(n, 128, 128, 256).to(dt)
+                kw["skip"] = randn(n, hw, hw, c).to(dt)
             if variant == "emit_norm_relu":
                 kw["emit_input"] = True
             return kw
@@ -361,11 +365,24 @@ def kernel_cases(torch):
     k6_spec = {"out_tol": K6_OUT_TOL,
                "peaks": {dt: (PEAK_F32, "f32 CUDA cores")
                          for dt in CONV_PEAKS}}
+    # K1's f32 route is three TF32 products on the tensor cores (3xTF32)
+    k1_spec = {"peaks": {"float32": (PEAK_TF32 / 3,
+                                     "3 TF32 products, tensor cores"),
+                         "bfloat16": CONV_PEAKS["bfloat16"]},
+               "also": (CONV_PEAKS["float32"],)}
+    k1_flops = x_flops(lambda kw: kw["w"].shape[3])
     return [
         ("conv3x3_reflect_stats", f"K1 {v} N=2 128^2x256->256",
          r.conv3x3_reflect_stats, r.conv3x3_reflect_stats_plain, k1(v),
-         k1_lib, x_flops(lambda kw: kw["w"].shape[3]))
+         k1_lib, k1_flops, k1_spec)
         for v in ("norm_relu", "emit_norm_relu", "norm_skip", "plain")
+    ] + [
+        ("conv3x3_reflect_stats", "K1 norm_skip ragged N=1 40^2x256->256",
+         r.conv3x3_reflect_stats, r.conv3x3_reflect_stats_plain,
+         k1("norm_skip", n=1, hw=40), k1_lib, k1_flops, k1_spec),
+        ("conv3x3_reflect_stats", "K1 norm_relu N=2 128^2x128->128",
+         r.conv3x3_reflect_stats, r.conv3x3_reflect_stats_plain,
+         k1("norm_relu", c=128), k1_lib, k1_flops, k1_spec),
     ] + [
         ("conv3x3_s2_zero_stats", "K3 down1 N=2 64->128 512^2",
          d.conv3x3_s2_zero_stats, d.conv3x3_s2_zero_stats_plain, k3(64, 128),
@@ -419,6 +436,7 @@ def check_kernels(torch):
         out_tol = spec.get("out_tol", OUT_TOL)
         stats_tol = spec.get("stats_tol", STATS_TOL)
         peaks = spec.get("peaks", CONV_PEAKS)
+        labelled = sorted(set(peaks.values()) | set(spec.get("also", ())))
         for dt_name in ("float32", "bfloat16"):
             dt = getattr(torch, dt_name)
             kw = make(dt)
@@ -439,8 +457,7 @@ def check_kernels(torch):
             bound_ms, bound_by = bound_of(flops, moved, peaks[dt_name][0])
             others = "; ".join(
                 f"{label} {bound_of(flops, moved, pk)[0]:.3f} ms"
-                for pk, label in sorted(set(peaks.values()))
-                if label != peaks[dt_name][1])
+                for pk, label in labelled if label != peaks[dt_name][1])
             ok = (out_rel <= out_tol[dt_name] and xn_rel <= out_tol[dt_name]
                   and st_rel <= stats_tol[dt_name]
                   and got[0].dtype == want[0].dtype and bool(torch.isfinite(
@@ -915,6 +932,32 @@ def check_training(torch, card):
     return counts
 
 
+def check_tensor_cores(lib_path):
+    """K1's kernels (each instantiation, f32 and bf16 I/O) hold HGMMA
+    (wgmma) instructions in the built library's SASS, so a K1 that runs on
+    CUDA-core FMAs fails."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        res = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                             text=True, timeout=300)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        fail(f"cuobjdump: {e!r}")
+    if res.returncode != 0:
+        fail(f"cuobjdump -sass failed: {res.stderr.strip()[-2000:]}")
+    counts = {}
+    for func in res.stdout.split("Function : ")[1:]:
+        name = func.split("\n", 1)[0].strip()
+        if K1_KERNEL in name:
+            counts[name] = func.count("HGMMA")
+    print(f"sass: K1 kernels and their HGMMA instructions: {counts}",
+          flush=True)
+    dtypes = {"f32" if "kernelIf" in name else "bf16" for name in counts}
+    if dtypes != {"f32", "bf16"} or not all(counts.values()):
+        fail("K1's f32 and bf16 kernels must all run on wgmma (HGMMA)")
+
+
 SOURCES = {
     "conv3x3_reflect_stats": ("ctagan_tpu_torch/csrc/fused_resblock.cu",
                               "ctagan_tpu/ops/fused_resblock.py:172"),
@@ -969,6 +1012,7 @@ def main():
     lib = _build.load_library(verbose=True)
     print(f"built kernels from {os.path.relpath(_build.SRC_DIR, REPO)} in "
           f"{time.perf_counter() - t0:.1f} s -> {lib._name}", flush=True)
+    check_tensor_cores(lib._name)
 
     kernels, launches = {}, {name: 0 for name in SOURCES}
     for phase in phases:

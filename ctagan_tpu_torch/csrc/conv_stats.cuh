@@ -1,12 +1,12 @@
-// Shared implicit-GEMM core of the generator's three fused conv kernels.
+// Shared implicit-GEMM core of K3, K2 and K4 (CUDA-core FMAs), and the
+// element helpers that K1 (fused_resblock.cu, on the tensor cores) also uses.
 //
 // Each kernel is a 3x3 convolution over an NHWC tensor that also emits the
 // per-(sample, channel) [sum, sum^2] of its own dtype-rounded output, with the
 // previous InstanceNorm's (mean, rstd) and ReLU folded into the input read.
-// The three differ only in how an output pixel and a tap map to an input
-// pixel, which is the MODE template argument:
+// They differ only in how an output pixel and a tap map to an input pixel,
+// which is the MODE template argument:
 //
-//   REFLECT_S1  stride-1 conv, reflect pad 1          (ops/fused_resblock.py)
 //   ZERO_S2     stride-2 conv, zero pad 1             (ops/fused_down.py)
 //   CONVT_S2    ConvTranspose k3 s2 p1 op1, one output phase per blockIdx.z
 //               (1/2/2/4 taps; no dilated buffer)     (ops/fused_convt.py)
@@ -16,10 +16,9 @@
 //
 // Block = one tile of BM output pixels of one sample x BN output channels.
 // K = taps x C is walked in BK-channel chunks: the block stages a BK x BM
-// input tile (boundary, norm, ReLU, skip-add applied as it is loaded, f32)
+// input tile (boundary, norm and ReLU applied as it is loaded, f32)
 // and a BK x BN weight tile in shared memory, and each of the 256 threads
-// accumulates a 4x4 register tile in f32 (CUDA-core FMAs; no tensor cores in
-// this first version). The epilogue adds the bias, rounds to the I/O dtype,
+// accumulates a 4x4 register tile in f32 (CUDA-core FMAs, no tensor cores). The epilogue adds the bias, rounds to the I/O dtype,
 // stores, reduces sum/sum^2 of the rounded values over the tile's pixels and
 // atomically adds them into the zeroed f32 (N, 2, Cout) stats buffer.
 #pragma once
@@ -29,7 +28,7 @@
 
 namespace ctk {
 
-enum Mode { REFLECT_S1 = 0, ZERO_S2 = 1, CONVT_S2 = 2, ZERO_S1 = 3 };
+enum Mode { ZERO_S2 = 1, CONVT_S2 = 2, ZERO_S1 = 3 };
 
 constexpr int BM = 64;   // output pixels per block
 constexpr int BN = 64;   // output channels per block
@@ -38,14 +37,12 @@ constexpr int NT = 256;  // threads per block (16 x 16, 4 x 4 outputs each)
 
 struct Params {
   const void* x;       // (N, H, W, C) input, T
-  const void* skip;    // (N, H, W, C) residual stream, T, or null (REFLECT_S1)
   const void* weight;  // (3, 3, C, Cout) weight, T
   const float* b;      // (Cout,) bias, f32 (unused by ZERO_S1)
   const float* norm;   // (N, 2, C) [mean, rstd], f32, or null
   void* out;           // (N, Ho, Wo, Cout), T
   float* stats;        // (N, 2, Cout) [sum, sum^2], f32, zeroed by the caller
                        // (unused by ZERO_S1)
-  void* xnew;          // (N, H, W, C) emitted conv input, T, or null
   int n, h, w, c, cout;
   int ho, wo;
   int relu;
@@ -66,7 +63,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
 template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f(from_f<T>(v));
 }
-// reflect pad 1 of an index into [0, n): -1 -> 1, n -> n - 2
+// reflect pad 1 of an index into [0, n): -1 -> 1, n -> n - 2 (K1)
 __device__ __forceinline__ int reflect1(int i, int n) {
   return i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
 }
@@ -79,10 +76,8 @@ __global__ void __launch_bounds__(NT) conv_stats_kernel(Params p) {
   __shared__ float red[2][NT / 16][BN];
 
   const T* __restrict__ x = static_cast<const T*>(p.x);
-  const T* __restrict__ skip = static_cast<const T*>(p.skip);
   const T* __restrict__ w = static_cast<const T*>(p.weight);
   T* __restrict__ out = static_cast<T*>(p.out);
-  T* __restrict__ xnew = static_cast<T*>(p.xnew);
   const float* __restrict__ norm = p.norm;
 
   const int tid = threadIdx.x;
@@ -112,10 +107,6 @@ __global__ void __launch_bounds__(NT) conv_stats_kernel(Params p) {
     gy[i] = gv[i] ? m / gw : 0;
     gx[i] = gv[i] ? m % gw : 0;
   }
-  // the emitted input is written by the channel-tile-0 blocks only, at the
-  // centre tap, where input pixel == output pixel: each element exactly once
-  const bool emit_block = (xnew != nullptr) && blockIdx.y == 0;
-
   float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -137,16 +128,12 @@ __global__ void __launch_bounds__(NT) conv_stats_kernel(Params p) {
         ky = ti;
         kx = tj;
       }
-      const bool center = (ky == 1 && kx == 1);
       long long off[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         int iy, ix;
         bool ok = gv[i];
-        if (MODE == REFLECT_S1) {
-          iy = reflect1(gy[i] + ky - 1, H);
-          ix = reflect1(gx[i] + kx - 1, W);
-        } else if (MODE == ZERO_S2) {
+        if (MODE == ZERO_S2) {
           iy = 2 * gy[i] + ky - 1;
           ix = 2 * gx[i] + kx - 1;
           ok = ok && iy >= 0 && iy < H && ix >= 0 && ix < W;
@@ -178,10 +165,8 @@ __global__ void __launch_bounds__(NT) conv_stats_kernel(Params p) {
             if (norm != nullptr) {
               v = (v - mean) * rstd;
               if (p.relu) v = fmaxf(v, 0.f);
-              v = round_to<T>(v);  // cast, then add the skip
+              v = round_to<T>(v);
             }
-            if (skip != nullptr) v = round_to<T>(to_f(skip[off[i] + c]) + v);
-            if (emit_block && center) xnew[off[i] + c] = from_f<T>(v);
           }
           As[lk][lm + 16 * i] = v;
         }

@@ -7,9 +7,9 @@ extern "C" int ctk_conv3x3_s2_zero_stats(
     const void* x, const void* w, const void* b, const void* norm, void* out,
     void* stats, int n, int h, int wd, int c, int cout, int relu, int bf16,
     void* stream) {
-  ctk::Params p{x, nullptr, w, static_cast<const float*>(b),
+  ctk::Params p{x, w, static_cast<const float*>(b),
                 static_cast<const float*>(norm), out,
-                static_cast<float*>(stats), nullptr, n, h, wd, c, cout,
+                static_cast<float*>(stats), n, h, wd, c, cout,
                 h / 2, wd / 2, relu};
   return ctk::launch<ctk::ZERO_S2>(p, bf16, stream);
 }

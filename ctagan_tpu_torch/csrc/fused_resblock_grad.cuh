@@ -19,11 +19,11 @@
 //
 // What bounds them on the H100: at the main path's (1, 128, 128, 256) x 256
 // each is 19.3 GFLOP over ~33 MB of operands, far above the ops-per-byte
-// ridge, so arithmetic bounds both. Like K1 they accumulate with f32 CUDA-core
-// FMAs in a 4 x 4 register tile per thread (no tensor cores yet: the f32
-// non-tensor peak is ~67 TFLOP/s, the bf16 tensor peak 989), so their speed
-// is K1's: 13-20 TFLOP/s on an H100 80GB HBM3 at 700 W. wgmma and TMA are
-// later work.
+// ridge, so arithmetic bounds both. Like K1's first version they accumulate
+// with f32 CUDA-core FMAs in a 4 x 4 register tile per thread (no tensor
+// cores yet: the f32 non-tensor peak is ~67 TFLOP/s, the bf16 tensor peak
+// 989), so they ran at its speed: 13-20 TFLOP/s on an H100 80GB HBM3 at
+// 700 W. K1's wgmma design (fused_resblock.cu) is the model for theirs.
 #pragma once
 
 #include <algorithm>
@@ -136,7 +136,7 @@ __global__ void __launch_bounds__(NT) wgrad_kernel(WgradParams p) {
 extern "C" int ctk_conv3x3_zero_corr(const void* g, const void* v, void* out,
                                      int n, int h, int wd, int c, int cout,
                                      int bf16, void* stream) {
-  ctk::Params p{g, nullptr, v, nullptr, nullptr, out, nullptr, nullptr,
+  ctk::Params p{g, v, nullptr, nullptr, out, nullptr,
                 n, h, wd, c, cout, h, wd, 0};
   return ctk::launch<ctk::ZERO_S1>(p, bf16, stream);
 }

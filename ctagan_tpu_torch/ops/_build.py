@@ -32,9 +32,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # entry point -> argtypes (pointers and the stream as c_void_p)
 _SIGNATURES = {
-    # x, skip, w, b, norm, out, stats, xnew, n, h, w, c, cout, relu, bf16,
-    # stream
-    "ctk_conv3x3_reflect_stats": [_P] * 8 + [_I] * 7 + [_P],
+    # x, skip, w_hi, w_lo, b, norm, out, stats, xnew, n, h, w, c, cout, relu,
+    # bf16, stream
+    "ctk_conv3x3_reflect_stats": [_P] * 9 + [_I] * 7 + [_P],
     # x, w, b, norm, out, stats, n, h, w, c, cout, relu, bf16, stream
     "ctk_conv3x3_s2_zero_stats": [_P] * 6 + [_I] * 7 + [_P],
     "ctk_convt2x_stats": [_P] * 6 + [_I] * 7 + [_P],

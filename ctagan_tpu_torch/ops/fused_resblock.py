@@ -6,17 +6,25 @@ Pallas TPU kernel) with the CUDA kernel ``csrc/fused_resblock.cu``.
 What bounds it on the H100: the residual body is 18 of these convs at
 (N, 128, 128, 256) → 256, K = 9·256: ~19.3 GFLOP per sample each, well
 above the card's ops-per-byte ridge, so it is bound by arithmetic. The
-design keeps the norm plumbing off device memory instead: the previous
-InstanceNorm's (mean, rstd), the ReLU and the previous block's skip-add are
-applied as input tiles are staged in shared memory, and the output's
-[sum, sum²] is reduced in the epilogue, so no standalone normalize pass
-reads or writes the activation. This first version accumulates with f32
-CUDA-core FMAs (no tensor cores), which caps it far below the bf16 peak:
-``wgmma`` and TMA are later work.
+kernel is an implicit GEMM on the tensor cores (``wgmma``: bf16 or TF32
+operands, f32 accumulator) that keeps the norm plumbing off device memory:
+the previous InstanceNorm's (mean, rstd), the ReLU and the previous
+block's skip-add are applied as the threads stage the activation tiles in
+shared memory, and the output's [sum, sum²] is reduced in the epilogue, so
+no standalone normalize pass reads or writes the activation. f32 I/O is
+3xTF32: each operand is split into TF32 hi + lo (:func:`split_tf32`), the
+three products lo·hi + hi·lo + hi·hi of each K chunk are summed on the
+tensor cores, and the chunk sums are added in f32 with rounding to nearest
+(the tensor cores' own accumulator truncates): an f32-grade result. One
+TF32 pass (~3e-4 of the output's scale at K = 2304) misses the f32
+tolerance of 1e-4; split-bf16 products, or one tensor-core accumulator over
+all of K (~1e-5), meet it but leave the generator's gradients over twice as
+far from float64 as the plain route's.
 
-On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
-it runs :func:`conv3x3_reflect_stats_plain`, the same function in plain
-PyTorch, which is also the kernel's oracle on the card.
+On a CUDA tensor the wrapper launches the kernel or raises
+(:func:`check_k1_kernel_limits`); on a CPU tensor it runs
+:func:`conv3x3_reflect_stats_plain`, the same function in plain PyTorch,
+which is also the kernel's oracle on the card.
 """
 from __future__ import annotations
 
@@ -34,7 +42,6 @@ from ctagan_tpu_torch.ops._common import (
     apply_norm,
     check_bias,
     check_input,
-    check_kernel_shapes,
     round_with_stats,
     same_device,
     stream_ptr,
@@ -56,6 +63,60 @@ def _check_args(x, w, b, norm, skip, emit_input, dtypes=DTYPES):
             raise ValueError("skip must match x's shape")
     if emit_input and (norm is None or skip is not None):
         raise ValueError("emit_input requires norm and no skip")
+
+
+# the kernel's tiles: 128-byte K chunks (64 bf16 or 32 f32 channels),
+# 128- or 256-channel output tiles; its shared memory holds the (2, C) norm
+# beside the operand stages
+K1_CHUNK, K1_COUT_TILE, K1_MAX_C = 64, 128, 2048
+
+
+def check_k1_kernel_limits(x: torch.Tensor, cout: int,
+                           norm: Optional[torch.Tensor] = None,
+                           *tensors: Optional[torch.Tensor]) -> None:
+    """Raise ValueError for what the CUDA kernel cannot take: C % 64,
+    Cout % 128, C > 2048, a norm that is not (N, 2, C), or x (or one of
+    ``tensors``) not on a 16-byte boundary (the kernel's loads and stores
+    are 16 bytes). Runs on any device."""
+    fn = "conv3x3_reflect_stats"
+    c = x.shape[3]
+    if c % K1_CHUNK or cout % K1_COUT_TILE or c > K1_MAX_C:
+        raise ValueError(
+            f"{fn}: the CUDA kernel needs C % {K1_CHUNK} == 0, C <= "
+            f"{K1_MAX_C} and Cout % {K1_COUT_TILE} == 0, got C={c}, "
+            f"Cout={cout}")
+    if norm is not None and tuple(norm.shape) != (x.shape[0], 2, c):
+        raise ValueError(f"{fn}: norm must be (N, 2, C), got "
+                         f"{tuple(norm.shape)}")
+    for t in (x,) + tensors:
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{fn}: the CUDA kernel needs 16-byte aligned "
+                             "tensors")
+
+
+def round_tf32(t: torch.Tensor) -> torch.Tensor:
+    """f32 values rounded to TF32 (10-bit mantissa, to nearest, ties away
+    from zero), kept in f32: the kernel's ``cvt.rna.tf32.f32``."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(t: torch.Tensor):
+    """f32 → (hi, lo), TF32 values in f32 with hi = tf32(t) and
+    lo = tf32(t − hi), so hi + lo is t to within 2⁻²¹ of |t|: the kernel's
+    f32 route multiplies the parts on the TF32 tensor cores (3xTF32)."""
+    hi = round_tf32(t)
+    return hi, round_tf32(t.float() - hi)
+
+
+def k1_weight(w: torch.Tensor, dtype: torch.dtype):
+    """The kernel's B operand: the (3, 3, C, Cout) weight as a K-major
+    (Cout, 9·C) matrix, K = (tap, channel): bf16 for bf16 I/O (w, None),
+    the :func:`split_tf32` (hi, lo) for f32."""
+    wt = w.permute(3, 0, 1, 2).reshape(w.shape[3], -1)
+    if dtype == torch.bfloat16:
+        return wt.to(torch.bfloat16).contiguous(), None
+    return split_tf32(wt)
 
 
 def conv3x3_reflect_stats_plain(
@@ -105,12 +166,12 @@ def conv3x3_reflect_stats(
     same_device("conv3x3_reflect_stats", x, w, b, norm, skip)
     n, h, wd, c = x.shape
     cout = w.shape[3]
-    check_kernel_shapes("conv3x3_reflect_stats", x, c, cout, norm)
     dt = x.dtype
     if skip is not None:
         check_input("conv3x3_reflect_stats skip", skip)
         skip = skip.to(dt)
-    wk = w.to(dt).contiguous()
+    check_k1_kernel_limits(x, cout, norm, skip)
+    whi, wlo = k1_weight(w, dt)
     bk = b.float().contiguous()
     nk = norm.float().contiguous() if norm is not None else None
     out = torch.empty((n, h, wd, cout), dtype=dt, device=x.device)
@@ -121,7 +182,8 @@ def conv3x3_reflect_stats(
         _build.launch(
             "ctk_conv3x3_reflect_stats",
             x.data_ptr(), skip.data_ptr() if skip is not None else None,
-            wk.data_ptr(), bk.data_ptr(),
+            whi.data_ptr(), wlo.data_ptr() if wlo is not None else None,
+            bk.data_ptr(),
             nk.data_ptr() if nk is not None else None,
             out.data_ptr(), stats.data_ptr(),
             xnew.data_ptr() if xnew is not None else None,

@@ -16,9 +16,9 @@ become the CUDA kernels of ``csrc/fused_resblock_grad.cuh``:
 
 What bounds them on the H100: ~19.3 GFLOP each at the main path's
 (1, 128, 128, 256) × 256, far above the ops-per-byte ridge, so arithmetic;
-like K1 they run f32 CUDA-core FMAs (no tensor cores yet), so their speed is
-K1's (13-20 TFLOP/s on an H100 80GB HBM3 at 700 W). ``wgmma`` and TMA are
-later work.
+like K1's first version they run f32 CUDA-core FMAs (no tensor cores yet),
+at its speed (13-20 TFLOP/s on an H100 80GB HBM3 at 700 W). K1's ``wgmma``
+design (``csrc/fused_resblock.cu``) is the model for theirs.
 
 :class:`FusedChainFunction` is ``fused_chain_vjp_make``'s custom VJP as a
 ``torch.autograd.Function``: its forward runs the K1 chain and keeps

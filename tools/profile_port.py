@@ -50,7 +50,7 @@ import urllib.request
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_SERVE = 256
-KERNEL_MODE = {"0": "K1", "1": "K3", "2": "K2", "3": "K4"}  # conv_stats.cuh
+KERNEL_MODE = {"1": "K3", "2": "K2", "3": "K4"}  # conv_stats.cuh
 TRAIN_STEPS = 20
 
 
@@ -90,9 +90,9 @@ def breakdown(torch, prof, wall_s, n_fwd):
     parts = {"K1": 0.0, "K3": 0.0, "K2": 0.0, "K7": 0.0, "K6": 0.0,
              "int8 GEMM": 0.0, "head 7x7": 0.0, "tail 7x7": 0.0}
     for e in dev:
-        m = re.search(r"conv_stats_kernel<(\d)", e.name)
-        if m:
-            parts[KERNEL_MODE[m.group(1)]] += e.time_range.elapsed_us()
+        part = kernel_part(e.name)
+        if part:
+            parts[part] += e.time_range.elapsed_us()
         elif "conv_s8_kernel" in e.name:
             parts["K7"] += e.time_range.elapsed_us()
         elif "in_stats_kernel" in e.name or "in_norm_kernel" in e.name:
@@ -292,7 +292,10 @@ def profile_serving(torch, config, bodies, card):
 
 
 def kernel_part(name):
-    """K1-K5 by the kernel's name (conv_stats.cuh's Mode, K5's wgrad)."""
+    """K1-K5 by the kernel's name (K1's wgmma kernel, conv_stats.cuh's
+    Mode, K5's wgrad)."""
+    if "k1_wgmma_kernel" in name:
+        return "K1"
     if "wgrad_kernel" in name:
         return "K5"
     m = re.search(r"conv_stats_kernel<(\d)", name)
