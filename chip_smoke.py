@@ -10,19 +10,23 @@ card, ``nvcc`` and no network, and imports nothing of JAX. Phases:
 2. ``kernels``: each kernel against its plain PyTorch version at the main
    paths' shapes, f32 and bf16, every variant a path uses (K1, K3, K2 at the
    serving generator's 512² shapes with N=2; K4 conv3x3_input_grad and K5
-   conv3x3_weight_grad at the training body's (1, 128, 128, 256); K7
+   conv3x3_weight_grad at the training body's (1, 128, 128, 256), K5 also
+   at a ragged (1, 40, 40, 256) with skip and at C = Cout = 128; K7
    conv3x3_reflect_s8 at the int8 body's (2, 128, 128, 256) in both input
    modes, f32 and bf16 out; K6 instance_norm_pallas at the int8 forward's
    norm shapes, f32 and bf16 I/O); times the kernel, the plain version and
    one PyTorch library call (cuDNN, ``F.instance_norm``, or for K7 the int8
    GEMM alone: yardsticks the port never calls) with CUDA events, and
    computes each case's bound from its operations and bytes; K1 also at a
-   ragged (1, 40, 40, 256) and at C = Cout = 128, and its built kernels are
-   held to hold ``HGMMA`` (``wgmma``) instructions (``cuobjdump -sass``);
+   ragged (1, 40, 40, 256) and at C = Cout = 128; K1's and K5's built
+   kernels are held to hold ``HGMMA`` (``wgmma``) instructions
+   (``cuobjdump -sass``);
 3. ``generator``: the full-width generator (9 blocks, base 64, 11,365,633
    parameters, seeded weights) at 512², b=2: the serving kernel route
    against the plain layer route, 18 K1, 2 K3 and 2 K2 launches per forward;
-   forward times at b=1 and b=16;
+   forward times at b=1 and b=16; then ``configs/HdGan_fast.yaml`` (bf16,
+   ``pad_mode: zero``) built by ``build_generator`` and served a few
+   requests through its layer route, no kernel launched;
 4. ``int8``: the same generator quantized (``ops/quantize.py``) at 512²,
    b=2, with the InstanceNorm switch on: ``generator_int8_forward`` through
    K7 and K6 against the same forward through their plain versions and
@@ -117,13 +121,23 @@ INT8_PSNR_MIN = 30.0
 # test_int8_through_serving_service), mean |error| over the [-1, 1] range
 INT8_SERVED_MEAN_TOL = 0.05
 N_REQUESTS = 16
+# configs/HdGan_fast.yaml (bf16, pad_mode: zero) served through the layer
+# route: each response against the same generator's forward on its slice
+# alone, mean |error| over [-1, 1] per slice. Batch composition changes
+# cuDNN's bf16 algorithms, so the two differ at bf16 grade (the CPU test
+# measured 0.0065 between the port's and JAX's bf16 forwards); reflect
+# padding in place of zero padding is ~0.24 away
+ZERO_PAD_REQUESTS = 4
+ZERO_PAD_MEAN_TOL = 2.0 ** -6
 TRAIN_STEPS = 12  # kernel route; the p50 skips the first 2 steps
 PLAIN_STEPS = 6   # plain route, for its p50 beside the kernel route's
 # H100 SXM peaks (NVIDIA's H100 data sheet, 700 W): f32 outside
 # the tensor cores, bf16, int8 and TF32 dense tensor cores, HBM3 bytes/s
 PEAK_F32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
 PEAK_INT8, PEAK_TF32 = 1979e12, 495e12
-K1_KERNEL = "k1_wgmma_kernel"  # csrc/fused_resblock.cu
+# the kernels on wgmma, by name: K1 csrc/fused_resblock.cu, K5
+# csrc/fused_resblock_grad.cuh
+WGMMA_KERNELS = {"K1": "k1_wgmma_kernel", "K5": "wgrad_kernel"}
 ALL_PHASES = ("kernels", "generator", "int8", "grad", "serving",
               "int8_serving", "training")
 
@@ -290,14 +304,14 @@ def kernel_cases(torch):
         return conv_flops(n, h, wd, co, c) + 2.0 * n * co * c * (
             3 * (2 * h + 2 * wd) + 4)
 
-    def k5(variant):
+    def k5(variant, hw=128, c=256):
         def make(dt):
-            x = randn(1, 128, 128, 256).to(dt)
-            kw = dict(x=x, g=randn(1, 128, 128, 256).to(dt))
+            x = randn(1, hw, hw, c).to(dt)
+            kw = dict(x=x, g=randn(1, hw, hw, c).to(dt))
             if variant != "plain":
                 kw.update(norm=normed(x), relu=True)
             if variant == "norm_relu_skip":
-                kw["skip"] = randn(1, 128, 128, 256).to(dt)
+                kw["skip"] = randn(1, hw, hw, c).to(dt)
             return kw
         return make
 
@@ -365,12 +379,14 @@ def kernel_cases(torch):
     k6_spec = {"out_tol": K6_OUT_TOL,
                "peaks": {dt: (PEAK_F32, "f32 CUDA cores")
                          for dt in CONV_PEAKS}}
-    # K1's f32 route is three TF32 products on the tensor cores (3xTF32)
-    k1_spec = {"peaks": {"float32": (PEAK_TF32 / 3,
-                                     "3 TF32 products, tensor cores"),
-                         "bfloat16": CONV_PEAKS["bfloat16"]},
-               "also": (CONV_PEAKS["float32"],)}
+    # K1's and K5's f32 routes are three TF32 products on the tensor cores
+    # (3xTF32)
+    k1_spec = k5_spec = {"peaks": {"float32": (PEAK_TF32 / 3,
+                                               "3 TF32 products, tensor cores"),
+                                   "bfloat16": CONV_PEAKS["bfloat16"]},
+                         "also": (CONV_PEAKS["float32"],)}
     k1_flops = x_flops(lambda kw: kw["w"].shape[3])
+    k5_flops = x_flops(lambda kw: kw["g"].shape[3])
     return [
         ("conv3x3_reflect_stats", f"K1 {v} N=2 128^2x256->256",
          r.conv3x3_reflect_stats, r.conv3x3_reflect_stats_plain, k1(v),
@@ -402,8 +418,15 @@ def kernel_cases(torch):
     ] + [
         ("conv3x3_weight_grad", f"K5 {v} N=1 128^2x256->256",
          gr.conv3x3_weight_grad, gr.conv3x3_weight_grad_plain, k5(v), k5_lib,
-         x_flops(lambda kw: kw["g"].shape[3]))
+         k5_flops, k5_spec)
         for v in ("norm_relu", "plain", "norm_relu_skip")
+    ] + [
+        ("conv3x3_weight_grad", "K5 norm_relu_skip ragged N=1 40^2x256->256",
+         gr.conv3x3_weight_grad, gr.conv3x3_weight_grad_plain,
+         k5("norm_relu_skip", hw=40), k5_lib, k5_flops, k5_spec),
+        ("conv3x3_weight_grad", "K5 norm_relu N=1 128^2x128->128",
+         gr.conv3x3_weight_grad, gr.conv3x3_weight_grad_plain,
+         k5("norm_relu", c=128), k5_lib, k5_flops, k5_spec),
     ] + [
         ("conv3x3_reflect_s8", f"K7 mode ({m}) N=2 128^2x256->256 (dtype: out)",
          s8.conv3x3_reflect_s8, s8.conv3x3_reflect_s8_plain, k7(m), k7_lib,
@@ -482,6 +505,29 @@ def check_kernels(torch):
             entry["max_abs_err"] = max(entry["max_abs_err"], out_err)
             del kw, got, want
     return results
+
+
+def check_k5_operands(torch):
+    """K5's B operand written by its one-pass kernel (``k5_operands`` on a
+    CUDA tensor) against the plain version on the same g: the same
+    roundings, so bit-equal; at the body's shape and a ragged two-sample
+    one whose pixel pad is zeros."""
+    from ctagan_tpu_torch.ops.fused_resblock_grad import (
+        k5_operands,
+        k5_operands_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for shape in ((1, 128, 128, 256), (2, 40, 40, 128)):
+        g = torch.randn(*shape, generator=gen, device="cuda") * 3.0
+        for dt in (torch.float32, torch.bfloat16):
+            got, want = k5_operands(g, dt), k5_operands_plain(g, dt)
+            same = all((a is None and b is None) or torch.equal(a, b)
+                       for a, b in zip(got, want))
+            print(f"K5 operands {shape} {dt}: kernel == plain {same}",
+                  flush=True)
+            if not same:
+                fail(f"K5's operands kernel {shape} {dt} differs from plain")
 
 
 def _counted():
@@ -859,6 +905,76 @@ def check_serving(torch, card, quantize=""):
     return counts
 
 
+def check_zero_pad_serving(torch, card):
+    """``configs/HdGan_fast.yaml`` (bf16, ``pad_mode: zero``) built by the
+    serve entry point's ``build_generator`` (``fused_body`` on) and served:
+    the generator's layer route, as JAX's ``chain_ok`` leaves zero pad out of
+    its fused body; no kernel launches."""
+    import numpy as np
+
+    from ctagan_tpu_torch.__main__ import build_generator
+    from ctagan_tpu_torch.data.dicom import (
+        dicom_bytes,
+        make_ct_slice,
+        read_dicom,
+    )
+    from ctagan_tpu_torch.data.fixtures import synthetic_ct_pixels
+    from ctagan_tpu_torch.data.native import dual_window_native
+    from ctagan_tpu_torch.serving.server import serve_async
+    from ctagan_tpu_torch.utils.config import load_config
+
+    config = load_config(os.path.join(REPO, "configs", "HdGan_fast.yaml"))
+    if config.pad_mode != "zero":
+        fail(f"HdGan_fast.yaml pad_mode read as {config.pad_mode!r}")
+    dev = torch.device("cuda")
+    g = build_generator(config, dev)
+    rng = np.random.default_rng(config.seed)
+    slices = [make_ct_slice(synthetic_ct_pixels(rng, config.size))
+              for _ in range(ZERO_PAD_REQUESTS)]
+    reset_counts()
+    server, service, port = serve_async(
+        g, size=config.size, max_batch=config.max_batch,
+        quantize=config.serve_quantize,
+        channels=config.input_nc * config.context_slices)
+    try:
+        with concurrent.futures.ThreadPoolExecutor(len(slices)) as ex:
+            replies = list(ex.map(lambda ds: _post(port, dicom_bytes(ds)),
+                                  slices))
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.stop()
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    served = [read_dicom(body) for status, body in replies if status == 200]
+    if len(served) != len(slices):
+        fail(f"zero pad: {len(slices) - len(served)} requests not answered")
+    errs = []
+    with torch.inference_mode():
+        for ds_in, ds in zip(slices, served):
+            full = dual_window_native(ds_in.pixel_array())[1]
+            ref = g(torch.from_numpy(full[None, ..., None]).to(dev))
+            ref11 = ref[0, ..., 0].float().cpu().numpy()
+            px = ds.pixel_array().astype(np.float64)
+            if px.shape != (config.size, config.size) or not (
+                    np.isfinite(px).all() and px.min() >= 0
+                    and px.max() <= 4095):
+                fail(f"zero pad: bad response {px.shape}")
+            errs.append(float(np.abs(px / 4095.0 * 2.0 - 1.0 - ref11).mean()))
+    print(f"serving {config.name} (HdGan_fast.yaml: {config.compute_dtype}, "
+          f"pad_mode {config.pad_mode}) size {config.size}: "
+          f"{len(served)} requests answered 200 with valid DICOM through the "
+          f"layer route; mean |error| per slice over [-1, 1] vs the same "
+          f"forward alone largest {max(errs):.4f} (tol "
+          f"{ZERO_PAD_MEAN_TOL:.4f}); launches {counts} [{card}]", flush=True)
+    if counts != counts_of():
+        fail(f"zero pad launched kernels {counts}")
+    if max(errs) > ZERO_PAD_MEAN_TOL:
+        fail("zero pad: served pixels disagree with the layer route")
+    del g
+    torch.cuda.empty_cache()
+
+
 def _smoke_config(tmp, train_list, extra=""):
     """configs/HdGan.yaml with its list paths pointed at ``train_list``."""
     with open(os.path.join(REPO, "configs", "HdGan.yaml")) as f:
@@ -933,9 +1049,9 @@ def check_training(torch, card):
 
 
 def check_tensor_cores(lib_path):
-    """K1's kernels (each instantiation, f32 and bf16 I/O) hold HGMMA
-    (wgmma) instructions in the built library's SASS, so a K1 that runs on
-    CUDA-core FMAs fails."""
+    """K1's and K5's kernels (each instantiation, f32 and bf16 I/O) hold
+    HGMMA (wgmma) instructions in the built library's SASS, so a K1 or K5
+    that runs on CUDA-core FMAs fails."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -946,16 +1062,16 @@ def check_tensor_cores(lib_path):
         fail(f"cuobjdump: {e!r}")
     if res.returncode != 0:
         fail(f"cuobjdump -sass failed: {res.stderr.strip()[-2000:]}")
-    counts = {}
-    for func in res.stdout.split("Function : ")[1:]:
-        name = func.split("\n", 1)[0].strip()
-        if K1_KERNEL in name:
-            counts[name] = func.count("HGMMA")
-    print(f"sass: K1 kernels and their HGMMA instructions: {counts}",
-          flush=True)
-    dtypes = {"f32" if "kernelIf" in name else "bf16" for name in counts}
-    if dtypes != {"f32", "bf16"} or not all(counts.values()):
-        fail("K1's f32 and bf16 kernels must all run on wgmma (HGMMA)")
+    funcs = [(f.split("\n", 1)[0].strip(), f)
+             for f in res.stdout.split("Function : ")[1:]]
+    for k, kernel in WGMMA_KERNELS.items():
+        counts = {name: f.count("HGMMA") for name, f in funcs
+                  if kernel in name}
+        print(f"sass: {k} kernels and their HGMMA instructions: {counts}",
+              flush=True)
+        dtypes = {"f32" if "kernelIf" in name else "bf16" for name in counts}
+        if dtypes != {"f32", "bf16"} or not all(counts.values()):
+            fail(f"{k}'s f32 and bf16 kernels must all run on wgmma (HGMMA)")
 
 
 SOURCES = {
@@ -1019,8 +1135,10 @@ def main():
         t0 = time.perf_counter()
         if phase == "kernels":
             kernels = check_kernels(torch)
+            check_k5_operands(torch)
         elif phase == "generator":
             check_generator(torch, card)
+            check_zero_pad_serving(torch, card)
         elif phase == "int8":
             check_int8_generator(torch, card)
         elif phase == "grad":

@@ -1,5 +1,6 @@
 // Shared implicit-GEMM core of K3, K2 and K4 (CUDA-core FMAs), and the
-// element helpers that K1 (fused_resblock.cu, on the tensor cores) also uses.
+// element helpers that K1 (fused_resblock.cu) and K5
+// (fused_resblock_grad.cuh), on the tensor cores, also use.
 //
 // Each kernel is a 3x3 convolution over an NHWC tensor that also emits the
 // per-(sample, channel) [sum, sum^2] of its own dtype-rounded output, with the

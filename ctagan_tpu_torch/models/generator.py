@@ -13,7 +13,8 @@ the K1 chain and the two ups through K2, each with the previous
 InstanceNorm folded into its input read. On a CUDA tensor those are the
 CUDA kernels at every batch size (a shape a kernel cannot take raises); on a
 CPU tensor they are their plain versions. ``fused_body=False`` runs the
-plain layer-by-layer path.
+plain layer-by-layer path, and so does ``pad_mode='zero'`` on any device
+(JAX's ``chain_ok`` leaves zero pad out of the fused body too).
 
 ``fused_body_grad`` (the training route, JAX's ``fused_body_grad``) runs
 the head, the two downs, the two ups and the tail as plain layers and the
@@ -103,9 +104,10 @@ class Generator(nn.Module):
         """x: (N, H, W, input_nc) -> (N, H, W, output_nc) in [-1, 1]."""
         if self.fused_body:
             if self.pad_mode == "zero":
-                if x.is_cuda:
-                    raise NotImplementedError(
-                        "pad_mode 'zero' has no fused CUDA path yet")
+                # the model's layer route, on every device: JAX's chain_ok
+                # leaves zero pad out of its fused body in the same way (the
+                # kernels pad by reflection). Not a kernel's plain version
+                # standing in for it: no kernel is asked for
                 return self._forward_layers(x)
             return self._forward_fused(x)
         grad_route = (x.is_cuda if self.fused_body_grad == "auto"

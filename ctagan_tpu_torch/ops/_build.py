@@ -40,8 +40,11 @@ _SIGNATURES = {
     "ctk_convt2x_stats": [_P] * 6 + [_I] * 7 + [_P],
     # g, v, out, n, h, w, c, cout, bf16, stream
     "ctk_conv3x3_zero_corr": [_P] * 3 + [_I] * 6 + [_P],
-    # x, skip, g, norm, dw, n, h, w, c, cout, relu, bf16, stream
-    "ctk_conv3x3_weight_grad": [_P] * 5 + [_I] * 7 + [_P],
+    # x, skip, g_hi, g_lo, norm, dw, n, h, w, c, cout, hwp, relu, bn, per,
+    # splits, bf16, stream
+    "ctk_conv3x3_weight_grad": [_P] * 6 + [_I] * 11 + [_P],
+    # g, hi, lo, n, hw, hwp, cout, bf16, stream
+    "ctk_k5_operands": [_P] * 3 + [_I] * 5 + [_P],
     # x, w, scale, b, norm, out, stats, n, h, w, c, cout, in_kind, out_bf16,
     # qmul, stream
     "ctk_conv3x3_reflect_s8": [_P] * 7 + [_I] * 7 + [_F, _P],

@@ -11,14 +11,20 @@ become the CUDA kernels of ``csrc/fused_resblock_grad.cuh``:
   package does them in XLA outside its kernel.
 - :func:`conv3x3_weight_grad` (K5, ``_wgrad_kernel``): dL/dW as a reduction
   over every pixel, with K1's norm → ReLU → round → +skip prologue applied as
-  the input tile is staged, so relu(IN(h1)) is never stored. Blocks split the
-  pixel axis and add f32 partials with ``atomicAdd``.
+  the input tile is staged, so relu(IN(h1)) is never stored. It is a
+  tensor-core GEMM (``wgmma``) with M = the input channels of one tap, N =
+  Cout and K = the pixels. The pixel axis is strided in NHWC and TF32
+  ``wgmma`` takes only K-major operands, so the wrapper copies g to a
+  K-major (Cout, N·hwp) matrix (:func:`k5_operands`: bf16, or the
+  :func:`~ctagan_tpu_torch.ops.fused_resblock.split_tf32` pair for f32),
+  and the threads stage the activations transposed. f32 I/O is 3xTF32 with
+  each 32-pixel chunk's sum added in f32, as K1 does. Blocks split the pixel
+  axis (:func:`k5_plan`) and add f32 partials with ``atomicAdd``.
 
 What bounds them on the H100: ~19.3 GFLOP each at the main path's
-(1, 128, 128, 256) × 256, far above the ops-per-byte ridge, so arithmetic;
-like K1's first version they run f32 CUDA-core FMAs (no tensor cores yet),
-at its speed (13-20 TFLOP/s on an H100 80GB HBM3 at 700 W). K1's ``wgmma``
-design (``csrc/fused_resblock.cu``) is the model for theirs.
+(1, 128, 128, 256) × 256, far above the ops-per-byte ridge, so arithmetic.
+K5's bound is 0.020 ms in bf16 and 0.117 ms for f32's three TF32 products
+(495 TFLOP/s); K4 still runs the first version's f32 CUDA-core FMAs.
 
 :class:`FusedChainFunction` is ``fused_chain_vjp_make``'s custom VJP as a
 ``torch.autograd.Function``: its forward runs the K1 chain and keeps
@@ -29,6 +35,7 @@ oracle on the card.
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -47,6 +54,7 @@ from ctagan_tpu_torch.ops._common import (
 from ctagan_tpu_torch.ops.fused_resblock import (
     _stats_to_norm,
     conv3x3_reflect_stats,
+    split_tf32,
 )
 
 # ---------------------------------------------------------------------------
@@ -197,6 +205,115 @@ def conv3x3_weight_grad_plain(
     return torch.stack(taps).reshape(3, 3, x.shape[3], g.shape[3])
 
 
+# the kernel's tiles (csrc/fused_resblock_grad.cuh): 128 input channels of
+# one tap by 128 output channels (256 for bf16 where Cout allows) per block,
+# K chunks of one 128-byte row (32 f32 or 64 bf16 pixels); each sample's
+# pixels zero-padded to a multiple of K5_PIXEL_PAD in g's K-major copy
+K5_TILE, K5_WIDE_TILE, K5_PIXEL_PAD = 128, 256, 64
+# a block's pipeline fill and atomicAdd epilogue, in K chunks: what a
+# finer split of the pixel axis costs against the waves it saves
+K5_FILL = 4
+
+
+def check_k5_kernel_limits(x: torch.Tensor, cout: int,
+                           norm: Optional[torch.Tensor] = None,
+                           *tensors: Optional[torch.Tensor]) -> None:
+    """Raise ValueError for what the CUDA kernel cannot take: C % 128,
+    Cout % 128, a sample of 2^31 elements or more (H·W·C: the kernel's
+    in-sample offsets are 32-bit), a norm that is not (N, 2, C), or x, norm
+    (or one of ``tensors``) not on a 16-byte boundary (the kernel loads
+    16-byte norm rows and 16- or 8-byte pixel groups). Any N. Runs on any
+    device."""
+    fn = "conv3x3_weight_grad"
+    n, h, wd, c = x.shape
+    if c % K5_TILE or cout % K5_TILE:
+        raise ValueError(
+            f"{fn}: the CUDA kernel needs C % {K5_TILE} == 0 and Cout % "
+            f"{K5_TILE} == 0, got C={c}, Cout={cout}")
+    if h * wd * c >= 2 ** 31:
+        raise ValueError(f"{fn}: the CUDA kernel needs H·W·C < 2^31, got "
+                         f"{h}x{wd}x{c}")
+    if norm is not None and tuple(norm.shape) != (n, 2, c):
+        raise ValueError(f"{fn}: norm must be (N, 2, C), got "
+                         f"{tuple(norm.shape)}")
+    for t in (x, norm) + tensors:
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{fn}: the CUDA kernel needs 16-byte aligned "
+                             "tensors")
+
+
+def _padded(hw: int) -> int:
+    """A sample's pixel count in g's K-major copy: H·W rounded up to
+    K5_PIXEL_PAD."""
+    return -(-hw // K5_PIXEL_PAD) * K5_PIXEL_PAD
+
+
+def k5_operands_plain(g: torch.Tensor, dtype: torch.dtype):
+    """Plain PyTorch version of :func:`k5_operands`."""
+    n, h, wd, cout = g.shape
+    hw = h * wd
+    hwp = _padded(hw)
+    gt = g.to(dtype).reshape(n, hw, cout).permute(2, 0, 1)
+    if hwp != hw:
+        gt = torch.nn.functional.pad(gt, (0, hwp - hw))
+    gt = gt.reshape(cout, n * hwp)
+    if dtype == torch.bfloat16:
+        return gt.contiguous(), None
+    return split_tf32(gt)
+
+
+def k5_operands(g: torch.Tensor, dtype: torch.dtype):
+    """The kernel's B operand: g (N, H, W, Cout) as a K-major (Cout, N·hwp)
+    matrix, K = the pixels, each sample's H·W zero-padded to hwp (a multiple
+    of 64): bf16 for bf16 I/O (g, None), the :func:`split_tf32` (hi, lo)
+    for f32. On a CUDA tensor one pass of ``csrc/fused_resblock_grad.cuh``'s
+    ``operands_kernel`` (Cout % 32 == 0) writes it; on a CPU tensor
+    :func:`k5_operands_plain`."""
+    if not g.is_cuda:
+        return k5_operands_plain(g, dtype)
+    n, h, wd, cout = g.shape
+    if cout % 32:
+        raise ValueError(f"k5_operands: the CUDA kernel needs Cout % 32 == "
+                         f"0, got {cout}")
+    hwp = _padded(h * wd)
+    gk = g.to(dtype).contiguous()
+    hi = torch.empty((cout, n * hwp), dtype=dtype, device=g.device)
+    lo = torch.empty_like(hi) if dtype == torch.float32 else None
+    with torch.cuda.device(g.device):
+        _build.launch("ctk_k5_operands", gk.data_ptr(), hi.data_ptr(),
+                      lo.data_ptr() if lo is not None else None, n, h * wd,
+                      hwp, cout, int(dtype == torch.bfloat16), stream_ptr(g))
+    return hi, lo
+
+
+@functools.lru_cache(maxsize=None)
+def k5_plan(n: int, hw: int, c: int, cout: int, dtype: torch.dtype,
+            sms: int):
+    """(bn, hwp, per, splits): the kernel's output-tile width, a sample's
+    padded pixel count, and its split of the pixel axis into ``splits``
+    blocks of ``per`` K chunks, the one that takes the fewest waves of one
+    block per SM times (per + K5_FILL) chunk times."""
+    bn = K5_WIDE_TILE if dtype == torch.bfloat16 and cout % K5_WIDE_TILE == 0 \
+        else K5_TILE
+    chunk = 64 if dtype == torch.bfloat16 else 32
+    hwp = _padded(hw)
+    total = n * hwp // chunk
+    tiles = 9 * (c // K5_TILE) * (cout // bn)
+    best = None
+    for s in range(1, min(total, 4 * sms) + 1):
+        per = -(-total // s)
+        splits = -(-total // per)
+        cost = -(-tiles * splits // sms) * (per + K5_FILL)
+        if best is None or cost < best[0]:
+            best = (cost, per, splits)
+    return bn, hwp, best[1], best[2]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def conv3x3_weight_grad(
     x: torch.Tensor, g: torch.Tensor, norm: Optional[torch.Tensor] = None,
     relu: bool = False, skip: Optional[torch.Tensor] = None,
@@ -214,21 +331,22 @@ def conv3x3_weight_grad(
     same_device("conv3x3_weight_grad", x, g, norm, skip)
     n, h, wd, c = x.shape
     cout = g.shape[3]
-    if c % 64 or cout % 64:
-        raise ValueError("conv3x3_weight_grad: the CUDA kernel needs C % 64 "
-                         f"== 0 and Cout % 64 == 0, got C={c}, Cout={cout}")
     dt = x.dtype
-    gk = g.to(dt).contiguous()
     sk = skip.to(dt).contiguous() if skip is not None else None
     nk = norm.float().contiguous() if norm is not None else None
+    check_k5_kernel_limits(x, cout, nk, sk)
+    ghi, glo = k5_operands(g, dt)
+    bn, hwp, per, splits = k5_plan(n, h * wd, c, cout, dt,
+                                   _sm_count(x.device))
     dw = torch.zeros((3, 3, c, cout), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         _build.launch(
             "ctk_conv3x3_weight_grad", x.data_ptr(),
-            sk.data_ptr() if sk is not None else None, gk.data_ptr(),
+            sk.data_ptr() if sk is not None else None, ghi.data_ptr(),
+            glo.data_ptr() if glo is not None else None,
             nk.data_ptr() if nk is not None else None, dw.data_ptr(),
-            n, h, wd, c, cout, int(bool(relu and norm is not None)),
-            int(dt == torch.bfloat16), stream_ptr(x))
+            n, h, wd, c, cout, hwp, int(bool(relu and norm is not None)),
+            bn, per, splits, int(dt == torch.bfloat16), stream_ptr(x))
     conv3x3_weight_grad.launches += 1
     return dw
 

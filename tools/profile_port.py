@@ -292,8 +292,8 @@ def profile_serving(torch, config, bodies, card):
 
 
 def kernel_part(name):
-    """K1-K5 by the kernel's name (K1's wgmma kernel, conv_stats.cuh's
-    Mode, K5's wgrad)."""
+    """K1-K5 by the kernel's name (K1's and K5's wgmma kernels,
+    conv_stats.cuh's Mode for the rest)."""
     if "k1_wgmma_kernel" in name:
         return "K1"
     if "wgrad_kernel" in name:
