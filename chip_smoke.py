@@ -10,16 +10,17 @@ card, ``nvcc`` and no network, and imports nothing of JAX. Phases:
 2. ``kernels``: each kernel against its plain PyTorch version at the main
    paths' shapes, f32 and bf16, every variant a path uses (K1, K3, K2 at the
    serving generator's 512² shapes with N=2; K4 conv3x3_input_grad and K5
-   conv3x3_weight_grad at the training body's (1, 128, 128, 256), K5 also
-   at a ragged (1, 40, 40, 256) with skip and at C = Cout = 128; K7
+   conv3x3_weight_grad at the training body's (1, 128, 128, 256), both also
+   at a ragged (1, 40, 40, 256) (K5 with skip) and at C = Cout = 128; K7
    conv3x3_reflect_s8 at the int8 body's (2, 128, 128, 256) in both input
    modes, f32 and bf16 out; K6 instance_norm_pallas at the int8 forward's
    norm shapes, f32 and bf16 I/O); times the kernel, the plain version and
    one PyTorch library call (cuDNN, ``F.instance_norm``, or for K7 the int8
    GEMM alone: yardsticks the port never calls) with CUDA events, and
    computes each case's bound from its operations and bytes; K1 also at a
-   ragged (1, 40, 40, 256) and at C = Cout = 128; K1's and K5's built
-   kernels are held to hold ``HGMMA`` (``wgmma``) instructions
+   ragged (1, 40, 40, 256) and at C = Cout = 128; K4's kernel alone, and
+   its wrapper's device time by kernel beside its host time; K1's, K4's and
+   K5's built kernels are held to hold ``HGMMA`` (``wgmma``) instructions
    (``cuobjdump -sass``);
 3. ``generator``: the full-width generator (9 blocks, base 64, 11,365,633
    parameters, seeded weights) at 512², b=2: the serving kernel route
@@ -135,9 +136,10 @@ PLAIN_STEPS = 6   # plain route, for its p50 beside the kernel route's
 # the tensor cores, bf16, int8 and TF32 dense tensor cores, HBM3 bytes/s
 PEAK_F32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
 PEAK_INT8, PEAK_TF32 = 1979e12, 495e12
-# the kernels on wgmma, by name: K1 csrc/fused_resblock.cu, K5
+# the kernels on wgmma, by name: K1 and K4 csrc/fused_resblock.cu, K5
 # csrc/fused_resblock_grad.cuh
-WGMMA_KERNELS = {"K1": "k1_wgmma_kernel", "K5": "wgrad_kernel"}
+WGMMA_KERNELS = {"K1": "k1_wgmma_kernel", "K4": "k4_wgmma_kernel",
+                 "K5": "wgrad_kernel"}
 ALL_PHASES = ("kernels", "generator", "int8", "grad", "serving",
               "int8_serving", "training")
 
@@ -286,9 +288,11 @@ def kernel_cases(torch):
             nchw(kw["x"]), w, kw["bias"].to(dt), stride=2, padding=1,
             output_padding=1)
 
-    def k4(dt):
-        return dict(g=randn(1, 128, 128, 256).to(dt),
-                    w=randn(3, 3, 256, 256, scale=0.02))
+    def k4(hw=128, c=256):
+        def make(dt):
+            return dict(g=randn(1, hw, hw, c).to(dt),
+                        w=randn(3, 3, c, c, scale=0.02))
+        return make
 
     def k4_lib(kw):
         g = kw["g"]
@@ -379,9 +383,9 @@ def kernel_cases(torch):
     k6_spec = {"out_tol": K6_OUT_TOL,
                "peaks": {dt: (PEAK_F32, "f32 CUDA cores")
                          for dt in CONV_PEAKS}}
-    # K1's and K5's f32 routes are three TF32 products on the tensor cores
-    # (3xTF32)
-    k1_spec = k5_spec = {"peaks": {"float32": (PEAK_TF32 / 3,
+    # K1's, K4's and K5's f32 routes are three TF32 products on the tensor
+    # cores (3xTF32)
+    k1_spec = k4_spec = k5_spec = {"peaks": {"float32": (PEAK_TF32 / 3,
                                                "3 TF32 products, tensor cores"),
                                    "bfloat16": CONV_PEAKS["bfloat16"]},
                          "also": (CONV_PEAKS["float32"],)}
@@ -412,9 +416,11 @@ def kernel_cases(torch):
         ("convt2x_stats", "K2 up2 N=2 128->64 256^2 norm", t.convt2x_stats,
          t.convt2x_stats_plain, k2(128, 64, True), k2_lib,
          x_flops(lambda kw: kw["kernel_t"].shape[1])),
-        ("conv3x3_input_grad", "K4 N=1 128^2x256->256",
-         gr.conv3x3_input_grad, gr.conv3x3_input_grad_plain, k4, k4_lib,
-         k4_flops),
+    ] + [
+        ("conv3x3_input_grad", f"K4 N=1 {hw}^2x{c}->{c}",
+         gr.conv3x3_input_grad, gr.conv3x3_input_grad_plain, k4(hw, c),
+         k4_lib, k4_flops, k4_spec)
+        for hw, c in ((128, 256), (40, 256), (128, 128))
     ] + [
         ("conv3x3_weight_grad", f"K5 {v} N=1 128^2x256->256",
          gr.conv3x3_weight_grad, gr.conv3x3_weight_grad_plain, k5(v), k5_lib,
@@ -528,6 +534,61 @@ def check_k5_operands(torch):
                   flush=True)
             if not same:
                 fail(f"K5's operands kernel {shape} {dt} differs from plain")
+
+
+def time_k4_parts(torch):
+    """K4 at the training body's (1, 128, 128, 256) -> 256, f32 and bf16:
+    the kernel alone on a built B operand (CUDA events, beside its bound
+    and its grid), and one wrapper call's device time by kernel
+    (``torch.profiler``, 5 calls: B's build, the kernel, the f32 cast,
+    reflect folds and rounding) beside the host's time to enqueue it."""
+    from ctagan_tpu_torch.ops import fused_resblock_grad as gr
+
+    cuda = torch.autograd.DeviceType.CUDA
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    w = torch.randn(3, 3, 256, 256, generator=gen, device="cuda") * 0.02
+    g32 = torch.randn(1, 128, 128, 256, generator=gen, device="cuda")
+    n, h, wd, cout = g32.shape
+    c = w.shape[2]
+    flops = 2.0 * n * h * wd * 9 * cout * c
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dt_name, (peak, label) in (
+            ("float32", (PEAK_TF32 / 3, "3 TF32 products")),
+            ("bfloat16", CONV_PEAKS["bfloat16"])):
+        dt = getattr(torch, dt_name)
+        g = g32.to(dt)
+        b = gr.k4_weight(w, dt)
+        kernel_ms = cuda_ms(torch, lambda: gr._corr3x3_zero_kernel(g, *b))
+        bn = 256 if dt == torch.bfloat16 and c % 256 == 0 else 128
+        blocks = n * -(-h * wd // 128) * (c // bn)
+        reps = 5
+        with torch.profiler.profile(activities=act) as prof:
+            for _ in range(reps):
+                gr.conv3x3_input_grad(g, w)
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == cuda:
+                k, us = by_name.get(e.name, (0, 0.0))
+                by_name[e.name] = (k + 1, us + e.time_range.elapsed_us())
+        device_ms = sum(us for _, us in by_name.values()) / reps / 1e3
+        t0 = time.perf_counter()
+        for _ in range(10):
+            gr.conv3x3_input_grad(g, w)
+        host_ms = (time.perf_counter() - t0) / 10 * 1e3
+        torch.cuda.synchronize()
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+        print(f"K4 {dt_name} N=1 {h}^2x{cout}->{c}: kernel alone "
+              f"{kernel_ms:.3f} ms (bound {flops / peak * 1e3:.3f} ms, "
+              f"{label}; {flops / kernel_ms / 1e9:.1f} T ops/s; {blocks} "
+              f"blocks of 128 x {bn}, {blocks / sms:.2f} waves on {sms} "
+              f"SMs); one wrapper call: device {device_ms:.3f} ms in "
+              f"{sum(k for k, _ in by_name.values()) // reps} kernels, host "
+              f"enqueue {host_ms:.3f} ms; largest: "
+              + "; ".join(f"{name[:60]} x{k // reps} {us / reps / 1e3:.4f} ms"
+                          for name, (k, us) in top), flush=True)
 
 
 def _counted():
@@ -1049,8 +1110,8 @@ def check_training(torch, card):
 
 
 def check_tensor_cores(lib_path):
-    """K1's and K5's kernels (each instantiation, f32 and bf16 I/O) hold
-    HGMMA (wgmma) instructions in the built library's SASS, so a K1 or K5
+    """K1's, K4's and K5's kernels (each instantiation, f32 and bf16 I/O)
+    hold HGMMA (wgmma) instructions in the built library's SASS, so one
     that runs on CUDA-core FMAs fails."""
     import shutil
 
@@ -1136,6 +1197,7 @@ def main():
         if phase == "kernels":
             kernels = check_kernels(torch)
             check_k5_operands(torch)
+            time_k4_parts(torch)
         elif phase == "generator":
             check_generator(torch, card)
             check_zero_pad_serving(torch, card)

@@ -2,8 +2,9 @@
 // InstanceNorm (+ReLU) and the previous block's skip-add folded into the
 // input read, on Hopper's tensor cores. Replaces
 // ctagan_tpu/ops/fused_resblock.py::conv3x3_reflect_stats (its pallas_call
-// at :251). Its backward kernels K4 and K5 (fused_resblock_grad.cuh) build
-// with it; the tensor-core helpers it shares with K5 are in wgmma.cuh.
+// at :251). Its body also serves K4, the backward's input gradient, in a
+// zero-halo mode (below); K5 (fused_resblock_grad.cuh) builds with it, and
+// the tensor-core helpers all three share are in wgmma.cuh.
 //
 // What bounds it on the H100: at the main path's N=2, 128^2 x 256 -> 256 it
 // is 38.65 GFLOP over ~70 MB of operands (f32), far above the ops-per-byte
@@ -49,6 +50,18 @@
 //
 // Limits (the wrapper raises for anything else): C % 64 == 0, Cout % 128 ==
 // 0, H, W >= 2, 16-byte aligned tensors; any N H W (the ragged tile masked).
+//
+// K4 ctk_conv3x3_zero_corr (k4_wgmma_kernel) replaces ctagan_tpu/ops/
+// fused_resblock_grad.py::_corr3x3_zero (its pallas_call at :115, reached
+// through conv3x3_input_grad): the interior of dL/dx of the reflect conv,
+// a zero-halo 3x3 correlation of g (N, H, W, Cout_f) with the flipped,
+// in/out-swapped kernel, K-major (C_f, 9 Cout_f) as B. It is this body in
+// its Zero mode: a source pixel outside the image stages zeros (hi and lo),
+// and there is no prologue, bias, stats or emitted input, so the shared
+// memory holds the stages alone. At the training body's (1, 128, 128, 256)
+// -> 256 it is 19.33 GFLOP: 0.117 ms for three TF32 products, 0.020 ms in
+// bf16, on 256 (f32) or 128 (bf16) blocks. The wrapper adds the reflect
+// folds in f32 after it.
 #include <cstdint>
 #include <type_traits>
 
@@ -64,6 +77,10 @@ constexpr int NT = 256;               // two warpgroups
 constexpr int A_BYTES = BM * ROW;     // one A tile
 constexpr int EPAD = 8;               // epilogue tile row padding, elements
 constexpr int STAGES = 3;             // A and B tiles in shared memory
+
+// Reflect: K1 (reflect pad, norm/ReLU/skip prologue, bias, stats, emitted
+// input). Zero: K4 (zero halo, none of these)
+enum class Mode { Reflect, Zero };
 
 struct Params {
   const void* x;      // (N, H, W, C) input, T
@@ -103,15 +120,20 @@ struct Tiles {
   }
   // the epilogue's (BM, BN + EPAD) output tile reuses the stages
   static_assert(BM * (BN + EPAD) * sizeof(T) <= STAGES * kStage, "tile");
-  static size_t smem_bytes(int c) {  // + 1024 for the alignment
-    return 1024 + STAGES * kStage + (2 * static_cast<size_t>(c) + 2 * NT) * 4;
+  // + 1024 for the alignment; Reflect adds the (2, C) norm and the
+  // epilogue's column sums
+  static size_t smem_bytes(Mode m, int c) {
+    return 1024 + STAGES * kStage +
+           (m == Mode::Reflect ? (2 * static_cast<size_t>(c) + 2 * NT) * 4
+                               : 0);
   }
 };
 
-template <typename T, int BN>
-__global__ void __launch_bounds__(NT, 1) k1_wgmma_kernel(Params p) {
+template <Mode M, typename T, int BN>
+__device__ __forceinline__ void conv_body(const Params& p) {
   using L = Tiles<T, BN>;
   constexpr bool kTf32 = L::kTf32;
+  constexpr bool kK1 = M == Mode::Reflect;
   constexpr int kV = L::kVals, BK = L::kChunk;
   extern __shared__ uint8_t smem_raw[];
   // the swizzle repeats every 8 rows of 128 bytes: 1024-byte aligned tiles
@@ -132,16 +154,17 @@ __global__ void __launch_bounds__(NT, 1) k1_wgmma_kernel(Params p) {
   const size_t plane = static_cast<size_t>(P) * C;  // one sample of x
 
   const T* __restrict__ x = static_cast<const T*>(p.x) + n * plane;
-  const T* __restrict__ skip =
-      p.skip != nullptr ? static_cast<const T*>(p.skip) + n * plane : nullptr;
+  const T* __restrict__ skip = (kK1 && p.skip != nullptr)
+                                   ? static_cast<const T*>(p.skip) + n * plane
+                                   : nullptr;
   const T* __restrict__ whi = static_cast<const T*>(p.whi);
   const T* __restrict__ wlo = static_cast<const T*>(p.wlo);
   // the emitted input is written by the channel-tile-0 blocks only, at the
   // centre tap, where input pixel == output pixel: each element once
-  T* __restrict__ xnew = (p.xnew != nullptr && blockIdx.y == 0)
+  T* __restrict__ xnew = (kK1 && p.xnew != nullptr && blockIdx.y == 0)
                              ? static_cast<T*>(p.xnew) + n * plane
                              : nullptr;
-  const bool has_norm = p.norm != nullptr;
+  const bool has_norm = kK1 && p.norm != nullptr;
   const bool relu = p.relu != 0;
 
   if (has_norm) {
@@ -175,7 +198,7 @@ __global__ void __launch_bounds__(NT, 1) k1_wgmma_kernel(Params p) {
   };
 
   // A of chunk kc, raw: each row's 16 bytes of x (and skip) in registers,
-  // loaded a chunk before they are staged
+  // loaded a chunk before they are staged; Zero: zeros outside the image
   uint4 xr[4], sr[4];
   auto load_a = [&](int kc) {
     const int tap = kc % 9;
@@ -184,11 +207,23 @@ __global__ void __launch_bounds__(NT, 1) k1_wgmma_kernel(Params p) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       if (ok[i]) {
-        const int iy = reflect1(oy[i] + ky - 1, H);
-        const int ix = reflect1(ox[i] + kx - 1, W);
-        const size_t off = (static_cast<size_t>(iy) * W + ix) * C + c;
-        xr[i] = *reinterpret_cast<const uint4*>(x + off);
-        if (skip != nullptr) sr[i] = *reinterpret_cast<const uint4*>(skip + off);
+        if constexpr (kK1) {
+          const int iy = reflect1(oy[i] + ky - 1, H);
+          const int ix = reflect1(ox[i] + kx - 1, W);
+          const size_t off = (static_cast<size_t>(iy) * W + ix) * C + c;
+          xr[i] = *reinterpret_cast<const uint4*>(x + off);
+          if (skip != nullptr) {
+            sr[i] = *reinterpret_cast<const uint4*>(skip + off);
+          }
+        } else {
+          const int iy = oy[i] + ky - 1, ix = ox[i] + kx - 1;
+          xr[i] = make_uint4(0, 0, 0, 0);
+          if (static_cast<unsigned>(iy) < static_cast<unsigned>(H) &&
+              static_cast<unsigned>(ix) < static_cast<unsigned>(W)) {
+            xr[i] = *reinterpret_cast<const uint4*>(
+                x + (static_cast<size_t>(iy) * W + ix) * C + c);
+          }
+        }
       }
     }
   };
@@ -326,7 +361,7 @@ __global__ void __launch_bounds__(NT, 1) k1_wgmma_kernel(Params p) {
   // epilogue: thread (warp w, lane l) of the warpgroup holds rows
   // 16 w + l / 4 + {0, 8} and columns 8 j + 2 (l % 4) + {0, 1}; the rounded
   // tile goes through shared memory, to be stored in 16-byte row pieces and
-  // summed by columns
+  // (Reflect) summed by columns
   constexpr int LD = BN + EPAD;
   T* tile = reinterpret_cast<T*>(smem);
   {
@@ -335,7 +370,8 @@ __global__ void __launch_bounds__(NT, 1) k1_wgmma_kernel(Params p) {
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const int col = 8 * j + 2 * (lane & 3);
-      const float b0 = p.b[n0 + col], b1 = p.b[n0 + col + 1];
+      float b0 = 0.f, b1 = 0.f;
+      if constexpr (kK1) b0 = p.b[n0 + col], b1 = p.b[n0 + col + 1];
       store2(tile + row * LD + col, acc[4 * j] + b0, acc[4 * j + 1] + b1);
       store2(tile + (row + 8) * LD + col, acc[4 * j + 2] + b0,
              acc[4 * j + 3] + b1);
@@ -352,53 +388,69 @@ __global__ void __launch_bounds__(NT, 1) k1_wgmma_kernel(Params p) {
           *reinterpret_cast<const uint4*>(tile + row * LD + wd * kV);
     }
   }
-  // column col over rows part * RP .. + RP, then the parts summed
-  constexpr int kRowParts = NT / BN, RP = BM / kRowParts;
-  {
-    const int col = tid % BN, part = tid / BN;
-    const int rows = min(RP, P - m0 - part * RP);
-    float s0 = 0.f, q0 = 0.f;
-    for (int r = 0; r < rows; ++r) {
-      const float v = to_f(tile[(part * RP + r) * LD + col]);
-      s0 += v;
-      q0 += v * v;
+  if constexpr (kK1) {
+    // column col over rows part * RP .. + RP, then the parts summed
+    constexpr int kRowParts = NT / BN, RP = BM / kRowParts;
+    {
+      const int col = tid % BN, part = tid / BN;
+      const int rows = min(RP, P - m0 - part * RP);
+      float s0 = 0.f, q0 = 0.f;
+      for (int r = 0; r < rows; ++r) {
+        const float v = to_f(tile[(part * RP + r) * LD + col]);
+        s0 += v;
+        q0 += v * v;
+      }
+      s_red[(part * 2 + 0) * BN + col] = s0;
+      s_red[(part * 2 + 1) * BN + col] = q0;
     }
-    s_red[(part * 2 + 0) * BN + col] = s0;
-    s_red[(part * 2 + 1) * BN + col] = q0;
-  }
-  __syncthreads();
-  for (int i = tid; i < 2 * BN; i += NT) {
-    const int which = i / BN, col = i % BN;
-    float t = 0.f;
+    __syncthreads();
+    for (int i = tid; i < 2 * BN; i += NT) {
+      const int which = i / BN, col = i % BN;
+      float t = 0.f;
 #pragma unroll
-    for (int part = 0; part < kRowParts; ++part) {
-      t += s_red[(part * 2 + which) * BN + col];
+      for (int part = 0; part < kRowParts; ++part) {
+        t += s_red[(part * 2 + which) * BN + col];
+      }
+      atomicAdd(&p.stats[(n * 2 + which) * Cout + n0 + col], t);
     }
-    atomicAdd(&p.stats[(n * 2 + which) * Cout + n0 + col], t);
   }
 }
 
+// each mode its own kernel name, so the SASS check and the profiler tell
+// K1 and K4 apart
 template <typename T, int BN>
+__global__ void __launch_bounds__(NT, 1) k1_wgmma_kernel(Params p) {
+  conv_body<Mode::Reflect, T, BN>(p);
+}
+
+template <typename T, int BN>
+__global__ void __launch_bounds__(NT, 1) k4_wgmma_kernel(Params p) {
+  conv_body<Mode::Zero, T, BN>(p);
+}
+
+template <Mode M, typename T, int BN>
 int launch(const Params& p, cudaStream_t stream) {
-  const size_t smem = Tiles<T, BN>::smem_bytes(p.c);
+  auto* kernel = M == Mode::Reflect ? k1_wgmma_kernel<T, BN>
+                                    : k4_wgmma_kernel<T, BN>;
+  const size_t smem = Tiles<T, BN>::smem_bytes(M, p.c);
   cudaError_t e = cudaFuncSetAttribute(
-      k1_wgmma_kernel<T, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const int tiles = (p.h * p.w + BM - 1) / BM;
   dim3 grid(p.n * tiles, p.cout / BN);
-  k1_wgmma_kernel<T, BN><<<grid, NT, smem, stream>>>(p);
+  kernel<<<grid, NT, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 // bf16: 256-channel tiles where Cout allows; f32: 128, whose two
 // accumulators fit in the registers
-template <typename T>
+template <Mode M, typename T>
 int dispatch(const Params& p, cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (p.cout % 256 == 0) return launch<T, 256>(p, stream);
+    if (p.cout % 256 == 0) return launch<M, T, 256>(p, stream);
   }
-  return launch<T, 128>(p, stream);
+  return launch<M, T, 128>(p, stream);
 }
 
 }  // namespace k1
@@ -412,8 +464,24 @@ extern "C" int ctk_conv3x3_reflect_stats(
                     static_cast<const float*>(norm), out,
                     static_cast<float*>(stats), xnew, n, h, wd, c, cout, relu};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? ctk::k1::dispatch<__nv_bfloat16>(p, s)
-              : ctk::k1::dispatch<float>(p, s);
+  using ctk::k1::Mode;
+  return bf16 ? ctk::k1::dispatch<Mode::Reflect, __nv_bfloat16>(p, s)
+              : ctk::k1::dispatch<Mode::Reflect, float>(p, s);
+}
+
+// K4: g (N, H, W, C) with C = the forward conv's Cout; w_hi [, w_lo] the
+// K-major (cout, 9 C) flipped kernel (ops/fused_resblock_grad.py::
+// k4_weight), cout = the forward conv's C; out (N, H, W, cout)
+extern "C" int ctk_conv3x3_zero_corr(const void* g, const void* whi,
+                                     const void* wlo, void* out, int n,
+                                     int h, int wd, int c, int cout, int bf16,
+                                     void* stream) {
+  ctk::k1::Params p{g, nullptr, whi, wlo, nullptr, nullptr, out, nullptr,
+                    nullptr, n, h, wd, c, cout, 0};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using ctk::k1::Mode;
+  return bf16 ? ctk::k1::dispatch<Mode::Zero, __nv_bfloat16>(p, s)
+              : ctk::k1::dispatch<Mode::Zero, float>(p, s);
 }
 
 extern "C" const char* ctk_error_string(int code) {

@@ -4,9 +4,10 @@
 // K4 ctk_conv3x3_zero_corr replaces ops/fused_resblock_grad.py::
 //   _corr3x3_zero (the Pallas kernel of conv3x3_input_grad): the interior of
 //   dL/dx of a reflect-padded 3x3 conv, a zero-halo correlation of g with the
-//   flipped, transposed kernel. It is conv_stats.cuh's implicit GEMM in its
-//   ZERO_S1 mode (no bias, no stats, CUDA-core FMAs); the wrapper adds the
-//   reflect folds.
+//   flipped, transposed kernel. It is K1's tensor-core implicit GEMM in its
+//   Zero mode (fused_resblock.cu, k4_wgmma_kernel: wgmma, 3xTF32 with
+//   per-chunk f32 sums for f32; a zero halo, no prologue, bias or stats);
+//   the wrapper adds the reflect folds.
 //
 // K5 ctk_conv3x3_weight_grad replaces ops/fused_resblock_grad.py::
 //   conv3x3_weight_grad (_wgrad_kernel): dW[kh][kw][c][o] = sum over every
@@ -436,14 +437,6 @@ int launch(const Params& p, int splits, cudaStream_t stream) {
 
 }  // namespace k5
 }  // namespace ctk
-
-extern "C" int ctk_conv3x3_zero_corr(const void* g, const void* v, void* out,
-                                     int n, int h, int wd, int c, int cout,
-                                     int bf16, void* stream) {
-  ctk::Params p{g, v, nullptr, nullptr, out, nullptr,
-                n, h, wd, c, cout, h, wd, 0};
-  return ctk::launch<ctk::ZERO_S1>(p, bf16, stream);
-}
 
 // bn: dW columns per block (128; 256 for bf16 where Cout allows), per: K
 // chunks per block, splits: blocks along the pixel axis (ops/

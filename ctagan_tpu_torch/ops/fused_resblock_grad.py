@@ -5,10 +5,14 @@ become the CUDA kernels of ``csrc/fused_resblock_grad.cuh``:
 
 - :func:`conv3x3_input_grad` (K4, ``_corr3x3_zero``): dL/dx of the reflect-
   padded 3×3 conv. The interior is a zero-halo correlation of g with the
-  flipped, transposed kernel (``_flip_pack``), run by the K1 implicit GEMM in
-  its ``ZERO_S1`` mode; the reflect-pad adjoint then folds the four padded
-  border lines and the corners back inside in plain tensor ops, as the JAX
-  package does them in XLA outside its kernel.
+  flipped, transposed kernel (``_flip_pack``), run by K1's tensor-core
+  implicit GEMM (``csrc/fused_resblock.cu``) in its zero-halo mode: the
+  kernel as a K-major (C, 9·Cout) B (:func:`k4_weight`, bf16 or the
+  :func:`~ctagan_tpu_torch.ops.fused_resblock.split_tf32` pair), g staged
+  with zeros outside the image, f32 as 3xTF32 with per-chunk f32 sums; no
+  prologue, bias or stats. The reflect-pad adjoint then folds the four
+  padded border lines and the corners back inside in plain tensor ops, as
+  the JAX package does them in XLA outside its kernel.
 - :func:`conv3x3_weight_grad` (K5, ``_wgrad_kernel``): dL/dW as a reduction
   over every pixel, with K1's norm → ReLU → round → +skip prologue applied as
   the input tile is staged, so relu(IN(h1)) is never stored. It is a
@@ -22,9 +26,9 @@ become the CUDA kernels of ``csrc/fused_resblock_grad.cuh``:
   axis (:func:`k5_plan`) and add f32 partials with ``atomicAdd``.
 
 What bounds them on the H100: ~19.3 GFLOP each at the main path's
-(1, 128, 128, 256) × 256, far above the ops-per-byte ridge, so arithmetic.
-K5's bound is 0.020 ms in bf16 and 0.117 ms for f32's three TF32 products
-(495 TFLOP/s); K4 still runs the first version's f32 CUDA-core FMAs.
+(1, 128, 128, 256) × 256, far above the ops-per-byte ridge, so arithmetic:
+0.020 ms in bf16 and 0.117 ms for f32's three TF32 products (495 TFLOP/s),
+both kernels on the tensor cores.
 
 :class:`FusedChainFunction` is ``fused_chain_vjp_make``'s custom VJP as a
 ``torch.autograd.Function``: its forward runs the K1 chain and keeps
@@ -52,8 +56,11 @@ from ctagan_tpu_torch.ops._common import (
     stream_ptr,
 )
 from ctagan_tpu_torch.ops.fused_resblock import (
+    K1_CHUNK,
+    K1_COUT_TILE,
     _stats_to_norm,
     conv3x3_reflect_stats,
+    k1_weight,
     split_tf32,
 )
 
@@ -88,18 +95,43 @@ def _corr3x3_zero_plain(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1).to(g.dtype).contiguous()
 
 
-def _corr3x3_zero_kernel(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    n, h, wd, c = g.shape
-    cout = v.shape[3]
-    if c % 16 or cout % 64:
-        raise ValueError("conv3x3_input_grad: the CUDA kernel needs the "
-                         "forward conv's C % 64 == 0 and Cout % 16 == 0, got "
-                         f"C={cout}, Cout={c}")
-    vk = v.to(g.dtype).contiguous()
-    out = torch.empty((n, h, wd, cout), dtype=g.dtype, device=g.device)
+def check_k4_kernel_limits(g: torch.Tensor, c: int) -> None:
+    """Raise ValueError for what the CUDA kernel cannot take, in the
+    forward conv's terms (K1's limits with K4's K and N): its Cout (g's
+    channels, K4's K per tap) % 64, its C (K4's output channels) % 128, or
+    g not on a 16-byte boundary. Any N, H, W. Runs on any device."""
+    fn = "conv3x3_input_grad"
+    cout = g.shape[3]
+    if cout % K1_CHUNK or c % K1_COUT_TILE:
+        raise ValueError(
+            f"{fn}: the CUDA kernel needs the forward conv's Cout % "
+            f"{K1_CHUNK} == 0 and C % {K1_COUT_TILE} == 0, got C={c}, "
+            f"Cout={cout}")
+    if g.data_ptr() % 16:
+        raise ValueError(f"{fn}: the CUDA kernel needs 16-byte aligned "
+                         "tensors")
+
+
+def k4_weight(w: torch.Tensor, dtype: torch.dtype):
+    """The kernel's B operand: the flipped, in/out-swapped kernel
+    ``_flip_pack(w)`` (3, 3, Cout, C) as a K-major (C, 9·Cout) matrix, K =
+    (tap, Cout): bf16 for bf16 I/O (w, None), the :func:`split_tf32`
+    (hi, lo) for f32."""
+    return k1_weight(_flip_pack(w), dtype)
+
+
+def _corr3x3_zero_kernel(g: torch.Tensor, whi: torch.Tensor,
+                         wlo: Optional[torch.Tensor]) -> torch.Tensor:
+    """Launch K4 on g and its B operand (:func:`k4_weight`); returns the
+    interior (N, H, W, C) in g.dtype."""
+    n, h, wd, cout = g.shape
+    c = whi.shape[0]
+    check_k4_kernel_limits(g, c)
+    out = torch.empty((n, h, wd, c), dtype=g.dtype, device=g.device)
     with torch.cuda.device(g.device):
-        _build.launch("ctk_conv3x3_zero_corr", g.data_ptr(), vk.data_ptr(),
-                      out.data_ptr(), n, h, wd, c, cout,
+        _build.launch("ctk_conv3x3_zero_corr", g.data_ptr(), whi.data_ptr(),
+                      wlo.data_ptr() if wlo is not None else None,
+                      out.data_ptr(), n, h, wd, cout, c,
                       int(g.dtype == torch.bfloat16), stream_ptr(g))
     conv3x3_input_grad.launches += 1
     return out
@@ -156,7 +188,7 @@ def conv3x3_input_grad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return conv3x3_input_grad_plain(g, w)
     _check_input_grad(g, w, DTYPES)
     same_device("conv3x3_input_grad", g, w)
-    dx = _corr3x3_zero_kernel(g, _flip_pack(w)).float()
+    dx = _corr3x3_zero_kernel(g, *k4_weight(w, g.dtype)).float()
     return _reflect_folds(dx, g, w).to(g.dtype)
 
 
