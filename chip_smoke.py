@@ -9,7 +9,10 @@ card, ``nvcc`` and no network, and imports nothing of JAX. Phases:
    registers and shared memory);
 2. ``kernels``: each kernel against its plain PyTorch version at the main
    paths' shapes, f32 and bf16, every variant a path uses (K1, K3, K2 at the
-   serving generator's 512² shapes with N=2; K4 conv3x3_input_grad and K5
+   serving generator's 512² shapes with N=2; K3 also at a ragged (1, 72,
+   104, 64) (a partial tile on a 36×52 grid), at a halo case whose norm
+   means are ±1.5 (a normalized zero staged for the zero pad would be far
+   off), and without a norm; K4 conv3x3_input_grad and K5
    conv3x3_weight_grad at the training body's (1, 128, 128, 256), both also
    at a ragged (1, 40, 40, 256) (K5 with skip) and at C = Cout = 128; K7
    conv3x3_reflect_s8 at the int8 body's (2, 128, 128, 256) in both input
@@ -18,10 +21,10 @@ card, ``nvcc`` and no network, and imports nothing of JAX. Phases:
    one PyTorch library call (cuDNN, ``F.instance_norm``, or for K7 the int8
    GEMM alone: yardsticks the port never calls) with CUDA events, and
    computes each case's bound from its operations and bytes; K1 also at a
-   ragged (1, 40, 40, 256) and at C = Cout = 128; K4's kernel alone, and
-   its wrapper's device time by kernel beside its host time; K1's, K4's and
-   K5's built kernels are held to hold ``HGMMA`` (``wgmma``) instructions
-   (``cuobjdump -sass``);
+   ragged (1, 40, 40, 256) and at C = Cout = 128; K4's and K3's kernels
+   alone, and their wrappers' device time by kernel beside the host time;
+   K1's, K3's, K4's and K5's built kernels are held to hold ``HGMMA``
+   (``wgmma``) instructions (``cuobjdump -sass``);
 3. ``generator``: the full-width generator (9 blocks, base 64, 11,365,633
    parameters, seeded weights) at 512², b=2: the serving kernel route
    against the plain layer route, 18 K1, 2 K3 and 2 K2 launches per forward;
@@ -136,10 +139,10 @@ PLAIN_STEPS = 6   # plain route, for its p50 beside the kernel route's
 # the tensor cores, bf16, int8 and TF32 dense tensor cores, HBM3 bytes/s
 PEAK_F32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
 PEAK_INT8, PEAK_TF32 = 1979e12, 495e12
-# the kernels on wgmma, by name: K1 and K4 csrc/fused_resblock.cu, K5
+# the kernels on wgmma, by name: K1, K3 and K4 csrc/conv_wgmma.cuh, K5
 # csrc/fused_resblock_grad.cuh
-WGMMA_KERNELS = {"K1": "k1_wgmma_kernel", "K4": "k4_wgmma_kernel",
-                 "K5": "wgrad_kernel"}
+WGMMA_KERNELS = {"K1": "k1_wgmma_kernel", "K3": "k3_wgmma_kernel",
+                 "K4": "k4_wgmma_kernel", "K5": "wgrad_kernel"}
 ALL_PHASES = ("kernels", "generator", "int8", "grad", "serving",
               "int8_serving", "training")
 
@@ -257,12 +260,20 @@ def kernel_cases(torch):
         b = kw["b"].to(kw["x"].dtype)
         return lambda: F.conv2d(nchw(kw["x"]), w, b, padding=1)
 
-    def k3(c, co):
+    def k3(c, co, n=2, hw=None, norm=True, offset=0.0):
+        # offset: channel offsets of alternating sign, so the norm's mean is
+        # far from 0 and relu((0 - mean) rstd) is too on half the channels
         def make(dt):
-            h = 512 if c == 64 else 256
-            x = randn(2, h, h, c).to(dt)
-            return dict(x=x, w=randn(3, 3, c, co, scale=0.04),
-                        b=randn(co, scale=0.1), norm=normed(x), relu=True)
+            h, wd = hw or ((512, 512) if c == 64 else (256, 256))
+            x = randn(n, h, wd, c)
+            if offset:
+                x = x + offset * (torch.arange(c, device=dev) % 2 * 2 - 1)
+            x = x.to(dt)
+            kw = dict(x=x, w=randn(3, 3, c, co, scale=0.04),
+                      b=randn(co, scale=0.1))
+            if norm:
+                kw.update(norm=normed(x), relu=True)
+            return kw
         return make
 
     def k3_lib(kw):
@@ -383,12 +394,12 @@ def kernel_cases(torch):
     k6_spec = {"out_tol": K6_OUT_TOL,
                "peaks": {dt: (PEAK_F32, "f32 CUDA cores")
                          for dt in CONV_PEAKS}}
-    # K1's, K4's and K5's f32 routes are three TF32 products on the tensor
-    # cores (3xTF32)
-    k1_spec = k4_spec = k5_spec = {"peaks": {"float32": (PEAK_TF32 / 3,
-                                               "3 TF32 products, tensor cores"),
-                                   "bfloat16": CONV_PEAKS["bfloat16"]},
-                         "also": (CONV_PEAKS["float32"],)}
+    # K1's, K3's, K4's and K5's f32 routes are three TF32 products on the
+    # tensor cores (3xTF32)
+    k1_spec = k3_spec = k4_spec = k5_spec = {
+        "peaks": {"float32": (PEAK_TF32 / 3, "3 TF32 products, tensor cores"),
+                  "bfloat16": CONV_PEAKS["bfloat16"]},
+        "also": (CONV_PEAKS["float32"],)}
     k1_flops = x_flops(lambda kw: kw["w"].shape[3])
     k5_flops = x_flops(lambda kw: kw["g"].shape[3])
     return [
@@ -404,12 +415,18 @@ def kernel_cases(torch):
          r.conv3x3_reflect_stats, r.conv3x3_reflect_stats_plain,
          k1("norm_relu", c=128), k1_lib, k1_flops, k1_spec),
     ] + [
-        ("conv3x3_s2_zero_stats", "K3 down1 N=2 64->128 512^2",
-         d.conv3x3_s2_zero_stats, d.conv3x3_s2_zero_stats_plain, k3(64, 128),
-         k3_lib, down_flops),
-        ("conv3x3_s2_zero_stats", "K3 down2 N=2 128->256 256^2",
-         d.conv3x3_s2_zero_stats, d.conv3x3_s2_zero_stats_plain,
-         k3(128, 256), k3_lib, down_flops),
+        ("conv3x3_s2_zero_stats", case, d.conv3x3_s2_zero_stats,
+         d.conv3x3_s2_zero_stats_plain, make, k3_lib, down_flops, k3_spec)
+        for case, make in (
+            ("K3 down1 N=2 64->128 512^2", k3(64, 128)),
+            ("K3 down2 N=2 128->256 256^2", k3(128, 256)),
+            ("K3 ragged N=1 72x104x64->128 (36x52 out)",
+             k3(64, 128, n=1, hw=(72, 104))),
+            ("K3 halo N=2 128^2x128->256 means +-1.5",
+             k3(128, 256, hw=(128, 128), offset=1.5)),
+            ("K3 no-norm N=1 256^2x64->128",
+             k3(64, 128, n=1, hw=(256, 256), norm=False)))
+    ] + [
         ("convt2x_stats", "K2 up1 N=2 256->128 128^2", t.convt2x_stats,
          t.convt2x_stats_plain, k2(256, 128, False), k2_lib,
          x_flops(lambda kw: kw["kernel_t"].shape[1])),
@@ -536,59 +553,97 @@ def check_k5_operands(torch):
                 fail(f"K5's operands kernel {shape} {dt} differs from plain")
 
 
-def time_k4_parts(torch):
-    """K4 at the training body's (1, 128, 128, 256) -> 256, f32 and bf16:
-    the kernel alone on a built B operand (CUDA events, beside its bound
-    and its grid), and one wrapper call's device time by kernel
-    (``torch.profiler``, 5 calls: B's build, the kernel, the f32 cast,
-    reflect folds and rounding) beside the host's time to enqueue it."""
+def time_wrapper_parts(torch):
+    """K4 at the training body's (1, 128, 128, 256) -> 256 and K3 at the
+    serving path's down1 (2, 512, 512, 64) -> 128, f32 and bf16: the kernel
+    alone on a built B operand (CUDA events, beside its bound and its
+    grid), and one wrapper call's device time by kernel (``torch.profiler``,
+    5 calls: B's build, the kernel, and for K4 the f32 cast, reflect folds
+    and rounding) beside the host's time to enqueue it."""
+    from ctagan_tpu_torch.ops import fused_down as d
     from ctagan_tpu_torch.ops import fused_resblock_grad as gr
+    from ctagan_tpu_torch.ops.fused_resblock import k1_weight
 
     cuda = torch.autograd.DeviceType.CUDA
     act = [torch.profiler.ProfilerActivity.CPU,
            torch.profiler.ProfilerActivity.CUDA]
     gen = torch.Generator(device="cuda").manual_seed(4)
-    w = torch.randn(3, 3, 256, 256, generator=gen, device="cuda") * 0.02
-    g32 = torch.randn(1, 128, 128, 256, generator=gen, device="cuda")
-    n, h, wd, cout = g32.shape
-    c = w.shape[2]
-    flops = 2.0 * n * h * wd * 9 * cout * c
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    w4 = randn(3, 3, 256, 256, scale=0.02)
+    g4 = randn(1, 128, 128, 256)
+    x3, w3 = randn(2, 512, 512, 64), randn(3, 3, 64, 128, scale=0.04)
+    b3 = randn(128, scale=0.1)
+    norm3 = torch.stack([x3.mean(dim=(1, 2)),
+                         torch.rsqrt(x3.var(dim=(1, 2)) + 1e-5)], dim=1)
+
+    def k4(dt):
+        g = g4.to(dt)
+        b = gr.k4_weight(w4, dt)
+        n, h, wd, cout = g.shape
+        c = w4.shape[2]
+        return dict(shape=f"N=1 {h}^2x{cout}->{c}", n=n, pixels=h * wd,
+                    cout=c, k=9 * cout,
+                    kernel=lambda: gr._corr3x3_zero_kernel(g, *b),
+                    call=lambda: gr.conv3x3_input_grad(g, w4),
+                    moved=nbytes(g, *b) + n * h * wd * c * g.element_size())
+
+    def k3(dt):
+        x = x3.to(dt)
+        b = k1_weight(w3, dt)
+        n, h, wd, c = x.shape
+        cout = w3.shape[3]
+        pixels = (h // 2) * (wd // 2)
+        return dict(shape=f"down1 N={n} {h}^2x{c}->{cout}", n=n,
+                    pixels=pixels, cout=cout, k=9 * c,
+                    kernel=lambda: d._k3_kernel(x, *b, b3, norm3, True),
+                    call=lambda: d.conv3x3_s2_zero_stats(x, w3, b3, norm3,
+                                                         True),
+                    moved=nbytes(x, *b) + n * pixels * cout
+                    * x.element_size())
+
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for dt_name, (peak, label) in (
-            ("float32", (PEAK_TF32 / 3, "3 TF32 products")),
-            ("bfloat16", CONV_PEAKS["bfloat16"])):
-        dt = getattr(torch, dt_name)
-        g = g32.to(dt)
-        b = gr.k4_weight(w, dt)
-        kernel_ms = cuda_ms(torch, lambda: gr._corr3x3_zero_kernel(g, *b))
-        bn = 256 if dt == torch.bfloat16 and c % 256 == 0 else 128
-        blocks = n * -(-h * wd // 128) * (c // bn)
-        reps = 5
-        with torch.profiler.profile(activities=act) as prof:
-            for _ in range(reps):
-                gr.conv3x3_input_grad(g, w)
+    for name, parts in (("K4", k4), ("K3", k3)):
+        for dt_name, (peak, label) in (
+                ("float32", (PEAK_TF32 / 3, "3 TF32 products")),
+                ("bfloat16", CONV_PEAKS["bfloat16"])):
+            dt = getattr(torch, dt_name)
+            q = parts(dt)
+            flops = 2.0 * q["n"] * q["pixels"] * q["cout"] * q["k"]
+            bound_ms, bound_by = bound_of(flops, q["moved"], peak)
+            kernel_ms = cuda_ms(torch, q["kernel"])
+            bn = 256 if dt == torch.bfloat16 and q["cout"] % 256 == 0 else 128
+            blocks = q["n"] * -(-q["pixels"] // 128) * (q["cout"] // bn)
+            chunks = q["k"] // (128 // dt.itemsize)  # 128-byte K chunks
+            reps = 5
+            with torch.profiler.profile(activities=act) as prof:
+                for _ in range(reps):
+                    q["call"]()
+                torch.cuda.synchronize()
+            by_name = {}
+            for e in prof.events():
+                if e.device_type == cuda:
+                    k, us = by_name.get(e.name, (0, 0.0))
+                    by_name[e.name] = (k + 1, us + e.time_range.elapsed_us())
+            device_ms = sum(us for _, us in by_name.values()) / reps / 1e3
+            t0 = time.perf_counter()
+            for _ in range(10):
+                q["call"]()
+            host_ms = (time.perf_counter() - t0) / 10 * 1e3
             torch.cuda.synchronize()
-        by_name = {}
-        for e in prof.events():
-            if e.device_type == cuda:
-                k, us = by_name.get(e.name, (0, 0.0))
-                by_name[e.name] = (k + 1, us + e.time_range.elapsed_us())
-        device_ms = sum(us for _, us in by_name.values()) / reps / 1e3
-        t0 = time.perf_counter()
-        for _ in range(10):
-            gr.conv3x3_input_grad(g, w)
-        host_ms = (time.perf_counter() - t0) / 10 * 1e3
-        torch.cuda.synchronize()
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
-        print(f"K4 {dt_name} N=1 {h}^2x{cout}->{c}: kernel alone "
-              f"{kernel_ms:.3f} ms (bound {flops / peak * 1e3:.3f} ms, "
-              f"{label}; {flops / kernel_ms / 1e9:.1f} T ops/s; {blocks} "
-              f"blocks of 128 x {bn}, {blocks / sms:.2f} waves on {sms} "
-              f"SMs); one wrapper call: device {device_ms:.3f} ms in "
-              f"{sum(k for k, _ in by_name.values()) // reps} kernels, host "
-              f"enqueue {host_ms:.3f} ms; largest: "
-              + "; ".join(f"{name[:60]} x{k // reps} {us / reps / 1e3:.4f} ms"
-                          for name, (k, us) in top), flush=True)
+            top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+            print(f"{name} {dt_name} {q['shape']}: kernel alone "
+                  f"{kernel_ms:.3f} ms (bound {bound_ms:.3f} ms by "
+                  f"{bound_by}, {label}; {flops / kernel_ms / 1e9:.1f} T "
+                  f"ops/s; {blocks} blocks of 128 x {bn}, {blocks / sms:.2f} "
+                  f"waves on {sms} SMs, {chunks} K chunks each); one wrapper "
+                  f"call: device {device_ms:.3f} ms in "
+                  f"{sum(k for k, _ in by_name.values()) // reps} kernels, "
+                  f"host enqueue {host_ms:.3f} ms; largest: "
+                  + "; ".join(f"{kn[:60]} x{k // reps} {us / reps / 1e3:.4f}"
+                              f" ms" for kn, (k, us) in top), flush=True)
 
 
 def _counted():
@@ -1110,9 +1165,9 @@ def check_training(torch, card):
 
 
 def check_tensor_cores(lib_path):
-    """K1's, K4's and K5's kernels (each instantiation, f32 and bf16 I/O)
-    hold HGMMA (wgmma) instructions in the built library's SASS, so one
-    that runs on CUDA-core FMAs fails."""
+    """K1's, K3's, K4's and K5's kernels (each instantiation, f32 and bf16
+    I/O) hold HGMMA (wgmma) instructions in the built library's SASS, so
+    one that runs on CUDA-core FMAs fails."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -1197,7 +1252,7 @@ def main():
         if phase == "kernels":
             kernels = check_kernels(torch)
             check_k5_operands(torch)
-            time_k4_parts(torch)
+            time_wrapper_parts(torch)
         elif phase == "generator":
             check_generator(torch, card)
             check_zero_pad_serving(torch, card)

@@ -1,23 +1,22 @@
-// Shared implicit-GEMM core of K3 and K2 (CUDA-core FMAs), and the element
-// helpers that K1 and K4 (fused_resblock.cu) and K5
-// (fused_resblock_grad.cuh), on the tensor cores, also use.
+// K2's implicit-GEMM core (CUDA-core FMAs), and the element helpers that
+// K1, K3 and K4 (conv_wgmma.cuh) and K5 (fused_resblock_grad.cuh), on the
+// tensor cores, also use.
 //
-// Each kernel is a 3x3 convolution over an NHWC tensor that also emits the
-// per-(sample, channel) [sum, sum^2] of its own dtype-rounded output, with the
-// previous InstanceNorm's (mean, rstd) and ReLU folded into the input read.
-// They differ only in how an output pixel and a tap map to an input pixel,
-// which is the MODE template argument:
-//
-//   ZERO_S2     stride-2 conv, zero pad 1             (ops/fused_down.py)
-//   CONVT_S2    ConvTranspose k3 s2 p1 op1, one output phase per blockIdx.z
-//               (1/2/2/4 taps; no dilated buffer)     (ops/fused_convt.py)
+// K2 is a 3x3 ConvTranspose (k3 s2 p1 op1) over an NHWC tensor that also
+// emits the per-(sample, channel) [sum, sum^2] of its own dtype-rounded
+// output, with the previous InstanceNorm's (mean, rstd) and ReLU folded into
+// the input read (ops/fused_convt.py). Its mode, CONVT_S2, runs one output
+// phase per blockIdx.z (1/2/2/4 taps; no dilated buffer); the mode stays a
+// template argument so the kernel keeps its name, conv_stats_kernel<2, T>,
+// which tools/profile_port.py reads.
 //
 // Block = one tile of BM output pixels of one sample x BN output channels.
 // K = taps x C is walked in BK-channel chunks: the block stages a BK x BM
-// input tile (boundary, norm and ReLU applied as it is loaded, f32)
-// and a BK x BN weight tile in shared memory, and each of the 256 threads
-// accumulates a 4x4 register tile in f32 (CUDA-core FMAs, no tensor cores). The epilogue adds the bias, rounds to the I/O dtype,
-// stores, reduces sum/sum^2 of the rounded values over the tile's pixels and
+// input tile (boundary, norm and ReLU applied as it is loaded, f32) and a
+// BK x BN weight tile in shared memory, and each of the 256 threads
+// accumulates a 4x4 register tile in f32 (CUDA-core FMAs, no tensor
+// cores). The epilogue adds the bias, rounds to the I/O dtype, stores,
+// reduces sum/sum^2 of the rounded values over the tile's pixels and
 // atomically adds them into the zeroed f32 (N, 2, Cout) stats buffer.
 #pragma once
 
@@ -26,7 +25,7 @@
 
 namespace ctk {
 
-enum Mode { ZERO_S2 = 1, CONVT_S2 = 2 };
+enum Mode { CONVT_S2 = 2 };
 
 constexpr int BM = 64;   // output pixels per block
 constexpr int BN = 64;   // output channels per block
@@ -79,11 +78,10 @@ __global__ void __launch_bounds__(NT) conv_stats_kernel(Params p) {
   const int tid = threadIdx.x;
   const int tx = tid % 16;  // compute role: columns tx + 16 j
   const int ty = tid / 16;  // compute role: rows ty + 16 i
-  // pixel grid walked by the tiles: output pixels, or for CONVT_S2 the input
-  // grid positions (q, r) of output phase (py, px): output (2q+py, 2r+px)
-  const int gh = (MODE == CONVT_S2) ? p.h : p.ho;
-  const int gw = (MODE == CONVT_S2) ? p.w : p.wo;
-  const int P = gh * gw;
+  // pixel grid walked by the tiles: the input grid positions (q, r) of
+  // output phase (py, px): output (2q+py, 2r+px)
+  const int gw = p.w;
+  const int P = p.h * gw;
   const int tiles = (P + BM - 1) / BM;
   const int n = blockIdx.x / tiles;
   const int m0 = (blockIdx.x % tiles) * BM;
@@ -109,36 +107,22 @@ __global__ void __launch_bounds__(NT) conv_stats_kernel(Params p) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
-  // taps: 3 x 3, or for CONVT_S2 the (1 + py) x (1 + px) taps of the phase.
-  // ConvTranspose row taps: py = 0 -> ky 1 (input row q); py = 1 -> ky 0
-  // (row q + 1) and ky 2 (row q). Same for columns.
-  const int nty = (MODE == CONVT_S2) ? 1 + py : 3;
-  const int ntx = (MODE == CONVT_S2) ? 1 + px : 3;
+  // taps: the (1 + py) x (1 + px) taps of the phase. ConvTranspose row
+  // taps: py = 0 -> ky 1 (input row q); py = 1 -> ky 0 (row q + 1) and ky 2
+  // (row q). Same for columns.
+  const int nty = 1 + py;
+  const int ntx = 1 + px;
   for (int ti = 0; ti < nty; ++ti) {
     for (int tj = 0; tj < ntx; ++tj) {
-      int ky, kx;
-      if (MODE == CONVT_S2) {
-        ky = py ? 2 * ti : 1;
-        kx = px ? 2 * tj : 1;
-      } else {
-        ky = ti;
-        kx = tj;
-      }
+      const int ky = py ? 2 * ti : 1;
+      const int kx = px ? 2 * tj : 1;
       long long off[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        int iy, ix;
-        bool ok = gv[i];
-        if (MODE == ZERO_S2) {
-          iy = 2 * gy[i] + ky - 1;
-          ix = 2 * gx[i] + kx - 1;
-          ok = ok && iy >= 0 && iy < H && ix >= 0 && ix < W;
-        } else {
-          iy = gy[i] + (ky == 0 ? 1 : 0);
-          ix = gx[i] + (kx == 0 ? 1 : 0);
-          // past the bottom/right edge: the output-padding zero
-          ok = ok && iy < H && ix < W;
-        }
+        const int iy = gy[i] + (ky == 0 ? 1 : 0);
+        const int ix = gx[i] + (kx == 0 ? 1 : 0);
+        // past the bottom/right edge: the output-padding zero
+        const bool ok = gv[i] && iy < H && ix < W;
         off[i] = ok ? ((long long)(n * H + iy) * W + ix) * C : -1;
       }
       const T* wt = w + (long long)(ky * 3 + kx) * C * Cout;
@@ -192,11 +176,7 @@ __global__ void __launch_bounds__(NT) conv_stats_kernel(Params p) {
   for (int i = 0; i < 4; ++i) {
     const int m = m0 + ty + 16 * i;
     if (m >= P) continue;
-    int oy = m / gw, ox = m % gw;
-    if (MODE == CONVT_S2) {
-      oy = 2 * oy + py;
-      ox = 2 * ox + px;
-    }
+    const int oy = 2 * (m / gw) + py, ox = 2 * (m % gw) + px;
     T* orow = out + ((long long)(n * p.ho + oy) * p.wo + ox) * Cout + n0;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -225,10 +205,8 @@ __global__ void __launch_bounds__(NT) conv_stats_kernel(Params p) {
 
 template <int MODE>
 int launch(Params p, int bf16, void* stream) {
-  const int gh = (MODE == CONVT_S2) ? p.h : p.ho;
-  const int gw = (MODE == CONVT_S2) ? p.w : p.wo;
-  const int tiles = (gh * gw + BM - 1) / BM;
-  dim3 grid(p.n * tiles, p.cout / BN, MODE == CONVT_S2 ? 4 : 1);
+  const int tiles = (p.h * p.w + BM - 1) / BM;
+  dim3 grid(p.n * tiles, p.cout / BN, 4);  // one output phase per z
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
     conv_stats_kernel<MODE, __nv_bfloat16><<<grid, NT, 0, s>>>(p);

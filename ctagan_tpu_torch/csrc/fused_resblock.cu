@@ -1,460 +1,21 @@
-// K1: reflect-padded 3x3 conv + output [sum, sum^2], with the previous
+// K1 ctk_conv3x3_reflect_stats (k1_wgmma_kernel) replaces ctagan_tpu/ops/
+// fused_resblock.py::conv3x3_reflect_stats (its pallas_call at :251): the
+// reflect-padded 3x3 conv + output [sum, sum^2], with the previous
 // InstanceNorm (+ReLU) and the previous block's skip-add folded into the
-// input read, on Hopper's tensor cores. Replaces
-// ctagan_tpu/ops/fused_resblock.py::conv3x3_reflect_stats (its pallas_call
-// at :251). Its body also serves K4, the backward's input gradient, in a
-// zero-halo mode (below); K5 (fused_resblock_grad.cuh) builds with it, and
-// the tensor-core helpers all three share are in wgmma.cuh.
-//
-// What bounds it on the H100: at the main path's N=2, 128^2 x 256 -> 256 it
-// is 38.65 GFLOP over ~70 MB of operands (f32), far above the ops-per-byte
-// ridge: 0.039 ms at the bf16 dense peak (989 TFLOP/s) and 0.234 ms for the
-// f32 route's three TF32 products (495 TFLOP/s). Either route is bound by
-// arithmetic, so every multiply-add runs on the tensor cores:
-//
-// - Implicit GEMM: M = the pixels of one sample (a tile never crosses
-//   samples, so the stats atomics go to one n), N = Cout, K = 9 C walked in
-//   chunks of one tap and one 128-byte row of operands (64 bf16 or 32 f32
-//   channels, four k16 or k8 steps), taps inner, so the nine chunks of a
-//   channel block re-read the same input rows from L1.
-// - A block is two warpgroups (256 threads) on a 128-pixel x BN-channel
-//   tile; each warpgroup issues wgmma.m64n{BN} (operands from shared
-//   memory, f32 accumulator in registers) on its 64 rows. bf16 takes
-//   BN = 256 where Cout allows: a wide BN stages each activation once for
-//   more products, and the staging, not the tensor cores, is what limits
-//   it. f32 takes BN = 128, since it holds two accumulators (below).
-// - A, the activations, is staged by the threads (a tensor copy has no
-//   reflect pad and no norm prologue): each thread loads 16 bytes of the
-//   tap's reflect-padded source pixel a chunk ahead, applies the prologue in
-//   f32 in JAX's rounding order, converts to the MMA type and stores into
-//   the 128B-swizzled K-major layout that the wgmma descriptor names. The
-//   chunk's wgmmas are issued between the rows of the next chunk's staging,
-//   so the tensor cores run while the threads work.
-// - B, the weight, is a K-major (Cout, 9C) copy in the MMA type that the
-//   wrapper makes per call, brought in by cp.async into the same swizzled
-//   layout two chunks ahead (three shared-memory stages).
-// - f32 I/O is 3xTF32: each f32 operand is split into TF32 hi = rna(v) and
-//   lo = rna(v - hi) (A here, the weight once per call by the wrapper), and
-//   three products, small terms first, A_lo B_hi + A_hi B_lo + A_hi B_hi,
-//   go into a chunk accumulator (A_lo B_lo is left out). The tensor cores
-//   add into it with truncation, so each chunk's sum is added to a second,
-//   register accumulator in f32 with rounding to nearest: ~2e-6 of the
-//   output's scale, an f32 FMA loop's grade. One TF32 pass is ~3e-4 (over
-//   the f32 tolerance), and split-bf16 products or one accumulator over all
-//   of K (~1e-5) leave the generator's gradients through 18 InstanceNorms
-//   over twice as far from float64 as the plain route's.
-// - Epilogue: bias, round to the I/O dtype, through shared memory to
-//   16-byte row stores, and [sum, sum^2] of the rounded values by columns,
-//   one atomicAdd per column per block into the zeroed f32 (N, 2, Cout)
-//   buffer.
-//
-// Limits (the wrapper raises for anything else): C % 64 == 0, Cout % 128 ==
-// 0, H, W >= 2, 16-byte aligned tensors; any N H W (the ragged tile masked).
+// input read, on Hopper's tensor cores. Its body, shared with K4 and K3,
+// and its design are in conv_wgmma.cuh; K5 (fused_resblock_grad.cuh)
+// builds in this file too.
 //
 // K4 ctk_conv3x3_zero_corr (k4_wgmma_kernel) replaces ctagan_tpu/ops/
 // fused_resblock_grad.py::_corr3x3_zero (its pallas_call at :115, reached
 // through conv3x3_input_grad): the interior of dL/dx of the reflect conv,
 // a zero-halo 3x3 correlation of g (N, H, W, Cout_f) with the flipped,
-// in/out-swapped kernel, K-major (C_f, 9 Cout_f) as B. It is this body in
-// its Zero mode: a source pixel outside the image stages zeros (hi and lo),
-// and there is no prologue, bias, stats or emitted input, so the shared
-// memory holds the stages alone. At the training body's (1, 128, 128, 256)
-// -> 256 it is 19.33 GFLOP: 0.117 ms for three TF32 products, 0.020 ms in
-// bf16, on 256 (f32) or 128 (bf16) blocks. The wrapper adds the reflect
-// folds in f32 after it.
-#include <cstdint>
-#include <type_traits>
-
-#include "conv_stats.cuh"
+// in/out-swapped kernel, K-major (C_f, 9 Cout_f) as B: the body in its
+// Zero mode. At the training body's (1, 128, 128, 256) -> 256 it is 19.33
+// GFLOP: 0.117 ms for three TF32 products, 0.020 ms in bf16, on 256 (f32)
+// or 128 (bf16) blocks. The wrapper adds the reflect folds in f32 after it.
+#include "conv_wgmma.cuh"
 #include "fused_resblock_grad.cuh"
-#include "wgmma.cuh"
-
-namespace ctk {
-namespace k1 {
-
-constexpr int BM = 128;               // pixels per block, 64 per warpgroup
-constexpr int NT = 256;               // two warpgroups
-constexpr int A_BYTES = BM * ROW;     // one A tile
-constexpr int EPAD = 8;               // epilogue tile row padding, elements
-constexpr int STAGES = 3;             // A and B tiles in shared memory
-
-// Reflect: K1 (reflect pad, norm/ReLU/skip prologue, bias, stats, emitted
-// input). Zero: K4 (zero halo, none of these)
-enum class Mode { Reflect, Zero };
-
-struct Params {
-  const void* x;      // (N, H, W, C) input, T
-  const void* skip;   // (N, H, W, C) residual stream, T, or null
-  const void* whi;    // (Cout, 9C) weight, bf16 (bf16 I/O) or TF32 hi (f32)
-  const void* wlo;    // (Cout, 9C) TF32 lo (f32 I/O), or null
-  const float* b;     // (Cout,) bias
-  const float* norm;  // (N, 2, C) [mean, rstd], or null
-  void* out;          // (N, H, W, Cout), T
-  float* stats;       // (N, 2, Cout) [sum, sum^2], zeroed by the caller
-  void* xnew;         // (N, H, W, C) emitted conv input, T, or null
-  int n, h, w, c, cout, relu;
-};
-
-__device__ __forceinline__ void store2(float* dst, float a, float b) {
-  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
-}
-
-__device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
-}
-
-template <typename T, int BN>
-struct Tiles {
-  static constexpr bool kTf32 = std::is_same<T, float>::value;
-  static constexpr int kParts = kTf32 ? 2 : 1;  // hi [, lo]
-  static constexpr int kVals = 16 / sizeof(T);  // values per 16 bytes
-  static constexpr int kChunk = ROW / sizeof(T);  // channels per K chunk
-  static constexpr int kBBytes = BN * ROW;
-  static constexpr int kStage = kParts * (A_BYTES + kBBytes);
-  // stage s: A hi [, A lo], B hi [, B lo]
-  static __device__ __forceinline__ uint32_t a(int s, int part) {
-    return s * kStage + part * A_BYTES;
-  }
-  static __device__ __forceinline__ uint32_t b(int s, int part) {
-    return s * kStage + kParts * A_BYTES + part * kBBytes;
-  }
-  // the epilogue's (BM, BN + EPAD) output tile reuses the stages
-  static_assert(BM * (BN + EPAD) * sizeof(T) <= STAGES * kStage, "tile");
-  // + 1024 for the alignment; Reflect adds the (2, C) norm and the
-  // epilogue's column sums
-  static size_t smem_bytes(Mode m, int c) {
-    return 1024 + STAGES * kStage +
-           (m == Mode::Reflect ? (2 * static_cast<size_t>(c) + 2 * NT) * 4
-                               : 0);
-  }
-};
-
-template <Mode M, typename T, int BN>
-__device__ __forceinline__ void conv_body(const Params& p) {
-  using L = Tiles<T, BN>;
-  constexpr bool kTf32 = L::kTf32;
-  constexpr bool kK1 = M == Mode::Reflect;
-  constexpr int kV = L::kVals, BK = L::kChunk;
-  extern __shared__ uint8_t smem_raw[];
-  // the swizzle repeats every 8 rows of 128 bytes: 1024-byte aligned tiles
-  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  const uint32_t sbase = smem_u32(smem);
-  float* s_norm = reinterpret_cast<float*>(smem + STAGES * L::kStage);
-  float* s_red = s_norm + 2 * p.c;  // [row parts][sum, sum^2][BN]
-
-  const int tid = threadIdx.x;
-  const int H = p.h, W = p.w, C = p.c, Cout = p.cout;
-  const int P = H * W;
-  const int tiles = (P + BM - 1) / BM;
-  const int n = blockIdx.x / tiles;
-  const int m0 = (blockIdx.x % tiles) * BM;
-  const int n0 = blockIdx.y * BN;
-  const int K = 9 * C;
-  const int nchunks = 9 * (C / BK);
-  const size_t plane = static_cast<size_t>(P) * C;  // one sample of x
-
-  const T* __restrict__ x = static_cast<const T*>(p.x) + n * plane;
-  const T* __restrict__ skip = (kK1 && p.skip != nullptr)
-                                   ? static_cast<const T*>(p.skip) + n * plane
-                                   : nullptr;
-  const T* __restrict__ whi = static_cast<const T*>(p.whi);
-  const T* __restrict__ wlo = static_cast<const T*>(p.wlo);
-  // the emitted input is written by the channel-tile-0 blocks only, at the
-  // centre tap, where input pixel == output pixel: each element once
-  T* __restrict__ xnew = (kK1 && p.xnew != nullptr && blockIdx.y == 0)
-                             ? static_cast<T*>(p.xnew) + n * plane
-                             : nullptr;
-  const bool has_norm = kK1 && p.norm != nullptr;
-  const bool relu = p.relu != 0;
-
-  if (has_norm) {
-    for (int i = tid; i < 2 * C; i += NT) s_norm[i] = p.norm[n * 2 * C + i];
-  }
-
-  // staging role: 16-byte group g (channels kV g .. kV g + kV - 1 of a
-  // chunk) of tile rows r0 + 32 i, for A (pixels) and B (output channels)
-  const int g = tid & 7;
-  const int r0 = tid >> 3;
-  int oy[4], ox[4];
-  bool ok[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + r0 + 32 * i;
-    ok[i] = m < P;
-    oy[i] = ok[i] ? m / W : 0;
-    ox[i] = ok[i] ? m % W : 0;
-  }
-
-  // chunk kc: tap kc % 9 of channel block kc / 9, K offset tap * C + c0
-  auto load_b = [&](int kc, int s) {
-    const size_t k0 = (kc % 9) * C + (kc / 9) * BK + kV * g;
-#pragma unroll
-    for (int i = 0; i < BN / 32; ++i) {
-      const int r = r0 + 32 * i;
-      const size_t src = static_cast<size_t>(n0 + r) * K + k0;
-      cp_async16(sbase + L::b(s, 0) + swz(r, g), whi + src);
-      if (kTf32) cp_async16(sbase + L::b(s, 1) + swz(r, g), wlo + src);
-    }
-  };
-
-  // A of chunk kc, raw: each row's 16 bytes of x (and skip) in registers,
-  // loaded a chunk before they are staged; Zero: zeros outside the image
-  uint4 xr[4], sr[4];
-  auto load_a = [&](int kc) {
-    const int tap = kc % 9;
-    const int ky = tap / 3, kx = tap % 3;
-    const int c = (kc / 9) * BK + kV * g;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (ok[i]) {
-        if constexpr (kK1) {
-          const int iy = reflect1(oy[i] + ky - 1, H);
-          const int ix = reflect1(ox[i] + kx - 1, W);
-          const size_t off = (static_cast<size_t>(iy) * W + ix) * C + c;
-          xr[i] = *reinterpret_cast<const uint4*>(x + off);
-          if (skip != nullptr) {
-            sr[i] = *reinterpret_cast<const uint4*>(skip + off);
-          }
-        } else {
-          const int iy = oy[i] + ky - 1, ix = ox[i] + kx - 1;
-          xr[i] = make_uint4(0, 0, 0, 0);
-          if (static_cast<unsigned>(iy) < static_cast<unsigned>(H) &&
-              static_cast<unsigned>(ix) < static_cast<unsigned>(W)) {
-            xr[i] = *reinterpret_cast<const uint4*>(
-                x + (static_cast<size_t>(iy) * W + ix) * C + c);
-          }
-        }
-      }
-    }
-  };
-
-  // the prologue on the raw registers, then the MMA operands (hi [, lo])
-  // into stage s; between(i) runs before row i (the caller's wgmmas go
-  // there)
-  auto stage_a = [&](int kc, int s, auto&& between) {
-    const int tap = kc % 9;
-    const int c = (kc / 9) * BK + kV * g;
-    float mean[kV], rstd[kV];
-#pragma unroll
-    for (int j = 0; j < kV; ++j) {
-      mean[j] = has_norm ? s_norm[c + j] : 0.f;
-      rstd[j] = has_norm ? s_norm[C + c + j] : 1.f;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      between(i);
-      uint4 hi = make_uint4(0, 0, 0, 0), lo = hi;
-      if (ok[i]) {
-        float v[kV];
-        unpack(xr[i], v);
-        hi = xr[i];
-        if (has_norm) {
-#pragma unroll
-          for (int j = 0; j < kV; ++j) {
-            const float t = (v[j] - mean[j]) * rstd[j];
-            v[j] = relu ? fmaxf(t, 0.f) : t;
-          }
-          hi = pack(v);  // the cast to T (exact for f32), then the skip
-          if (skip != nullptr) {
-            float sv[kV];
-            unpack(sr[i], sv);
-            unpack(hi, v);
-#pragma unroll
-            for (int j = 0; j < kV; ++j) v[j] = sv[j] + v[j];
-            hi = pack(v);
-          }
-        }
-        if (xnew != nullptr && tap == 4) {
-          *reinterpret_cast<uint4*>(
-              xnew + (static_cast<size_t>(oy[i]) * W + ox[i]) * C + c) = hi;
-        }
-        if constexpr (kTf32) {  // hi = rna(v), lo = rna(v - hi)
-          float h[kV], l[kV];
-#pragma unroll
-          for (int j = 0; j < kV; ++j) {
-            h[j] = tf32(v[j]);
-            l[j] = tf32(v[j] - h[j]);
-          }
-          hi = pack(h);
-          lo = pack(l);
-        }
-      }
-      uint8_t* dst = smem + swz(r0 + 32 * i, g);
-      *reinterpret_cast<uint4*>(dst + L::a(s, 0)) = hi;
-      if (kTf32) *reinterpret_cast<uint4*>(dst + L::a(s, 1)) = lo;
-    }
-  };
-
-  // f32 I/O: the tensor cores add into their f32 accumulator with
-  // truncation, which over K = 9 C biases the sum by ~1e-5 of its scale;
-  // so each chunk's products are summed apart (acc) and added to sum in
-  // f32 with rounding to nearest, as an f32 FMA loop would
-  float acc[BN / 2], sum[kTf32 ? BN / 2 : 1];
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < (kTf32 ? BN / 2 : 1); ++i) sum[i] = 0.f;
-
-  // pipeline: in iteration kc the wgmmas of chunk kc (stage kc % 3) are
-  // issued between the rows of chunk kc + 1's staging, B of chunk kc + 2 is
-  // copied in, and A of chunk kc + 2 is loaded into the registers. Each
-  // write goes to a stage whose last reader, chunk kc - 1 or kc - 2, has
-  // been waited for before the barrier that ended the previous iteration.
-  __syncthreads();  // s_norm
-  load_b(0, 0);
-  cp_async_commit();
-  load_b(1, 1);
-  cp_async_commit();
-  load_a(0);
-  stage_a(0, 0, [](int) {});
-  load_a(1);
-  cp_async_wait<1>();  // B of chunk 0
-  fence_async_smem();
-  __syncthreads();
-
-  const uint32_t wg_rows = (tid >> 7) * 64 * ROW;  // this warpgroup's A rows
-  int s = 0;                                       // kc % 3
-  for (int kc = 0; kc < nchunks; ++kc) {
-    const uint32_t ahi = sbase + L::a(s, 0) + wg_rows;
-    const uint32_t bhi = sbase + L::b(s, 0);
-    auto mma = [&](int k) {  // k step k: 32 bytes along the rows
-      if constexpr (kTf32) {  // the chunk's sum starts from 0
-        wgmma_tf32(acc, desc(ahi + A_BYTES + 32 * k), desc(bhi + 32 * k),
-                   k > 0);
-        wgmma_tf32(acc, desc(ahi + 32 * k), desc(bhi + L::kBBytes + 32 * k));
-        wgmma_tf32(acc, desc(ahi + 32 * k), desc(bhi + 32 * k));
-      } else {
-        wgmma_bf16(acc, desc(ahi + 32 * k), desc(bhi + 32 * k));
-      }
-    };
-    const int s1 = s == 2 ? 0 : s + 1;
-    if (kc + 2 < nchunks) load_b(kc + 2, s1 == 2 ? 0 : s1 + 1);
-    cp_async_commit();  // possibly empty: one group per iteration
-    fence_acc(acc);
-    wgmma_fence();
-    if (kc + 1 < nchunks) {
-      stage_a(kc + 1, s1, mma);
-    } else {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) mma(k);
-    }
-    wgmma_commit();
-    fence_acc(acc);
-    if (kc + 2 < nchunks) load_a(kc + 2);
-    wgmma_wait_all();
-    fence_acc(acc);
-    if constexpr (kTf32) {
-#pragma unroll
-      for (int i = 0; i < BN / 2; ++i) sum[i] += acc[i];
-    }
-    cp_async_wait<1>();  // B of chunk kc + 1
-    fence_async_smem();
-    __syncthreads();
-    s = s1;
-  }
-  cp_async_wait<0>();
-  if constexpr (kTf32) {
-#pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[i] = sum[i];
-  }
-
-  // epilogue: thread (warp w, lane l) of the warpgroup holds rows
-  // 16 w + l / 4 + {0, 8} and columns 8 j + 2 (l % 4) + {0, 1}; the rounded
-  // tile goes through shared memory, to be stored in 16-byte row pieces and
-  // (Reflect) summed by columns
-  constexpr int LD = BN + EPAD;
-  T* tile = reinterpret_cast<T*>(smem);
-  {
-    const int lane = tid & 31;
-    const int row = (tid >> 7) * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const int col = 8 * j + 2 * (lane & 3);
-      float b0 = 0.f, b1 = 0.f;
-      if constexpr (kK1) b0 = p.b[n0 + col], b1 = p.b[n0 + col + 1];
-      store2(tile + row * LD + col, acc[4 * j] + b0, acc[4 * j + 1] + b1);
-      store2(tile + (row + 8) * LD + col, acc[4 * j + 2] + b0,
-             acc[4 * j + 3] + b1);
-    }
-  }
-  __syncthreads();
-  constexpr int kRowWords = BN / kV;
-  T* out = static_cast<T*>(p.out) + static_cast<size_t>(n) * P * Cout + n0;
-  for (int idx = tid; idx < BM * kRowWords; idx += NT) {
-    const int row = idx / kRowWords, wd = idx % kRowWords;
-    if (m0 + row < P) {
-      *reinterpret_cast<uint4*>(out + static_cast<size_t>(m0 + row) * Cout +
-                                wd * kV) =
-          *reinterpret_cast<const uint4*>(tile + row * LD + wd * kV);
-    }
-  }
-  if constexpr (kK1) {
-    // column col over rows part * RP .. + RP, then the parts summed
-    constexpr int kRowParts = NT / BN, RP = BM / kRowParts;
-    {
-      const int col = tid % BN, part = tid / BN;
-      const int rows = min(RP, P - m0 - part * RP);
-      float s0 = 0.f, q0 = 0.f;
-      for (int r = 0; r < rows; ++r) {
-        const float v = to_f(tile[(part * RP + r) * LD + col]);
-        s0 += v;
-        q0 += v * v;
-      }
-      s_red[(part * 2 + 0) * BN + col] = s0;
-      s_red[(part * 2 + 1) * BN + col] = q0;
-    }
-    __syncthreads();
-    for (int i = tid; i < 2 * BN; i += NT) {
-      const int which = i / BN, col = i % BN;
-      float t = 0.f;
-#pragma unroll
-      for (int part = 0; part < kRowParts; ++part) {
-        t += s_red[(part * 2 + which) * BN + col];
-      }
-      atomicAdd(&p.stats[(n * 2 + which) * Cout + n0 + col], t);
-    }
-  }
-}
-
-// each mode its own kernel name, so the SASS check and the profiler tell
-// K1 and K4 apart
-template <typename T, int BN>
-__global__ void __launch_bounds__(NT, 1) k1_wgmma_kernel(Params p) {
-  conv_body<Mode::Reflect, T, BN>(p);
-}
-
-template <typename T, int BN>
-__global__ void __launch_bounds__(NT, 1) k4_wgmma_kernel(Params p) {
-  conv_body<Mode::Zero, T, BN>(p);
-}
-
-template <Mode M, typename T, int BN>
-int launch(const Params& p, cudaStream_t stream) {
-  auto* kernel = M == Mode::Reflect ? k1_wgmma_kernel<T, BN>
-                                    : k4_wgmma_kernel<T, BN>;
-  const size_t smem = Tiles<T, BN>::smem_bytes(M, p.c);
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int tiles = (p.h * p.w + BM - 1) / BM;
-  dim3 grid(p.n * tiles, p.cout / BN);
-  kernel<<<grid, NT, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// bf16: 256-channel tiles where Cout allows; f32: 128, whose two
-// accumulators fit in the registers
-template <Mode M, typename T>
-int dispatch(const Params& p, cudaStream_t stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (p.cout % 256 == 0) return launch<M, T, 256>(p, stream);
-  }
-  return launch<M, T, 128>(p, stream);
-}
-
-}  // namespace k1
-}  // namespace ctk
 
 extern "C" int ctk_conv3x3_reflect_stats(
     const void* x, const void* skip, const void* whi, const void* wlo,

@@ -5,7 +5,7 @@
 //   _corr3x3_zero (the Pallas kernel of conv3x3_input_grad): the interior of
 //   dL/dx of a reflect-padded 3x3 conv, a zero-halo correlation of g with the
 //   flipped, transposed kernel. It is K1's tensor-core implicit GEMM in its
-//   Zero mode (fused_resblock.cu, k4_wgmma_kernel: wgmma, 3xTF32 with
+//   Zero mode (conv_wgmma.cuh, k4_wgmma_kernel: wgmma, 3xTF32 with
 //   per-chunk f32 sums for f32; a zero halo, no prologue, bias or stats);
 //   the wrapper adds the reflect folds.
 //

@@ -1,9 +1,9 @@
-// Hopper tensor-core helpers shared by K1 (fused_resblock.cu) and K5
-// (fused_resblock_grad.cuh): the 128-byte swizzled K-major operand tiles and
-// their wgmma descriptor, cp.async, the proxy and wgmma fences, the
-// wgmma.mma_async wrappers (bf16 and TF32 operands, f32 accumulator, 64 x 128
-// and 64 x 256 per warpgroup), TF32 rounding, and the 16-byte pack/unpack of
-// staged values. sm_90a only.
+// Hopper tensor-core helpers shared by K1, K4 and K3 (conv_wgmma.cuh) and
+// K5 (fused_resblock_grad.cuh): the 128-byte swizzled K-major operand
+// tiles and their wgmma descriptor, cp.async, the proxy and wgmma fences,
+// the wgmma.mma_async wrappers (bf16 and TF32 operands, f32 accumulator,
+// 64 x 128 and 64 x 256 per warpgroup), TF32 rounding, and the 16-byte
+// pack/unpack of staged values. sm_90a only.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -31,8 +31,8 @@ def check_bias(fn: str, b: torch.Tensor, cout: int) -> None:
 
 def check_kernel_shapes(fn: str, x: torch.Tensor, c: int, cout: int,
                         norm: Optional[torch.Tensor]) -> None:
-    """Shape limits of K3 and K2 (csrc/conv_stats.cuh): whole 16-channel
-    K chunks and 64-channel output tiles; a (N, 2, C) norm."""
+    """Shape limits of K2 (csrc/conv_stats.cuh): whole 16-channel K chunks
+    and 64-channel output tiles; a (N, 2, C) norm."""
     if c % 16 or cout % 64:
         raise ValueError(
             f"{fn}: the CUDA kernel needs C % 16 == 0 and Cout % 64 == 0, "

@@ -1,7 +1,8 @@
 """Fused residual body: reflect 3×3 conv + InstanceNorm statistics (K1).
 
 Replaces ``ctagan_tpu/ops/fused_resblock.py::conv3x3_reflect_stats`` (a
-Pallas TPU kernel) with the CUDA kernel ``csrc/fused_resblock.cu``.
+Pallas TPU kernel) with the CUDA kernel ``csrc/fused_resblock.cu`` (its
+body, shared with K4 and K3, in ``csrc/conv_wgmma.cuh``).
 
 What bounds it on the H100: the residual body is 18 of these convs at
 (N, 128, 128, 256) → 256, K = 9·256: ~19.3 GFLOP per sample each, well
@@ -73,12 +74,13 @@ K1_CHUNK, K1_COUT_TILE, K1_MAX_C = 64, 128, 2048
 
 def check_k1_kernel_limits(x: torch.Tensor, cout: int,
                            norm: Optional[torch.Tensor] = None,
-                           *tensors: Optional[torch.Tensor]) -> None:
+                           *tensors: Optional[torch.Tensor],
+                           fn: str = "conv3x3_reflect_stats") -> None:
     """Raise ValueError for what the CUDA kernel cannot take: C % 64,
     Cout % 128, C > 2048, a norm that is not (N, 2, C), or x (or one of
     ``tensors``) not on a 16-byte boundary (the kernel's loads and stores
-    are 16 bytes). Runs on any device."""
-    fn = "conv3x3_reflect_stats"
+    are 16 bytes). Runs on any device. ``fn`` names the caller in the
+    message (K3 runs the same body)."""
     c = x.shape[3]
     if c % K1_CHUNK or cout % K1_COUT_TILE or c > K1_MAX_C:
         raise ValueError(

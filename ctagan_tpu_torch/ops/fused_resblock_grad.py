@@ -6,7 +6,7 @@ become the CUDA kernels of ``csrc/fused_resblock_grad.cuh``:
 - :func:`conv3x3_input_grad` (K4, ``_corr3x3_zero``): dL/dx of the reflect-
   padded 3×3 conv. The interior is a zero-halo correlation of g with the
   flipped, transposed kernel (``_flip_pack``), run by K1's tensor-core
-  implicit GEMM (``csrc/fused_resblock.cu``) in its zero-halo mode: the
+  implicit GEMM (``csrc/conv_wgmma.cuh``) in its zero-halo mode: the
   kernel as a K-major (C, 9·Cout) B (:func:`k4_weight`, bf16 or the
   :func:`~ctagan_tpu_torch.ops.fused_resblock.split_tf32` pair), g staged
   with zeros outside the image, f32 as 3xTF32 with per-chunk f32 sums; no

@@ -50,7 +50,7 @@ import urllib.request
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_SERVE = 256
-KERNEL_MODE = {"1": "K3", "2": "K2"}  # conv_stats.cuh
+KERNEL_MODE = {"2": "K2"}  # conv_stats.cuh
 TRAIN_STEPS = 20
 
 
@@ -292,10 +292,12 @@ def profile_serving(torch, config, bodies, card):
 
 
 def kernel_part(name):
-    """K1-K5 by the kernel's name (K1's, K4's and K5's wgmma kernels,
-    conv_stats.cuh's Mode for the rest)."""
+    """K1-K5 by the kernel's name (K1's, K3's, K4's and K5's wgmma
+    kernels, conv_stats.cuh's Mode for K2)."""
     if "k1_wgmma_kernel" in name:
         return "K1"
+    if "k3_wgmma_kernel" in name:
+        return "K3"
     if "k4_wgmma_kernel" in name:
         return "K4"
     if "wgrad_kernel" in name:
