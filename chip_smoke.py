@@ -12,7 +12,10 @@ card, ``nvcc`` and no network, and imports nothing of JAX. Phases:
    serving generator's 512² shapes with N=2; K3 also at a ragged (1, 72,
    104, 64) (a partial tile on a 36×52 grid), at a halo case whose norm
    means are ±1.5 (a normalized zero staged for the zero pad would be far
-   off), and without a norm; K4 conv3x3_input_grad and K5
+   off), and without a norm; K2 also at a ragged (1, 36, 52, 256) → (72,
+   104, 128), at an edge case whose norm means are ±1.5 (the output
+   padding's zero row and column) and at up1 with a norm; K4
+   conv3x3_input_grad and K5
    conv3x3_weight_grad at the training body's (1, 128, 128, 256), both also
    at a ragged (1, 40, 40, 256) (K5 with skip) and at C = Cout = 128; K7
    conv3x3_reflect_s8 at the int8 body's (2, 128, 128, 256) in both input
@@ -21,10 +24,10 @@ card, ``nvcc`` and no network, and imports nothing of JAX. Phases:
    one PyTorch library call (cuDNN, ``F.instance_norm``, or for K7 the int8
    GEMM alone: yardsticks the port never calls) with CUDA events, and
    computes each case's bound from its operations and bytes; K1 also at a
-   ragged (1, 40, 40, 256) and at C = Cout = 128; K4's and K3's kernels
-   alone, and their wrappers' device time by kernel beside the host time;
-   K1's, K3's, K4's and K5's built kernels are held to hold ``HGMMA``
-   (``wgmma``) instructions (``cuobjdump -sass``);
+   ragged (1, 40, 40, 256) and at C = Cout = 128; K4's, K3's and K2's
+   kernels alone, and their wrappers' device time by kernel beside the
+   host time; K1's, K2's, K3's, K4's and K5's built kernels are held to
+   hold ``HGMMA`` (``wgmma``) instructions (``cuobjdump -sass``);
 3. ``generator``: the full-width generator (9 blocks, base 64, 11,365,633
    parameters, seeded weights) at 512², b=2: the serving kernel route
    against the plain layer route, 18 K1, 2 K3 and 2 K2 launches per forward;
@@ -53,9 +56,11 @@ card, ``nvcc`` and no network, and imports nothing of JAX. Phases:
 
 The launch counts of the three main paths (each counted from zero) are the
 ``launches`` of the kernels line. ``--phases a,b`` runs a subset and stops
-before the result lines. Any failure exits nonzero before the last line.
-The last line is ``{"ok": true, "device": {...}}``; the line before it is
-the kernels JSON, and the one before that the card's name and power limit.
+before the result lines; ``--cases K2,K3`` keeps only the kernel phase's
+cases and timing lines of those kernels (and stops there too). Any failure
+exits nonzero before the last line. The last line is ``{"ok": true,
+"device": {...}}``; the line before it is the kernels JSON, and the one
+before that the card's name and power limit.
 """
 import argparse
 import concurrent.futures
@@ -139,10 +144,11 @@ PLAIN_STEPS = 6   # plain route, for its p50 beside the kernel route's
 # the tensor cores, bf16, int8 and TF32 dense tensor cores, HBM3 bytes/s
 PEAK_F32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
 PEAK_INT8, PEAK_TF32 = 1979e12, 495e12
-# the kernels on wgmma, by name: K1, K3 and K4 csrc/conv_wgmma.cuh, K5
+# the kernels on wgmma, by name: K1, K2, K3 and K4 csrc/conv_wgmma.cuh, K5
 # csrc/fused_resblock_grad.cuh
-WGMMA_KERNELS = {"K1": "k1_wgmma_kernel", "K3": "k3_wgmma_kernel",
-                 "K4": "k4_wgmma_kernel", "K5": "wgrad_kernel"}
+WGMMA_KERNELS = {"K1": "k1_wgmma_kernel", "K2": "k2_wgmma_kernel",
+                 "K3": "k3_wgmma_kernel", "K4": "k4_wgmma_kernel",
+                 "K5": "wgrad_kernel"}
 ALL_PHASES = ("kernels", "generator", "int8", "grad", "serving",
               "int8_serving", "training")
 
@@ -281,10 +287,14 @@ def kernel_cases(torch):
         b = kw["b"].to(kw["x"].dtype)
         return lambda: F.conv2d(nchw(kw["x"]), w, b, stride=2, padding=1)
 
-    def k2(c, co, prenorm):
+    def k2(c, co, prenorm, n=2, hw=None, offset=0.0):
+        # offset: as k3's, so a normalized zero at the edge is far from 0
         def make(dt):
-            h = 128 if c == 256 else 256
-            x = randn(2, h, h, c).to(dt)
+            h, wd = hw or ((128, 128) if c == 256 else (256, 256))
+            x = randn(n, h, wd, c)
+            if offset:
+                x = x + offset * (torch.arange(c, device=dev) % 2 * 2 - 1)
+            x = x.to(dt)
             kw = dict(x=x, kernel_t=randn(c, co, 3, 3, scale=0.03),
                       bias=randn(co, scale=0.1))
             if prenorm:
@@ -394,9 +404,9 @@ def kernel_cases(torch):
     k6_spec = {"out_tol": K6_OUT_TOL,
                "peaks": {dt: (PEAK_F32, "f32 CUDA cores")
                          for dt in CONV_PEAKS}}
-    # K1's, K3's, K4's and K5's f32 routes are three TF32 products on the
-    # tensor cores (3xTF32)
-    k1_spec = k3_spec = k4_spec = k5_spec = {
+    # K1's, K2's, K3's, K4's and K5's f32 routes are three TF32 products on
+    # the tensor cores (3xTF32)
+    k1_spec = k2_spec = k3_spec = k4_spec = k5_spec = {
         "peaks": {"float32": (PEAK_TF32 / 3, "3 TF32 products, tensor cores"),
                   "bfloat16": CONV_PEAKS["bfloat16"]},
         "also": (CONV_PEAKS["float32"],)}
@@ -427,12 +437,16 @@ def kernel_cases(torch):
             ("K3 no-norm N=1 256^2x64->128",
              k3(64, 128, n=1, hw=(256, 256), norm=False)))
     ] + [
-        ("convt2x_stats", "K2 up1 N=2 256->128 128^2", t.convt2x_stats,
-         t.convt2x_stats_plain, k2(256, 128, False), k2_lib,
-         x_flops(lambda kw: kw["kernel_t"].shape[1])),
-        ("convt2x_stats", "K2 up2 N=2 128->64 256^2 norm", t.convt2x_stats,
-         t.convt2x_stats_plain, k2(128, 64, True), k2_lib,
-         x_flops(lambda kw: kw["kernel_t"].shape[1])),
+        ("convt2x_stats", case, t.convt2x_stats, t.convt2x_stats_plain, make,
+         k2_lib, x_flops(lambda kw: kw["kernel_t"].shape[1]), k2_spec)
+        for case, make in (
+            ("K2 up1 N=2 256->128 128^2", k2(256, 128, False)),
+            ("K2 up2 N=2 128->64 256^2 norm", k2(128, 64, True)),
+            ("K2 ragged N=1 36x52x256->128 (72x104 out)",
+             k2(256, 128, False, n=1, hw=(36, 52))),
+            ("K2 edge N=2 64^2x256->128 norm means +-1.5",
+             k2(256, 128, True, hw=(64, 64), offset=1.5)),
+            ("K2 up1 norm N=2 256->128 128^2", k2(256, 128, True)))
     ] + [
         ("conv3x3_input_grad", f"K4 N=1 {hw}^2x{c}->{c}",
          gr.conv3x3_input_grad, gr.conv3x3_input_grad_plain, k4(hw, c),
@@ -471,13 +485,16 @@ def bound_of(flops, moved, peak):
                                                               "bytes")
 
 
-def check_kernels(torch):
+def check_kernels(torch, cases=None):
     """Phase 2: every kernel case vs its plain version, f32 and bf16.
     Returns {kernel: {...}}; the times and bound are those of the first
-    case listed for the kernel, in f32."""
+    case listed for the kernel, in f32. ``cases``: the kernels (K1..K7)
+    whose cases run (all if None)."""
     results = {}
     for name, case, fn, plain, make, library, flops_of, *spec in (
             kernel_cases(torch)):
+        if cases is not None and case.split()[0] not in cases:
+            continue
         spec = spec[0] if spec else {}
         out_tol = spec.get("out_tol", OUT_TOL)
         stats_tol = spec.get("stats_tol", STATS_TOL)
@@ -553,13 +570,16 @@ def check_k5_operands(torch):
                 fail(f"K5's operands kernel {shape} {dt} differs from plain")
 
 
-def time_wrapper_parts(torch):
-    """K4 at the training body's (1, 128, 128, 256) -> 256 and K3 at the
-    serving path's down1 (2, 512, 512, 64) -> 128, f32 and bf16: the kernel
-    alone on a built B operand (CUDA events, beside its bound and its
-    grid), and one wrapper call's device time by kernel (``torch.profiler``,
-    5 calls: B's build, the kernel, and for K4 the f32 cast, reflect folds
-    and rounding) beside the host's time to enqueue it."""
+def time_wrapper_parts(torch, cases=None):
+    """K4 at the training body's (1, 128, 128, 256) -> 256, K3 at the
+    serving path's down1 (2, 512, 512, 64) -> 128 and K2 at its up1 (2,
+    128, 128, 256) -> 128 and up2 (2, 256, 256, 128) -> 64 with a norm, f32
+    and bf16: the kernel alone on a built B operand (CUDA events, beside
+    its bound and its grid), and one wrapper call's device time by kernel
+    (``torch.profiler``, 5 calls: B's build, the kernel, and for K4 the f32
+    cast, reflect folds and rounding) beside the host's time to enqueue it.
+    ``cases``: the kernels to time (all if None)."""
+    from ctagan_tpu_torch.ops import fused_convt as t
     from ctagan_tpu_torch.ops import fused_down as d
     from ctagan_tpu_torch.ops import fused_resblock_grad as gr
     from ctagan_tpu_torch.ops.fused_resblock import k1_weight
@@ -572,12 +592,34 @@ def time_wrapper_parts(torch):
     def randn(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device="cuda") * scale
 
+    def normed(x):
+        return torch.stack([x.mean(dim=(1, 2)),
+                            torch.rsqrt(x.var(dim=(1, 2)) + 1e-5)], dim=1)
+
     w4 = randn(3, 3, 256, 256, scale=0.02)
     g4 = randn(1, 128, 128, 256)
     x3, w3 = randn(2, 512, 512, 64), randn(3, 3, 64, 128, scale=0.04)
     b3 = randn(128, scale=0.1)
-    norm3 = torch.stack([x3.mean(dim=(1, 2)),
-                         torch.rsqrt(x3.var(dim=(1, 2)) + 1e-5)], dim=1)
+    norm3 = normed(x3)
+    ups = {}
+    for stage, (h, c, co) in (("up1", (128, 256, 128)),
+                              ("up2", (256, 128, 64))):
+        x2 = randn(2, h, h, c)
+        ups[stage] = (x2, randn(c, co, 3, 3, scale=0.03),
+                      randn(co, scale=0.1), normed(x2) if co == 64 else None)
+
+    def grid(dt, n, pixels, cout, chunks, phases=1):
+        """(blocks, tile, K chunks per block): the body's 128-pixel tiles;
+        bf16 256 wide where Cout allows, else 128, else 64 (K2: its two
+        column phases paired in one 128-wide tile, two row phases)."""
+        widths = ((256,) if dt == torch.bfloat16 else ()) + (128, 64)
+        bn = next(b for b in widths if cout % b == 0)
+        tile = f"128 x {bn}"
+        if bn == 64 and phases == 4:
+            tile, phases, chunks = "128 x 2x64", 2, (chunks[1], 2 * chunks[1])
+        blocks = n * -(-pixels // 128) * (cout // bn) * phases
+        per = 128 // dt.itemsize  # channels per 128-byte K chunk
+        return blocks, tile, "/".join(str(k // per) for k in chunks)
 
     def k4(dt):
         g = g4.to(dt)
@@ -586,6 +628,7 @@ def time_wrapper_parts(torch):
         c = w4.shape[2]
         return dict(shape=f"N=1 {h}^2x{cout}->{c}", n=n, pixels=h * wd,
                     cout=c, k=9 * cout,
+                    grid=grid(dt, n, h * wd, c, (9 * cout,)),
                     kernel=lambda: gr._corr3x3_zero_kernel(g, *b),
                     call=lambda: gr.conv3x3_input_grad(g, w4),
                     moved=nbytes(g, *b) + n * h * wd * c * g.element_size())
@@ -598,14 +641,39 @@ def time_wrapper_parts(torch):
         pixels = (h // 2) * (wd // 2)
         return dict(shape=f"down1 N={n} {h}^2x{c}->{cout}", n=n,
                     pixels=pixels, cout=cout, k=9 * c,
+                    grid=grid(dt, n, pixels, cout, (9 * c,)),
                     kernel=lambda: d._k3_kernel(x, *b, b3, norm3, True),
                     call=lambda: d.conv3x3_s2_zero_stats(x, w3, b3, norm3,
                                                          True),
                     moved=nbytes(x, *b) + n * pixels * cout
                     * x.element_size())
 
+    def k2(stage):
+        def parts(dt):
+            x2, kt, b2, norm2 = ups[stage]
+            x = x2.to(dt)
+            b = t.k2_weight(kt, dt)
+            n, h, wd, c = x.shape
+            cout = kt.shape[1]
+            relu = norm2 is not None
+            # the input grid per phase; the phases' 1, 2, 2, 4 taps sum to 9
+            return dict(shape=f"{stage} N={n} {h}^2x{c}->{cout}"
+                        f"{' norm' if relu else ''}", n=n, pixels=h * wd,
+                        cout=cout, k=9 * c,
+                        grid=grid(dt, n, h * wd, cout,
+                                  [taps * c for taps in (1, 2, 2, 4)],
+                                  phases=4),
+                        kernel=lambda: t._k2_kernel(x, *b, b2, norm2, relu),
+                        call=lambda: t.convt2x_stats(x, kt, b2, norm2, relu),
+                        moved=nbytes(x, *b) + n * 4 * h * wd * cout
+                        * x.element_size())
+        return parts
+
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for name, parts in (("K4", k4), ("K3", k3)):
+    for name, parts in (("K4", k4), ("K3", k3), ("K2", k2("up1")),
+                        ("K2", k2("up2"))):
+        if cases is not None and name not in cases:
+            continue
         for dt_name, (peak, label) in (
                 ("float32", (PEAK_TF32 / 3, "3 TF32 products")),
                 ("bfloat16", CONV_PEAKS["bfloat16"])):
@@ -614,9 +682,7 @@ def time_wrapper_parts(torch):
             flops = 2.0 * q["n"] * q["pixels"] * q["cout"] * q["k"]
             bound_ms, bound_by = bound_of(flops, q["moved"], peak)
             kernel_ms = cuda_ms(torch, q["kernel"])
-            bn = 256 if dt == torch.bfloat16 and q["cout"] % 256 == 0 else 128
-            blocks = q["n"] * -(-q["pixels"] // 128) * (q["cout"] // bn)
-            chunks = q["k"] // (128 // dt.itemsize)  # 128-byte K chunks
+            blocks, tile, chunks = q["grid"]
             reps = 5
             with torch.profiler.profile(activities=act) as prof:
                 for _ in range(reps):
@@ -637,7 +703,7 @@ def time_wrapper_parts(torch):
             print(f"{name} {dt_name} {q['shape']}: kernel alone "
                   f"{kernel_ms:.3f} ms (bound {bound_ms:.3f} ms by "
                   f"{bound_by}, {label}; {flops / kernel_ms / 1e9:.1f} T "
-                  f"ops/s; {blocks} blocks of 128 x {bn}, {blocks / sms:.2f} "
+                  f"ops/s; {blocks} blocks of {tile}, {blocks / sms:.2f} "
                   f"waves on {sms} SMs, {chunks} K chunks each); one wrapper "
                   f"call: device {device_ms:.3f} ms in "
                   f"{sum(k for k, _ in by_name.values()) // reps} kernels, "
@@ -1165,9 +1231,9 @@ def check_training(torch, card):
 
 
 def check_tensor_cores(lib_path):
-    """K1's, K3's, K4's and K5's kernels (each instantiation, f32 and bf16
-    I/O) hold HGMMA (wgmma) instructions in the built library's SASS, so
-    one that runs on CUDA-core FMAs fails."""
+    """K1's, K2's, K3's, K4's and K5's kernels (each instantiation, f32 and
+    bf16 I/O) hold HGMMA (wgmma) instructions in the built library's SASS,
+    so one that runs on CUDA-core FMAs fails."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -1219,7 +1285,13 @@ def main():
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
                     help="comma-separated subset of " + ",".join(ALL_PHASES)
                     + " (a subset stops before the result lines)")
-    phases = ap.parse_args().phases.split(",")
+    ap.add_argument("--cases", default=None,
+                    help="comma-separated kernels (K1..K7) whose cases and "
+                    "timing lines the kernels phase runs (stops before the "
+                    "result lines)")
+    args = ap.parse_args()
+    phases = args.phases.split(",")
+    cases = args.cases.split(",") if args.cases else None
     try:
         import torch
     except ImportError as e:
@@ -1250,9 +1322,10 @@ def main():
     for phase in phases:
         t0 = time.perf_counter()
         if phase == "kernels":
-            kernels = check_kernels(torch)
-            check_k5_operands(torch)
-            time_wrapper_parts(torch)
+            kernels = check_kernels(torch, cases)
+            if cases is None or "K5" in cases:
+                check_k5_operands(torch)
+            time_wrapper_parts(torch, cases)
         elif phase == "generator":
             check_generator(torch, card)
             check_zero_pad_serving(torch, card)
@@ -1266,8 +1339,9 @@ def main():
         else:
             fail(f"unknown phase {phase!r}")
         print(f"phase {phase}: {time.perf_counter() - t0:.1f} s", flush=True)
-    if tuple(phases) != ALL_PHASES:
-        print(f"partial run ({','.join(phases)}): no result lines",
+    if tuple(phases) != ALL_PHASES or cases is not None:
+        print(f"partial run ({','.join(phases)}"
+              f"{'; cases ' + args.cases if cases else ''}): no result lines",
               flush=True)
         return 0
     line = []

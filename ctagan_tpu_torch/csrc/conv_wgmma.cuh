@@ -1,8 +1,9 @@
-// The tensor-core implicit-GEMM 3x3 conv body of K1, K4 and K3, in three
-// modes under three kernel names (fused_resblock.cu holds K1's and K4's C
-// entries, fused_down.cu K3's; each file instantiates only its own
-// kernels). K5 (fused_resblock_grad.cuh) builds beside K1 and K4, and the
-// tensor-core helpers all four share are in wgmma.cuh.
+// The tensor-core implicit-GEMM 3x3 conv body of K1, K4, K3 and K2, in
+// four modes under four kernel names (fused_resblock.cu holds K1's and
+// K4's C entries, fused_down.cu K3's, fused_convt.cu K2's; each file
+// instantiates only its own kernels). K5 (fused_resblock_grad.cuh) builds
+// beside K1 and K4, and the tensor-core helpers all five share are in
+// wgmma.cuh.
 //
 // Reflect (K1, k1_wgmma_kernel): reflect-padded 3x3 conv + output [sum,
 // sum^2], with the previous InstanceNorm (+ReLU) and the previous block's
@@ -67,16 +68,41 @@
 // after the prologue. Bias and stats as Reflect; no skip or emitted input.
 // Its bf16 128-wide tiles run two blocks per SM (below).
 //
+// ConvT2x (K2, k2_wgmma_kernel): the ConvTranspose2d (k3, s2, p1, op1) in
+// phase form, + output [sum, sum^2] over all four phases, with the
+// previous InstanceNorm (+ReLU) folded into the input read; replaces
+// ctagan_tpu/ops/fused_convt.py::convt2x_stats (its pallas_call at :183).
+// blockIdx.z is the output phase (py, px): M walks the input grid (q, r)
+// of one sample, whose pixel (q, r) becomes output pixel (2 q + py, 2 r +
+// px) of the (N, 2H, 2W, Cout) output, and K is the phase's (1 + py)(1 +
+// px) taps x C, taps inner: row phase 0 takes ky = 1 at input row q, row
+// phase 1 ky = 0 at row q + 1 and ky = 2 at row q (columns alike), with
+// no dilated buffer. B is K1's K-major weight of PyTorch's (C, Cout, 3, 3)
+// kernel as it is (no flip), read at column (3 ky + kx) C + c. The row or
+// column q + 1 past the bottom or right edge is the output padding's zero
+// in the post-norm domain, staged as Stride2's halo is. Each row is stored
+// at its own output pixel, and the four phases' blocks add their column
+// sums into one stats buffer. Up2's Cout = 64 takes 64-channel tiles, on
+// which a block pairs the two column phases of its row phase (blockIdx.z
+// = py) in one 128-column MMA tile: column shift 0 (input column r) feeds
+// px = 0 at kx = 1 and px = 1 at kx = 2 with one 128-wide wgmma, shift 1
+// (column r + 1) px = 1 at kx = 0 alone with a 64-wide one on the
+// accumulator's upper half; the tile's row is then output pixels (2 q +
+// py, 2 r) and (2 q + py, 2 r + 1). So each staged A row feeds 128
+// columns' products, as at up1 (plain 64-wide tiles fed half as many: the
+// kernel alone at up2 took 0.80 ms f32 and 0.24 bf16 on an H100, paired
+// 0.65 and 0.19).
+//
 // Limits (the wrappers raise for anything else): C % 64 == 0 (K per tap),
-// Cout % 128 == 0, C <= 2048 where the norm is staged, 16-byte aligned
-// tensors; any N H W (the ragged tile masked), with H, W >= 2 (Reflect)
-// or even (Stride2).
+// Cout % 128 == 0 (ConvT2x: % 64), C <= 2048 where the norm is staged,
+// 16-byte aligned tensors; any N H W (the ragged tile masked), with H, W
+// >= 2 (Reflect) or even (Stride2).
 #pragma once
 
 #include <cstdint>
 #include <type_traits>
 
-#include "conv_stats.cuh"
+#include "element.cuh"
 #include "wgmma.cuh"
 
 namespace ctk {
@@ -90,8 +116,9 @@ constexpr int STAGES = 3;             // A and B tiles in shared memory
 
 // Reflect: K1 (reflect pad, norm/ReLU/skip prologue, bias, stats, emitted
 // input). Zero: K4 (zero halo, none of these). Stride2: K3 (stride 2, zero
-// halo after the norm/ReLU prologue, bias, stats)
-enum class Mode { Reflect, Zero, Stride2 };
+// halo after the norm/ReLU prologue, bias, stats). ConvT2x: K2 (the
+// transposed conv's phases, Stride2's halo, prologue, bias and stats)
+enum class Mode { Reflect, Zero, Stride2, ConvT2x };
 
 struct Params {
   const void* x;      // (N, H, W, C) input, T
@@ -100,7 +127,8 @@ struct Params {
   const void* wlo;    // (Cout, 9C) TF32 lo (f32 I/O), or null
   const float* b;     // (Cout,) bias
   const float* norm;  // (N, 2, C) [mean, rstd], or null
-  void* out;          // (N, H, W, Cout) ((N, H/2, W/2, Cout) Stride2), T
+  void* out;          // (N, H, W, Cout) (Stride2 (N, H/2, W/2, Cout),
+                      // ConvT2x (N, 2H, 2W, Cout)), T
   float* stats;       // (N, 2, Cout) [sum, sum^2], zeroed by the caller
   void* xnew;         // (N, H, W, C) emitted conv input, T, or null
   int n, h, w, c, cout, relu;
@@ -140,12 +168,30 @@ struct Tiles {
   }
 };
 
+// the MMA tile's width: BN, or 128 where ConvT2x pairs the two column
+// phases of a 64-channel tile (below)
+template <Mode M, int BN>
+__host__ __device__ constexpr int mma_width() {
+  return M == Mode::ConvT2x && BN == 64 ? 128 : BN;
+}
+
 template <Mode M, typename T, int BN>
 __device__ __forceinline__ void conv_body(const Params& p) {
-  using L = Tiles<T, BN>;
+  // BN output channels per block; NW MMA columns
+  constexpr int NW = mma_width<M, BN>();
+  using L = Tiles<T, NW>;
   constexpr bool kTf32 = L::kTf32;
   constexpr bool kK1 = M == Mode::Reflect;
   constexpr bool kS2 = M == Mode::Stride2;
+  constexpr bool kT2 = M == Mode::ConvT2x;
+  // ConvT2x on 64-channel tiles (up2's Cout = 64) pairs the two column
+  // phases of one row phase in a 128-column MMA tile, columns 0-63 px = 0
+  // and 64-127 px = 1 of the same channels, so each staged A row feeds 128
+  // products as at up1
+  constexpr bool kPair = NW != BN;
+  // Stride2 and ConvT2x stage 0 for a source pixel outside the image after
+  // the prologue: their zero pad lies in the post-norm domain
+  constexpr bool kMask = kS2 || kT2;
   constexpr bool kPro = M != Mode::Zero;  // norm prologue, bias, stats
   constexpr int kV = L::kVals, BK = L::kChunk;
   extern __shared__ uint8_t smem_raw[];
@@ -153,19 +199,27 @@ __device__ __forceinline__ void conv_body(const Params& p) {
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t sbase = smem_u32(smem);
   float* s_norm = reinterpret_cast<float*>(smem + STAGES * L::kStage);
-  float* s_red = s_norm + 2 * p.c;  // [row parts][sum, sum^2][BN]
+  float* s_red = s_norm + 2 * p.c;  // [row parts][sum, sum^2][NW]
 
   const int tid = threadIdx.x;
   const int H = p.h, W = p.w, C = p.c, Cout = p.cout;
-  // the output grid: the input's, or half of it each way for Stride2
+  // the output grid: the input's, or half of it each way for Stride2;
+  // ConvT2x walks the input grid, pixel (q, r) for output (2 q + py,
+  // 2 r + px) of its block's phase
   const int Wo = kS2 ? W / 2 : W;
   const int P = (kS2 ? H / 2 : H) * Wo;
   const int tiles = (P + BM - 1) / BM;
   const int n = blockIdx.x / tiles;
   const int m0 = (blockIdx.x % tiles) * BM;
   const int n0 = blockIdx.y * BN;
+  // ConvT2x's output phase (paired: the row phase, both column phases)
+  const int phase = kT2 ? static_cast<int>(blockIdx.z) : 0;
+  const int py = kPair ? phase : phase >> 1, px = phase & 1;
   const int K = 9 * C;
-  const int nchunks = 9 * (C / BK);
+  // A chunks per channel block: 9 taps, ConvT2x's (1 + py)(1 + px), or
+  // paired 2 (1 + py): each row tap at column shifts 0 and 1
+  const int ntaps = kPair ? 2 * (1 + py) : kT2 ? (1 + py) * (1 + px) : 9;
+  const int nchunks = ntaps * (C / BK);
   const size_t plane = static_cast<size_t>(H * W) * C;  // one sample of x
 
   const T* __restrict__ x = static_cast<const T*>(p.x) + n * plane;
@@ -200,13 +254,37 @@ __device__ __forceinline__ void conv_body(const Params& p) {
     ox[i] = ok[i] ? m % Wo : 0;
   }
 
-  // chunk kc: tap kc % 9 of channel block kc / 9, K offset tap * C + c0
+  // chunk kc: tap kc % ntaps of channel block kc / ntaps; tap9 is its
+  // 3 ky + kx, the weight's K offset tap9 * C + c0. ConvT2x's phase taps:
+  // row phase 0 ky = 1; row phase 1 ky = 0 (input row q + 1), then ky = 2
+  // (row q); columns alike. Paired, chunk t is row tap t / 2 at column
+  // shift t % 2, A's tap kx = 1 (column r; B's px = 1 rows take kx = 2
+  // there) or kx = 0 (column r + 1; px = 1 alone)
+  auto tap9 = [&](int kc) {
+    if constexpr (kPair) {
+      const int t = kc % ntaps;
+      return 3 * (py ? 2 * (t >> 1) : 1) + ((t & 1) ? 0 : 1);
+    } else if constexpr (kT2) {
+      const int t = kc % ntaps;
+      return 3 * (py ? 2 * (t >> px) : 1) + (px ? 2 * (t & 1) : 1);
+    } else {
+      return kc % 9;
+    }
+  };
   auto load_b = [&](int kc, int s) {
-    const size_t k0 = (kc % 9) * C + (kc / 9) * BK + kV * g;
+    const int tap = tap9(kc);
+    const size_t k0 = tap * C + (kc / ntaps) * BK + kV * g;
 #pragma unroll
-    for (int i = 0; i < BN / 32; ++i) {
+    for (int i = 0; i < NW / 32; ++i) {
       const int r = r0 + 32 * i;
-      const size_t src = static_cast<size_t>(n0 + r) * K + k0;
+      size_t src = static_cast<size_t>(n0 + r) * K + k0;
+      if constexpr (kPair) {  // B rows 64-127: px = 1's tap, same channels
+        if (i >= 2) {
+          src -= static_cast<size_t>(64) * K - (tap % 3 == 1 ? C : 0);
+        } else if (tap % 3 == 0) {
+          continue;  // column shift 1: no px = 0 rows
+        }
+      }
       cp_async16(sbase + L::b(s, 0) + swz(r, g), whi + src);
       if (kTf32) cp_async16(sbase + L::b(s, 1) + swz(r, g), wlo + src);
     }
@@ -214,15 +292,15 @@ __device__ __forceinline__ void conv_body(const Params& p) {
 
   // A of chunk kc, raw: each row's 16 bytes of x (and skip) in registers,
   // loaded a chunk before they are staged; Zero: zeros outside the image;
-  // Stride2: bit i of `inside` says whether row i's source pixel is in the
-  // image, for stage_a to zero the others after the prologue
+  // Stride2, ConvT2x: bit i of `inside` says whether row i's source pixel
+  // is in the image, for stage_a to zero the others after the prologue
   uint4 xr[4], sr[4];
   unsigned inside = 0;
   auto load_a = [&](int kc) {
-    const int tap = kc % 9;
+    const int tap = tap9(kc);
     const int ky = tap / 3, kx = tap % 3;
-    const int c = (kc / 9) * BK + kV * g;
-    if constexpr (kS2) inside = 0;
+    const int c = (kc / ntaps) * BK + kV * g;
+    if constexpr (kMask) inside = 0;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       if (ok[i]) {
@@ -234,8 +312,11 @@ __device__ __forceinline__ void conv_body(const Params& p) {
           if (skip != nullptr) {
             sr[i] = *reinterpret_cast<const uint4*>(skip + off);
           }
-        } else if constexpr (kS2) {
-          const int iy = 2 * oy[i] + ky - 1, ix = 2 * ox[i] + kx - 1;
+        } else if constexpr (kMask) {
+          // ConvT2x: (q + [ky == 0], r + [kx == 0]), past the bottom or
+          // right edge for the output padding
+          const int iy = kS2 ? 2 * oy[i] + ky - 1 : oy[i] + (ky == 0);
+          const int ix = kS2 ? 2 * ox[i] + kx - 1 : ox[i] + (kx == 0);
           if (static_cast<unsigned>(iy) < static_cast<unsigned>(H) &&
               static_cast<unsigned>(ix) < static_cast<unsigned>(W)) {
             xr[i] = *reinterpret_cast<const uint4*>(
@@ -259,8 +340,8 @@ __device__ __forceinline__ void conv_body(const Params& p) {
   // into stage s; between(i) runs before row i (the caller's wgmmas go
   // there)
   auto stage_a = [&](int kc, int s, auto&& between) {
-    const int tap = kc % 9;
-    const int c = (kc / 9) * BK + kV * g;
+    const int tap = tap9(kc);
+    const int c = (kc / ntaps) * BK + kV * g;
     float mean[kV], rstd[kV];
 #pragma unroll
     for (int j = 0; j < kV; ++j) {
@@ -271,8 +352,8 @@ __device__ __forceinline__ void conv_body(const Params& p) {
     for (int i = 0; i < 4; ++i) {
       between(i);
       uint4 hi = make_uint4(0, 0, 0, 0), lo = hi;
-      // Stride2's halo stays zero in the post-norm domain
-      if (kS2 ? ((inside >> i) & 1u) != 0 : ok[i]) {
+      // Stride2's and ConvT2x's halo stays zero in the post-norm domain
+      if (kMask ? ((inside >> i) & 1u) != 0 : ok[i]) {
         float v[kV];
         unpack(xr[i], v);
         hi = xr[i];
@@ -317,25 +398,28 @@ __device__ __forceinline__ void conv_body(const Params& p) {
   // truncation, which over K = 9 C biases the sum by ~1e-5 of its scale;
   // so each chunk's products are summed apart (acc) and added to sum in
   // f32 with rounding to nearest, as an f32 FMA loop would
-  float acc[BN / 2], sum[kTf32 ? BN / 2 : 1];
+  float acc[NW / 2], sum[kTf32 ? NW / 2 : 1];
 #pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < NW / 2; ++i) acc[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < (kTf32 ? BN / 2 : 1); ++i) sum[i] = 0.f;
+  for (int i = 0; i < (kTf32 ? NW / 2 : 1); ++i) sum[i] = 0.f;
 
   // pipeline: in iteration kc the wgmmas of chunk kc (stage kc % 3) are
   // issued between the rows of chunk kc + 1's staging, B of chunk kc + 2 is
   // copied in, and A of chunk kc + 2 is loaded into the registers. Each
   // write goes to a stage whose last reader, chunk kc - 1 or kc - 2, has
   // been waited for before the barrier that ended the previous iteration.
+  // ConvT2x may have one chunk (C = 64 bf16, phase 0); the other modes
+  // have at least 9
+  const bool second = !kT2 || nchunks > 1;
   __syncthreads();  // s_norm
   load_b(0, 0);
   cp_async_commit();
-  load_b(1, 1);
+  if (second) load_b(1, 1);
   cp_async_commit();
   load_a(0);
   stage_a(0, 0, [](int) {});
-  load_a(1);
+  if (second) load_a(1);
   cp_async_wait<1>();  // B of chunk 0
   fence_async_smem();
   __syncthreads();
@@ -345,7 +429,27 @@ __device__ __forceinline__ void conv_body(const Params& p) {
   for (int kc = 0; kc < nchunks; ++kc) {
     const uint32_t ahi = sbase + L::a(s, 0) + wg_rows;
     const uint32_t bhi = sbase + L::b(s, 0);
+    // paired, column shift 1: px = 1's columns alone, the accumulator's
+    // upper half by B's rows 64-127 (64-column wgmmas)
+    const bool upper = kPair && ((kc % ntaps) & 1) != 0;
     auto mma = [&](int k) {  // k step k: 32 bytes along the rows
+      if constexpr (kPair) {
+        if (upper) {
+          float(&up)[NW / 4] = *reinterpret_cast<float(*)[NW / 4]>(
+              acc + NW / 4);
+          const uint32_t bup = bhi + 64 * ROW;
+          if constexpr (kTf32) {
+            wgmma_tf32(up, desc(ahi + A_BYTES + 32 * k), desc(bup + 32 * k),
+                       k > 0);
+            wgmma_tf32(up, desc(ahi + 32 * k),
+                       desc(bup + L::kBBytes + 32 * k));
+            wgmma_tf32(up, desc(ahi + 32 * k), desc(bup + 32 * k));
+          } else {
+            wgmma_bf16(up, desc(ahi + 32 * k), desc(bup + 32 * k));
+          }
+          return;
+        }
+      }
       if constexpr (kTf32) {  // the chunk's sum starts from 0
         wgmma_tf32(acc, desc(ahi + A_BYTES + 32 * k), desc(bhi + 32 * k),
                    k > 0);
@@ -371,9 +475,11 @@ __device__ __forceinline__ void conv_body(const Params& p) {
     if (kc + 2 < nchunks) load_a(kc + 2);
     wgmma_wait_all();
     fence_acc(acc);
-    if constexpr (kTf32) {
+    if constexpr (kTf32) {  // an upper chunk leaves the lower half as it was
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) sum[i] += acc[i];
+      for (int i = 0; i < NW / 2; ++i) {
+        if (!upper || i >= NW / 4) sum[i] += acc[i];
+      }
     }
     cp_async_wait<1>();  // B of chunk kc + 1
     fence_async_smem();
@@ -383,44 +489,58 @@ __device__ __forceinline__ void conv_body(const Params& p) {
   cp_async_wait<0>();
   if constexpr (kTf32) {
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[i] = sum[i];
+    for (int i = 0; i < NW / 2; ++i) acc[i] = sum[i];
   }
 
   // epilogue: thread (warp w, lane l) of the warpgroup holds rows
   // 16 w + l / 4 + {0, 8} and columns 8 j + 2 (l % 4) + {0, 1}; the rounded
   // tile goes through shared memory, to be stored in 16-byte row pieces and
-  // (Reflect, Stride2) summed by columns
-  constexpr int LD = BN + EPAD;
+  // (all modes but Zero) summed by columns. Paired, column col is channel
+  // n0 + col % 64 of phase px = col / 64
+  constexpr int LD = NW + EPAD;
   T* tile = reinterpret_cast<T*>(smem);
   {
     const int lane = tid & 31;
     const int row = (tid >> 7) * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
+    for (int j = 0; j < NW / 8; ++j) {
       const int col = 8 * j + 2 * (lane & 3);
+      const int ch = n0 + (kPair ? col % BN : col);
       float b0 = 0.f, b1 = 0.f;
-      if constexpr (kPro) b0 = p.b[n0 + col], b1 = p.b[n0 + col + 1];
+      if constexpr (kPro) b0 = p.b[ch], b1 = p.b[ch + 1];
       store2(tile + row * LD + col, acc[4 * j] + b0, acc[4 * j + 1] + b1);
       store2(tile + (row + 8) * LD + col, acc[4 * j + 2] + b0,
              acc[4 * j + 3] + b1);
     }
   }
   __syncthreads();
-  constexpr int kRowWords = BN / kV;
-  T* out = static_cast<T*>(p.out) + static_cast<size_t>(n) * P * Cout + n0;
+  constexpr int kRowWords = NW / kV;
+  constexpr int kHalfWords = BN / kV;  // paired: one phase's words
+  T* out = static_cast<T*>(p.out) +
+           static_cast<size_t>(n) * (kT2 ? 4 : 1) * P * Cout + n0;
   for (int idx = tid; idx < BM * kRowWords; idx += NT) {
     const int row = idx / kRowWords, wd = idx % kRowWords;
-    if (m0 + row < P) {
-      *reinterpret_cast<uint4*>(out + static_cast<size_t>(m0 + row) * Cout +
-                                wd * kV) =
+    const int m = m0 + row;
+    if (m < P) {
+      // the row's output pixel: m, or ConvT2x's (2 q + py, 2 r + px)
+      size_t pix = m;
+      int cw = wd;  // 16-byte word of the pixel's channels
+      if constexpr (kT2) {
+        const int q = m / W;
+        const int pxw = kPair ? wd / kHalfWords : px;
+        if constexpr (kPair) cw = wd % kHalfWords;
+        pix = static_cast<size_t>(2 * q + py) * (2 * W) + 2 * (m - q * W) +
+              pxw;
+      }
+      *reinterpret_cast<uint4*>(out + pix * Cout + cw * kV) =
           *reinterpret_cast<const uint4*>(tile + row * LD + wd * kV);
     }
   }
   if constexpr (kPro) {
     // column col over rows part * RP .. + RP, then the parts summed
-    constexpr int kRowParts = NT / BN, RP = BM / kRowParts;
+    constexpr int kRowParts = NT / NW, RP = BM / kRowParts;
     {
-      const int col = tid % BN, part = tid / BN;
+      const int col = tid % NW, part = tid / NW;
       const int rows = min(RP, P - m0 - part * RP);
       float s0 = 0.f, q0 = 0.f;
       for (int r = 0; r < rows; ++r) {
@@ -428,24 +548,26 @@ __device__ __forceinline__ void conv_body(const Params& p) {
         s0 += v;
         q0 += v * v;
       }
-      s_red[(part * 2 + 0) * BN + col] = s0;
-      s_red[(part * 2 + 1) * BN + col] = q0;
+      s_red[(part * 2 + 0) * NW + col] = s0;
+      s_red[(part * 2 + 1) * NW + col] = q0;
     }
     __syncthreads();
-    for (int i = tid; i < 2 * BN; i += NT) {
-      const int which = i / BN, col = i % BN;
+    for (int i = tid; i < 2 * NW; i += NT) {
+      const int which = i / NW, col = i % NW;
       float t = 0.f;
 #pragma unroll
       for (int part = 0; part < kRowParts; ++part) {
-        t += s_red[(part * 2 + which) * BN + col];
+        t += s_red[(part * 2 + which) * NW + col];
       }
-      atomicAdd(&p.stats[(n * 2 + which) * Cout + n0 + col], t);
+      atomicAdd(&p.stats[(n * 2 + which) * Cout + n0 +
+                         (kPair ? col % BN : col)],
+                t);
     }
   }
 }
 
 // each mode its own kernel name, so the SASS check and the profiler tell
-// K1, K4 and K3 apart
+// K1, K4, K3 and K2 apart
 template <typename T, int BN>
 __global__ void __launch_bounds__(NT, 1) k1_wgmma_kernel(Params p) {
   conv_body<Mode::Reflect, T, BN>(p);
@@ -466,6 +588,15 @@ __global__ void __launch_bounds__(NT, (sizeof(T) == 2 && BN == 128) ? 2 : 1)
   conv_body<Mode::Stride2, T, BN>(p);
 }
 
+// K2's K is shorter still (4 to 16 bf16 chunks at up1, by phase), so its
+// bf16 tiles run two blocks per SM too (0.148 -> 0.100 ms at up1 on an
+// H100; at up2 the paired tile then spills 4 bytes)
+template <typename T, int BN>
+__global__ void __launch_bounds__(NT, sizeof(T) == 2 ? 2 : 1)
+    k2_wgmma_kernel(Params p) {
+  conv_body<Mode::ConvT2x, T, BN>(p);
+}
+
 template <Mode M, typename T, int BN>
 int launch(const Params& p, cudaStream_t stream) {
   // only mode M's kernel is instantiated in the file that launches it
@@ -474,31 +605,43 @@ int launch(const Params& p, cudaStream_t stream) {
       return k1_wgmma_kernel<T, BN>;
     } else if constexpr (M == Mode::Zero) {
       return k4_wgmma_kernel<T, BN>;
-    } else {
+    } else if constexpr (M == Mode::Stride2) {
       return k3_wgmma_kernel<T, BN>;
+    } else {
+      return k2_wgmma_kernel<T, BN>;
     }
   }();
-  const size_t smem = Tiles<T, BN>::smem_bytes(M, p.c);
+  const size_t smem = Tiles<T, mma_width<M, BN>()>::smem_bytes(M, p.c);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int pixels =
-      M == Mode::Stride2 ? (p.h / 2) * (p.w / 2) : p.h * p.w;  // output
+  // the grid M walks (ConvT2x: the input's, one output phase per z, or
+  // paired one row phase)
+  const int pixels = M == Mode::Stride2 ? (p.h / 2) * (p.w / 2) : p.h * p.w;
   const int tiles = (pixels + BM - 1) / BM;
-  dim3 grid(p.n * tiles, p.cout / BN);
+  const int phases =
+      M != Mode::ConvT2x ? 1 : (mma_width<M, BN>() != BN ? 2 : 4);
+  dim3 grid(p.n * tiles, p.cout / BN, phases);
   kernel<<<grid, NT, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 // bf16: 256-channel tiles where Cout allows; f32: 128, whose two
-// accumulators fit in the registers
+// accumulators fit in the registers. ConvT2x (Cout 128 at up1, 64 at up2):
+// 128-channel tiles, or 64 with the column phases paired where Cout % 128
+// != 0 (the other modes' wrappers take Cout % 128 == 0 only)
 template <Mode M, typename T>
 int dispatch(const Params& p, cudaStream_t stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (p.cout % 256 == 0) return launch<M, T, 256>(p, stream);
+  if constexpr (M == Mode::ConvT2x) {
+    return p.cout % 128 == 0 ? launch<M, T, 128>(p, stream)
+                             : launch<M, T, 64>(p, stream);
+  } else {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      if (p.cout % 256 == 0) return launch<M, T, 256>(p, stream);
+    }
+    return launch<M, T, 128>(p, stream);
   }
-  return launch<M, T, 128>(p, stream);
 }
 
 }  // namespace k1

@@ -61,7 +61,7 @@
 #include <cstdint>
 #include <type_traits>
 
-#include "conv_stats.cuh"
+#include "element.cuh"
 #include "wgmma.cuh"
 
 namespace ctk {

@@ -18,8 +18,8 @@
 // What bounds it on the H100: operations. At the body's (N, 128, 128, 256)
 // -> 256, K = 9 * 256, each sample is ~19.3 G int8 multiply-adds x 2 against
 // 1,979 TOPS on the int8 tensor cores, with ~17 MB moved per sample. This
-// first version walks K1's pixel-and-tap mapping (conv_stats.cuh, reflect
-// pad) with int8 tiles in shared memory, four channels packed per 32-bit word
+// first version walks the pixels and taps of a reflect-padded 3x3 conv
+// with int8 tiles in shared memory, four channels packed per 32-bit word
 // (the weight's words transposed from its HWIO bytes while they are staged),
 // and accumulates with __dp4a on the CUDA cores (no tensor cores): the int32
 // sums are exact, whatever the order. mma.sync s8 or wgmma is later work.
@@ -29,7 +29,7 @@
 
 #include <type_traits>
 
-#include "conv_stats.cuh"
+#include "element.cuh"
 
 namespace ctk {
 namespace s8 {

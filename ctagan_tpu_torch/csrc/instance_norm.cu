@@ -20,7 +20,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "conv_stats.cuh"
+#include "element.cuh"
 
 namespace ctk {
 namespace inorm {

@@ -1,9 +1,9 @@
-// Hopper tensor-core helpers shared by K1, K4 and K3 (conv_wgmma.cuh) and
-// K5 (fused_resblock_grad.cuh): the 128-byte swizzled K-major operand
+// Hopper tensor-core helpers shared by K1, K4, K3 and K2 (conv_wgmma.cuh)
+// and K5 (fused_resblock_grad.cuh): the 128-byte swizzled K-major operand
 // tiles and their wgmma descriptor, cp.async, the proxy and wgmma fences,
 // the wgmma.mma_async wrappers (bf16 and TF32 operands, f32 accumulator,
-// 64 x 128 and 64 x 256 per warpgroup), TF32 rounding, and the 16-byte
-// pack/unpack of staged values. sm_90a only.
+// 64 x 64, 64 x 128 and 64 x 256 per warpgroup), TF32 rounding, and the
+// 16-byte pack/unpack of staged values. sm_90a only.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -71,6 +71,32 @@ template <int R>
 __device__ __forceinline__ void fence_acc(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 64, f32) = A (64 x 16) B (16 x 64), K-major bf16 tiles,
+// + d unless scale_d is 0
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t a,
+                                          uint64_t b, int scale_d = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
 // d (64 x 128, f32) = A (64 x 16) B (16 x 128), K-major bf16 tiles,
@@ -170,6 +196,32 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[128], uint64_t a,
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 64, f32) = A (64 x 8) B (8 x 64), K-major tf32 (f32 words) tiles,
+// + d unless scale_d is 0
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t a,
+                                          uint64_t b, int scale_d = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(scale_d));
 }
 

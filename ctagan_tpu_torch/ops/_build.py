@@ -38,8 +38,9 @@ _SIGNATURES = {
     # x, w_hi, w_lo, b, norm, out, stats, n, h, w, c, cout, relu, bf16,
     # stream
     "ctk_conv3x3_s2_zero_stats": [_P] * 7 + [_I] * 7 + [_P],
-    # x, w, b, norm, out, stats, n, h, w, c, cout, relu, bf16, stream
-    "ctk_convt2x_stats": [_P] * 6 + [_I] * 7 + [_P],
+    # x, w_hi, w_lo, b, norm, out, stats, n, h, w, c, cout, relu, bf16,
+    # stream
+    "ctk_convt2x_stats": [_P] * 7 + [_I] * 7 + [_P],
     # g, w_hi, w_lo, out, n, h, w, c, cout, bf16, stream
     "ctk_conv3x3_zero_corr": [_P] * 4 + [_I] * 6 + [_P],
     # x, skip, g_hi, g_lo, norm, dw, n, h, w, c, cout, hwp, relu, bn, per,

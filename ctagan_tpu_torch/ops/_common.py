@@ -29,20 +29,6 @@ def check_bias(fn: str, b: torch.Tensor, cout: int) -> None:
         raise ValueError(f"{fn}: bias must be ({cout},), got {tuple(b.shape)}")
 
 
-def check_kernel_shapes(fn: str, x: torch.Tensor, c: int, cout: int,
-                        norm: Optional[torch.Tensor]) -> None:
-    """Shape limits of K2 (csrc/conv_stats.cuh): whole 16-channel K chunks
-    and 64-channel output tiles; a (N, 2, C) norm."""
-    if c % 16 or cout % 64:
-        raise ValueError(
-            f"{fn}: the CUDA kernel needs C % 16 == 0 and Cout % 64 == 0, "
-            f"got C={c}, Cout={cout}"
-        )
-    if norm is not None and tuple(norm.shape) != (x.shape[0], 2, c):
-        raise ValueError(f"{fn}: norm must be (N, 2, C), got "
-                         f"{tuple(norm.shape)}")
-
-
 def same_device(fn: str, x: torch.Tensor, *others) -> None:
     for t in others:
         if t is not None and t.device != x.device:

@@ -75,17 +75,19 @@ K1_CHUNK, K1_COUT_TILE, K1_MAX_C = 64, 128, 2048
 def check_k1_kernel_limits(x: torch.Tensor, cout: int,
                            norm: Optional[torch.Tensor] = None,
                            *tensors: Optional[torch.Tensor],
-                           fn: str = "conv3x3_reflect_stats") -> None:
+                           fn: str = "conv3x3_reflect_stats",
+                           cout_tile: int = K1_COUT_TILE) -> None:
     """Raise ValueError for what the CUDA kernel cannot take: C % 64,
     Cout % 128, C > 2048, a norm that is not (N, 2, C), or x (or one of
     ``tensors``) not on a 16-byte boundary (the kernel's loads and stores
     are 16 bytes). Runs on any device. ``fn`` names the caller in the
-    message (K3 runs the same body)."""
+    message (K3 and K2 run the same body); ``cout_tile`` is the narrowest
+    output tile the caller's mode has (K2's is 64)."""
     c = x.shape[3]
-    if c % K1_CHUNK or cout % K1_COUT_TILE or c > K1_MAX_C:
+    if c % K1_CHUNK or cout % cout_tile or c > K1_MAX_C:
         raise ValueError(
             f"{fn}: the CUDA kernel needs C % {K1_CHUNK} == 0, C <= "
-            f"{K1_MAX_C} and Cout % {K1_COUT_TILE} == 0, got C={c}, "
+            f"{K1_MAX_C} and Cout % {cout_tile} == 0, got C={c}, "
             f"Cout={cout}")
     if norm is not None and tuple(norm.shape) != (x.shape[0], 2, c):
         raise ValueError(f"{fn}: norm must be (N, 2, C), got "

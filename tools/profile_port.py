@@ -41,7 +41,6 @@ import argparse
 import concurrent.futures
 import json
 import os
-import re
 import subprocess
 import sys
 import tempfile
@@ -50,7 +49,6 @@ import urllib.request
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_SERVE = 256
-KERNEL_MODE = {"2": "K2"}  # conv_stats.cuh
 TRAIN_STEPS = 20
 
 
@@ -291,19 +289,16 @@ def profile_serving(torch, config, bodies, card):
     return results
 
 
+# K1-K5 by their wgmma kernels' names
+KERNEL_PARTS = (("k1_wgmma_kernel", "K1"), ("k2_wgmma_kernel", "K2"),
+                ("k3_wgmma_kernel", "K3"), ("k4_wgmma_kernel", "K4"),
+                ("wgrad_kernel", "K5"))
+
+
 def kernel_part(name):
-    """K1-K5 by the kernel's name (K1's, K3's, K4's and K5's wgmma
-    kernels, conv_stats.cuh's Mode for K2)."""
-    if "k1_wgmma_kernel" in name:
-        return "K1"
-    if "k3_wgmma_kernel" in name:
-        return "K3"
-    if "k4_wgmma_kernel" in name:
-        return "K4"
-    if "wgrad_kernel" in name:
-        return "K5"
-    m = re.search(r"conv_stats_kernel<(\d)", name)
-    return KERNEL_MODE[m.group(1)] if m else None
+    """K1-K5 by the kernel's name, or None."""
+    return next((part for kernel, part in KERNEL_PARTS if kernel in name),
+                None)
 
 
 def device_ms(torch, fn, reps=5):
