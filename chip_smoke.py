@@ -19,15 +19,18 @@ card, ``nvcc`` and no network, and imports nothing of JAX. Phases:
    conv3x3_weight_grad at the training body's (1, 128, 128, 256), both also
    at a ragged (1, 40, 40, 256) (K5 with skip) and at C = Cout = 128; K7
    conv3x3_reflect_s8 at the int8 body's (2, 128, 128, 256) in both input
-   modes, f32 and bf16 out; K6 instance_norm_pallas at the int8 forward's
+   modes, f32 and bf16 out, and at the served batch's N=16 in mode (ii), at
+   C = Cout = 128, at a ragged (1, 40, 40, 256) and with f32 raw input in
+   mode (ii); K6 instance_norm_pallas at the int8 forward's
    norm shapes, f32 and bf16 I/O); times the kernel, the plain version and
    one PyTorch library call (cuDNN, ``F.instance_norm``, or for K7 the int8
    GEMM alone: yardsticks the port never calls) with CUDA events, and
    computes each case's bound from its operations and bytes; K1 also at a
-   ragged (1, 40, 40, 256) and at C = Cout = 128; K4's, K3's and K2's
-   kernels alone, and their wrappers' device time by kernel beside the
+   ragged (1, 40, 40, 256) and at C = Cout = 128; K4's, K3's, K2's and
+   K7's kernels alone, and their wrappers' device time by kernel beside the
    host time; K1's, K2's, K3's, K4's and K5's built kernels are held to
-   hold ``HGMMA`` (``wgmma``) instructions (``cuobjdump -sass``);
+   hold ``HGMMA`` (``wgmma``) instructions, and K7's ``IGMMA`` (int8
+   ``wgmma``) and no ``IDP4A`` (``cuobjdump -sass``);
 3. ``generator``: the full-width generator (9 blocks, base 64, 11,365,633
    parameters, seeded weights) at 512², b=2: the serving kernel route
    against the plain layer route, 18 K1, 2 K3 and 2 K2 launches per forward;
@@ -67,6 +70,7 @@ import concurrent.futures
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -149,6 +153,11 @@ PEAK_INT8, PEAK_TF32 = 1979e12, 495e12
 WGMMA_KERNELS = {"K1": "k1_wgmma_kernel", "K2": "k2_wgmma_kernel",
                  "K3": "k3_wgmma_kernel", "K4": "k4_wgmma_kernel",
                  "K5": "wgrad_kernel"}
+# K7 (csrc/fused_s8.cu) on int8 wgmma: its input (int8, f32 or bf16 raw)
+# by output (f32 or bf16) types, each at one tile width or more; IDP4A
+# would be the CUDA-core dot product of its first version
+K7_WGMMA_KERNEL = "k7_wgmma_kernel"
+K7_KINDS = 6
 ALL_PHASES = ("kernels", "generator", "int8", "grad", "serving",
               "int8_serving", "training")
 
@@ -355,22 +364,22 @@ def kernel_cases(torch):
         n, h, w, c = kw["x"].shape
         return conv_flops(n, h // 2, w // 2, c, kw["w"].shape[3])
 
-    def k7(mode):
+    def k7(mode, n=2, hw=(128, 128), c=256, cout=256, raw=torch.bfloat16):
         # dt is the output dtype; mode (i) takes the int8 trunk, mode (ii)
-        # the chain's bf16 raw h1 with its norm
+        # the chain's bf16 raw h1 (or f32 raw input) with its norm
         def make(dt):
-            kw = dict(w_q=torch.randint(-127, 128, (3, 3, 256, 256),
+            kw = dict(w_q=torch.randint(-127, 128, (3, 3, c, cout),
                                         generator=gen, device=dev,
                                         dtype=torch.int8),
-                      w_scale=torch.rand(256, generator=gen, device=dev)
+                      w_scale=torch.rand(cout, generator=gen, device=dev)
                       * 1e-3 + 1e-4,
-                      b=randn(256, scale=0.1), out_dtype=dt)
-            x = randn(2, 128, 128, 256)
+                      b=randn(cout, scale=0.1), out_dtype=dt)
+            x = randn(n, *hw, c)
             if mode == "i":
                 kw["x_scale"] = x.abs().amax() / 127.0
                 kw["x"] = torch.round(x / kw["x_scale"]).to(torch.int8)
             else:
-                kw["x"] = (x * 3.0 + 0.5).to(torch.bfloat16)
+                kw["x"] = (x * 3.0 + 0.5).to(raw)
                 kw["norm"] = normed(kw["x"])
             return kw
         return make
@@ -465,10 +474,18 @@ def kernel_cases(torch):
          gr.conv3x3_weight_grad, gr.conv3x3_weight_grad_plain,
          k5("norm_relu", c=128), k5_lib, k5_flops, k5_spec),
     ] + [
-        ("conv3x3_reflect_s8", f"K7 mode ({m}) N=2 128^2x256->256 (dtype: out)",
-         s8.conv3x3_reflect_s8, s8.conv3x3_reflect_s8_plain, k7(m), k7_lib,
+        ("conv3x3_reflect_s8", f"K7 mode ({m}) {shape} (dtype: out)",
+         s8.conv3x3_reflect_s8, s8.conv3x3_reflect_s8_plain, make, k7_lib,
          x_flops(lambda kw: kw["w_q"].shape[3]), k7_spec)
-        for m in ("i", "ii")
+        for m, shape, make in (
+            ("i", "N=2 128^2x256->256", k7("i")),
+            ("ii", "N=2 128^2x256->256", k7("ii")),
+            ("ii", "N=16 128^2x256->256", k7("ii", n=16)),
+            ("i", "N=2 128^2x128->128", k7("i", c=128, cout=128)),
+            ("i", "ragged N=1 40^2x256->256", k7("i", n=1, hw=(40, 40))),
+            ("ii", "ragged N=1 40^2x256->256", k7("ii", n=1, hw=(40, 40))),
+            ("ii", "f32 raw N=2 128^2x256->256",
+             k7("ii", raw=torch.float32)))
     ] + [
         ("instance_norm_pallas", f"K6 N=2 {h}^2x{c} {act}",
          pk.instance_norm_pallas, pk.instance_norm_pallas_plain,
@@ -574,14 +591,17 @@ def time_wrapper_parts(torch, cases=None):
     """K4 at the training body's (1, 128, 128, 256) -> 256, K3 at the
     serving path's down1 (2, 512, 512, 64) -> 128 and K2 at its up1 (2,
     128, 128, 256) -> 128 and up2 (2, 256, 256, 128) -> 64 with a norm, f32
-    and bf16: the kernel alone on a built B operand (CUDA events, beside
-    its bound and its grid), and one wrapper call's device time by kernel
-    (``torch.profiler``, 5 calls: B's build, the kernel, and for K4 the f32
-    cast, reflect folds and rounding) beside the host's time to enqueue it.
-    ``cases``: the kernels to time (all if None)."""
+    and bf16; K7 at the int8 body's (2, 128, 128, 256) -> 256 in both input
+    modes, f32 and bf16 out: the kernel alone on a built B operand (CUDA
+    events, beside its bound and its grid), and one wrapper call's device
+    time by kernel (``torch.profiler``, 5 calls: B's build, the kernel, and
+    for K4 the f32 cast, reflect folds and rounding, for K7 the combined
+    scale) beside the host's time to enqueue it. ``cases``: the kernels to
+    time (all if None)."""
     from ctagan_tpu_torch.ops import fused_convt as t
     from ctagan_tpu_torch.ops import fused_down as d
     from ctagan_tpu_torch.ops import fused_resblock_grad as gr
+    from ctagan_tpu_torch.ops import fused_s8 as s8
     from ctagan_tpu_torch.ops.fused_resblock import k1_weight
 
     cuda = torch.autograd.DeviceType.CUDA
@@ -669,14 +689,54 @@ def time_wrapper_parts(torch, cases=None):
                         * x.element_size())
         return parts
 
+    def k7(mode):
+        # N=2, the int8 body's (2, 128, 128, 256) -> 256; dt is the output
+        # dtype, the input the int8 trunk (i) or the chain's bf16 h1 (ii)
+        def parts(dt):
+            x = x7[mode]
+            wk = s8.k7_weight(w7)
+            n, h, wd, c = x.shape
+            cout = w7.shape[3]
+            norm = norm7 if mode == "ii" else None
+            x_scale = xs7 if mode == "i" else None
+            scale = s8._combined_scale(ws7, x_scale, 8.0)
+            blocks = n * -(-h // 8) * -(-wd // 16) * (cout // 256)
+            return dict(shape=f"mode ({mode}) N={n} {h}^2x{c}->{cout} "
+                        "(dtype: out)", n=n, pixels=h * wd,
+                        cout=cout, k=9 * c,
+                        grid=(blocks, "(8 x 16 pixels) x 256",
+                              str(9 * c // 128)),
+                        kernel=lambda: s8._k7_kernel(x, wk, scale, b7, norm,
+                                                     8.0, dt),
+                        call=lambda: s8.conv3x3_reflect_s8(
+                            x, w7, ws7, b7, x_scale=x_scale, norm=norm,
+                            out_dtype=dt),
+                        moved=nbytes(x, wk) + n * h * wd * cout
+                        * dt.itemsize)
+        return parts
+
+    w7 = torch.randint(-127, 128, (3, 3, 256, 256), generator=gen,
+                       device="cuda", dtype=torch.int8)
+    ws7 = torch.rand(256, generator=gen, device="cuda") * 1e-3 + 1e-4
+    b7 = randn(256, scale=0.1)
+    x7f = randn(2, 128, 128, 256)
+    xs7 = x7f.abs().amax() / 127.0
+    x7 = {"i": torch.round(x7f / xs7).to(torch.int8),
+          "ii": (x7f * 3.0 + 0.5).to(torch.bfloat16)}
+    norm7 = normed(x7["ii"].float())
+
+    conv_dts = (("float32", (PEAK_TF32 / 3, "3 TF32 products")),
+                ("bfloat16", CONV_PEAKS["bfloat16"]))
+    int8_dts = tuple((d, (PEAK_INT8, "int8 tensor cores"))
+                     for d in ("float32", "bfloat16"))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for name, parts in (("K4", k4), ("K3", k3), ("K2", k2("up1")),
-                        ("K2", k2("up2"))):
+    for name, parts, dts in (
+            ("K4", k4, conv_dts), ("K3", k3, conv_dts),
+            ("K2", k2("up1"), conv_dts), ("K2", k2("up2"), conv_dts),
+            ("K7", k7("i"), int8_dts), ("K7", k7("ii"), int8_dts)):
         if cases is not None and name not in cases:
             continue
-        for dt_name, (peak, label) in (
-                ("float32", (PEAK_TF32 / 3, "3 TF32 products")),
-                ("bfloat16", CONV_PEAKS["bfloat16"])):
+        for dt_name, (peak, label) in dts:
             dt = getattr(torch, dt_name)
             q = parts(dt)
             flops = 2.0 * q["n"] * q["pixels"] * q["cout"] * q["k"]
@@ -1233,7 +1293,8 @@ def check_training(torch, card):
 def check_tensor_cores(lib_path):
     """K1's, K2's, K3's, K4's and K5's kernels (each instantiation, f32 and
     bf16 I/O) hold HGMMA (wgmma) instructions in the built library's SASS,
-    so one that runs on CUDA-core FMAs fails."""
+    so one that runs on CUDA-core FMAs fails; K7's (each input and output
+    type) hold IGMMA (int8 wgmma) and no IDP4A."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -1254,6 +1315,18 @@ def check_tensor_cores(lib_path):
         dtypes = {"f32" if "kernelIf" in name else "bf16" for name in counts}
         if dtypes != {"f32", "bf16"} or not all(counts.values()):
             fail(f"{k}'s f32 and bf16 kernels must all run on wgmma (HGMMA)")
+    k7 = {name: (f.count("IGMMA"), f.count("IDP4A")) for name, f in funcs
+          if K7_WGMMA_KERNEL in name}
+    print(f"sass: K7 kernels and their (IGMMA, IDP4A) instructions: {k7}",
+          flush=True)
+    # the mangled template arguments' types (input, output), without the
+    # tile width: e.g. "af" for <signed char, float, 256>
+    kinds = {re.sub(r"Li\d+E.*", "", name.split(K7_WGMMA_KERNEL + "I", 1)[1])
+             for name in k7}
+    if len(kinds) < K7_KINDS or not all(i > 0 and d == 0
+                                         for i, d in k7.values()):
+        fail(f"K7's {K7_KINDS} input/output kinds must all run on int8 "
+             "wgmma (IGMMA) with no IDP4A")
 
 
 SOURCES = {

@@ -1,23 +1,26 @@
 """Int8 fused residual body: reflect 3×3 conv, int8 operands (K7).
 
 Replaces ``ctagan_tpu/ops/fused_s8.py::conv3x3_reflect_s8`` (a Pallas TPU
-kernel) with the CUDA kernel ``csrc/fused_s8.cu``, and ports the
-``fused_residual_chain_s8`` orchestration and the ``s8_chain_ok`` gate
-around it. The int8 serving path (``ops/quantize.py``) runs the residual
-body through it: per block one plain pass (trunk max-abs, quantize) and two
-K7 launches.
+kernel) with the CUDA kernel ``csrc/fused_s8.cu`` (``k7_wgmma_kernel``), and
+ports the ``fused_residual_chain_s8`` orchestration and the ``s8_chain_ok``
+gate around it. The int8 serving path (``ops/quantize.py``) runs the
+residual body through it: per block one plain pass (trunk max-abs,
+quantize) and two K7 launches.
 
 What bounds it on the H100: operations (~19.3 G int8 multiply-adds per
-sample per conv at (N, 128, 128, 256) → 256). The int32 sums are exact in
-any order, and the dequant is one rounding per operation in a fixed order,
-so the kernel's output equals :func:`conv3x3_reflect_s8_plain`'s exactly;
-only the statistics, summed with atomics, differ in their last bits. This
-first version accumulates with ``__dp4a`` on the CUDA cores; the int8
-tensor cores are later work.
+sample per conv at (N, 128, 128, 256) → 256). The kernel is an implicit
+GEMM on the int8 tensor cores (``wgmma`` s8 × s8 → s32) over a K-major copy
+of the weight (:func:`k7_weight`); in mode (ii) the threads quantize each
+output tile's halo once per channel block into shared memory and stage the
+taps' activation tiles from it. The int32 sums are exact in any
+order, and the dequant is one rounding per operation in a fixed order, so
+the kernel's output equals :func:`conv3x3_reflect_s8_plain`'s exactly; only
+the statistics, summed with atomics, differ in their last bits.
 
-On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
-it runs :func:`conv3x3_reflect_s8_plain`, which is also the kernel's oracle
-on the card.
+On a CUDA tensor the wrapper launches the kernel or raises
+(:func:`check_k7_kernel_limits`); on a CPU tensor it runs
+:func:`conv3x3_reflect_s8_plain`, which is also the kernel's oracle on the
+card.
 """
 from __future__ import annotations
 
@@ -110,6 +113,63 @@ def conv3x3_reflect_s8_plain(
     return out, channel_stats(out)
 
 
+# the kernel's tiles: K chunks of one tap × 128 int8 channels (one 128-byte
+# row), 128- or 256-channel output tiles; its shared memory holds the (2, C)
+# norm beside the operand stages
+K7_CHUNK, K7_COUT_TILE, K7_MAX_C = 128, 128, 2048
+
+
+def check_k7_kernel_limits(x: torch.Tensor, w_q: torch.Tensor) -> None:
+    """Raise ValueError for what the CUDA kernel cannot take: C % 128,
+    Cout % 128, C > 2048, H or W < 2, or x or w_q not on a 16-byte boundary
+    (the kernel's copies are 16 bytes). Runs on any device."""
+    fn = "conv3x3_reflect_s8"
+    _, h, wd, c = x.shape
+    cout = w_q.shape[3]
+    if c % K7_CHUNK or cout % K7_COUT_TILE or c > K7_MAX_C:
+        raise ValueError(
+            f"{fn}: the CUDA kernel needs C % {K7_CHUNK} == 0, C <= "
+            f"{K7_MAX_C} and Cout % {K7_COUT_TILE} == 0, got C={c}, "
+            f"Cout={cout}")
+    if h < 2 or wd < 2:
+        raise ValueError(f"{fn}: reflect pad needs H, W >= 2, got {h}x{wd}")
+    if x.data_ptr() % 16 or w_q.data_ptr() % 16:
+        raise ValueError(f"{fn}: the CUDA kernel needs 16-byte aligned x and "
+                         "w_q")
+
+
+def k7_weight(w_q: torch.Tensor) -> torch.Tensor:
+    """The kernel's B operand: the (3, 3, C, Cout) int8 weight as a K-major
+    (Cout, 9·C) matrix, column (3·ky + kx)·C + c of row o = w_q[ky, kx, c,
+    o] (``wgmma`` takes 8-bit operands K-major only)."""
+    c, cout = w_q.shape[2], w_q.shape[3]
+    return w_q.reshape(9 * c, cout).t().contiguous()
+
+
+def _k7_kernel(x, wk, scale, b, norm, act_clip, out_dtype):
+    """Launch K7 on x, its B operand (:func:`k7_weight` of w_q) and the
+    combined f32 (Cout,) scale; returns ((N, H, W, Cout) ``out_dtype``,
+    (N, 2, Cout) f32 [sum, sum²])."""
+    n, h, wd, c = x.shape
+    cout = wk.shape[0]
+    bk = b.float().contiguous()
+    nk = norm.float().contiguous() if norm is not None else None
+    out = torch.empty((n, h, wd, cout), dtype=out_dtype, device=x.device)
+    stats = torch.zeros((n, 2, cout), dtype=torch.float32, device=x.device)
+    in_kind = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}[x.dtype]
+    with torch.cuda.device(x.device):
+        _build.launch(
+            "ctk_conv3x3_reflect_s8", x.data_ptr(), wk.data_ptr(),
+            scale.data_ptr(), bk.data_ptr(),
+            nk.data_ptr() if nk is not None else None, out.data_ptr(),
+            stats.data_ptr(), n, h, wd, c, cout, in_kind,
+            int(out_dtype == torch.bfloat16), 127.0 / act_clip,
+            stream_ptr(x),
+        )
+    conv3x3_reflect_s8.launches += 1
+    return out, stats
+
+
 def conv3x3_reflect_s8(
     x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     b: torch.Tensor, x_scale=None, norm: Optional[torch.Tensor] = None,
@@ -131,31 +191,10 @@ def conv3x3_reflect_s8(
                                         act_clip, out_dtype)
     _check_args(x, w_q, w_scale, b, x_scale, norm, out_dtype)
     same_device("conv3x3_reflect_s8", x, w_q, w_scale, b, norm)
-    n, h, wd, c = x.shape
-    cout = w_q.shape[3]
-    if (c % 64 or cout % 64 or not w_q.is_contiguous() or x.data_ptr() % 4
-            or w_q.data_ptr() % 4):
-        raise ValueError(
-            "conv3x3_reflect_s8: the CUDA kernel needs C % 64 == 0, Cout % 64 "
-            f"== 0, a contiguous w_q and 4-byte aligned x and w_q, got C={c}, "
-            f"Cout={cout}")
-    scale = _combined_scale(w_scale, x_scale, act_clip)
-    bk = b.float().contiguous()
-    nk = norm.float().contiguous() if norm is not None else None
-    out = torch.empty((n, h, wd, cout), dtype=out_dtype, device=x.device)
-    stats = torch.zeros((n, 2, cout), dtype=torch.float32, device=x.device)
-    in_kind = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}[x.dtype]
-    with torch.cuda.device(x.device):
-        _build.launch(
-            "ctk_conv3x3_reflect_s8", x.data_ptr(), w_q.data_ptr(),
-            scale.data_ptr(), bk.data_ptr(),
-            nk.data_ptr() if nk is not None else None, out.data_ptr(),
-            stats.data_ptr(), n, h, wd, c, cout, in_kind,
-            int(out_dtype == torch.bfloat16), 127.0 / act_clip,
-            stream_ptr(x),
-        )
-    conv3x3_reflect_s8.launches += 1
-    return out, stats
+    check_k7_kernel_limits(x, w_q)
+    return _k7_kernel(x, k7_weight(w_q),
+                      _combined_scale(w_scale, x_scale, act_clip), b, norm,
+                      act_clip, out_dtype)
 
 
 conv3x3_reflect_s8.launches = 0

@@ -91,7 +91,7 @@ def breakdown(torch, prof, wall_s, n_fwd):
         part = kernel_part(e.name)
         if part:
             parts[part] += e.time_range.elapsed_us()
-        elif "conv_s8_kernel" in e.name:
+        elif "k7_wgmma_kernel" in e.name:
             parts["K7"] += e.time_range.elapsed_us()
         elif "in_stats_kernel" in e.name or "in_norm_kernel" in e.name:
             parts["K6"] += e.time_range.elapsed_us()
