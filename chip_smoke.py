@@ -22,13 +22,18 @@ card, ``nvcc`` and no network, and imports nothing of JAX. Phases:
    modes, f32 and bf16 out, and at the served batch's N=16 in mode (ii), at
    C = Cout = 128, at a ragged (1, 40, 40, 256) and with f32 raw input in
    mode (ii); K6 instance_norm_pallas at the int8 forward's
-   norm shapes, f32 and bf16 I/O); times the kernel, the plain version and
+   norm shapes, f32 and bf16 I/O, at its served N=16 in f32, at the layer
+   route's body (1, 128, 128, 256) in bf16 and at ragged (1, 48, 136, 20),
+   (1, 48, 136, 36) and (1, 512, 520, 20) in both, each also required to
+   give the same bits on a second call); times the kernel, the plain
+   version and
    one PyTorch library call (cuDNN, ``F.instance_norm``, or for K7 the int8
    GEMM alone: yardsticks the port never calls) with CUDA events, and
    computes each case's bound from its operations and bytes; K1 also at a
-   ragged (1, 40, 40, 256) and at C = Cout = 128; K4's, K3's, K2's and
-   K7's kernels alone, and their wrappers' device time by kernel beside the
-   host time; K1's, K2's, K3's, K4's and K5's built kernels are held to
+   ragged (1, 40, 40, 256) and at C = Cout = 128; K4's, K3's, K2's, K7's
+   and K6's kernels alone (K6 with its plan's route and the clusters the
+   card runs at once), and their wrappers' device time by kernel beside
+   the host time; K1's, K2's, K3's, K4's and K5's built kernels are held to
    hold ``HGMMA`` (``wgmma``) instructions, and K7's ``IGMMA`` (int8
    ``wgmma``) and no ``IDP4A`` (``cuobjdump -sass``);
 3. ``generator``: the full-width generator (9 blocks, base 64, 11,365,633
@@ -36,7 +41,9 @@ card, ``nvcc`` and no network, and imports nothing of JAX. Phases:
    against the plain layer route, 18 K1, 2 K3 and 2 K2 launches per forward;
    forward times at b=1 and b=16; then ``configs/HdGan_fast.yaml`` (bf16,
    ``pad_mode: zero``) built by ``build_generator`` and served a few
-   requests through its layer route, no kernel launched;
+   requests through its layer route, no kernel launched, then again with
+   the InstanceNorm switch on: 23 K6 launches per forward, each response
+   within the same bound of the switch-off forward;
 4. ``int8``: the same generator quantized (``ops/quantize.py``) at 512²,
    b=2, with the InstanceNorm switch on: ``generator_int8_forward`` through
    K7 and K6 against the same forward through their plain versions and
@@ -142,6 +149,10 @@ N_REQUESTS = 16
 # padding in place of zero padding is ~0.24 away
 ZERO_PAD_REQUESTS = 4
 ZERO_PAD_MEAN_TOL = 2.0 ** -6
+# with the InstanceNorm switch on, the layer route runs every one of the
+# generator's InstanceNorms through K6: head, 2 downs, 18 in the 9 residual
+# blocks, 2 ups
+ZERO_PAD_NORMS = 23
 TRAIN_STEPS = 12  # kernel route; the p50 skips the first 2 steps
 PLAIN_STEPS = 6   # plain route, for its p50 beside the kernel route's
 # H100 SXM peaks (NVIDIA's H100 data sheet, 700 W): f32 outside
@@ -219,8 +230,10 @@ def kernel_cases(torch):
     arguments, library_fn(kw) one PyTorch call of the same function on them
     (a yardstick only) and flops(kw) the case's operations. ``spec``
     overrides the tolerances (``out_tol``, ``stats_tol``) and the peak rate
-    of each dtype (``peaks``: dtype -> (ops/s, label)), and ``also`` adds
-    (ops/s, label) bounds printed beside the case's own."""
+    of each dtype (``peaks``: dtype -> (ops/s, label)), ``also`` adds
+    (ops/s, label) bounds printed beside the case's own, ``dtypes`` keeps
+    only those dtypes and ``repeat`` requires a second call on the same
+    inputs to give the same bits."""
     import torch.nn.functional as F
 
     from ctagan_tpu_torch.ops import (
@@ -410,7 +423,9 @@ def kernel_cases(torch):
                                                     "bfloat16": 1e-4},
                "peaks": {dt: (PEAK_INT8, "int8 tensor cores")
                          for dt in CONV_PEAKS}}
-    k6_spec = {"out_tol": K6_OUT_TOL,
+    # K6 sums its statistics in a fixed order: a second call on the same
+    # input must give the same bits
+    k6_spec = {"out_tol": K6_OUT_TOL, "repeat": True,
                "peaks": {dt: (PEAK_F32, "f32 CUDA cores")
                          for dt in CONV_PEAKS}}
     # K1's, K2's, K3's, K4's and K5's f32 routes are three TF32 products on
@@ -492,6 +507,23 @@ def kernel_cases(torch):
          k6((2, h, h, c), act), k6_lib, k6_flops, k6_spec)
         for h, c, act in ((512, 64, "relu"), (128, 256, None),
                           (256, 128, "leaky_relu"))
+    ] + [
+        ("instance_norm_pallas", f"K6 {case}", pk.instance_norm_pallas,
+         pk.instance_norm_pallas_plain, k6(shape, act), k6_lib, k6_flops,
+         dict(k6_spec, dtypes=dts))
+        for case, shape, act, dts in (
+            ("int8 served N=16 512^2x64 relu", (16, 512, 512, 64), "relu",
+             ("float32",)),
+            ("int8 served N=16 128^2x256 relu", (16, 128, 128, 256), "relu",
+             ("float32",)),
+            ("layer route body N=1 128^2x256", (1, 128, 128, 256), None,
+             ("bfloat16",)),
+            ("ragged N=1 48x136x20 relu", (1, 48, 136, 20), "relu",
+             ("float32", "bfloat16")),
+            ("ragged N=1 48x136x36 leaky_relu", (1, 48, 136, 36),
+             "leaky_relu", ("float32", "bfloat16")),
+            ("ragged two-read N=1 512x520x20 relu", (1, 512, 520, 20),
+             "relu", ("float32", "bfloat16")))
     ]
 
 
@@ -517,11 +549,13 @@ def check_kernels(torch, cases=None):
         stats_tol = spec.get("stats_tol", STATS_TOL)
         peaks = spec.get("peaks", CONV_PEAKS)
         labelled = sorted(set(peaks.values()) | set(spec.get("also", ())))
-        for dt_name in ("float32", "bfloat16"):
+        for dt_name in spec.get("dtypes", ("float32", "bfloat16")):
             dt = getattr(torch, dt_name)
             kw = make(dt)
             got = as_tuple(fn(**kw))
             torch.cuda.synchronize()
+            same = (torch.equal(as_tuple(fn(**kw))[0], got[0])
+                    if spec.get("repeat") else True)
             want = as_tuple(plain(**kw))
             out_err = float((got[0].float() - want[0].float()).abs().max())
             out_rel = rel_err(torch, got[0], want[0])
@@ -538,14 +572,16 @@ def check_kernels(torch, cases=None):
             others = "; ".join(
                 f"{label} {bound_of(flops, moved, pk)[0]:.3f} ms"
                 for pk, label in labelled if label != peaks[dt_name][1])
-            ok = (out_rel <= out_tol[dt_name] and xn_rel <= out_tol[dt_name]
+            rep = f"; repeat bit-equal {same}" if spec.get("repeat") else ""
+            ok = (same and out_rel <= out_tol[dt_name]
+                  and xn_rel <= out_tol[dt_name]
                   and st_rel <= stats_tol[dt_name]
                   and got[0].dtype == want[0].dtype and bool(torch.isfinite(
                       got[0].float()).all()))
             print(f"kernel {case} {dt_name}: out max_abs_err {out_err:.3e} "
                   f"(scaled {out_rel:.3e}, tol {out_tol[dt_name]:.3e}), "
                   f"x_new scaled err {xn_rel:.3e}, stats rel err "
-                  f"{st_rel:.3e} (tol {stats_tol[dt_name]:.0e}); "
+                  f"{st_rel:.3e} (tol {stats_tol[dt_name]:.0e}){rep}; "
                   f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
                   f"{library_ms:.3f} ms; {flops / 1e9:.2f} G ops, "
                   f"{moved / 1e6:.1f} MB: bound {bound_ms:.3f} ms by "
@@ -604,9 +640,6 @@ def time_wrapper_parts(torch, cases=None):
     from ctagan_tpu_torch.ops import fused_s8 as s8
     from ctagan_tpu_torch.ops.fused_resblock import k1_weight
 
-    cuda = torch.autograd.DeviceType.CUDA
-    act = [torch.profiler.ProfilerActivity.CPU,
-           torch.profiler.ProfilerActivity.CUDA]
     gen = torch.Generator(device="cuda").manual_seed(4)
 
     def randn(*shape, scale=1.0):
@@ -743,33 +776,84 @@ def time_wrapper_parts(torch, cases=None):
             bound_ms, bound_by = bound_of(flops, q["moved"], peak)
             kernel_ms = cuda_ms(torch, q["kernel"])
             blocks, tile, chunks = q["grid"]
-            reps = 5
-            with torch.profiler.profile(activities=act) as prof:
-                for _ in range(reps):
-                    q["call"]()
-                torch.cuda.synchronize()
-            by_name = {}
-            for e in prof.events():
-                if e.device_type == cuda:
-                    k, us = by_name.get(e.name, (0, 0.0))
-                    by_name[e.name] = (k + 1, us + e.time_range.elapsed_us())
-            device_ms = sum(us for _, us in by_name.values()) / reps / 1e3
-            t0 = time.perf_counter()
-            for _ in range(10):
-                q["call"]()
-            host_ms = (time.perf_counter() - t0) / 10 * 1e3
-            torch.cuda.synchronize()
-            top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
             print(f"{name} {dt_name} {q['shape']}: kernel alone "
                   f"{kernel_ms:.3f} ms (bound {bound_ms:.3f} ms by "
                   f"{bound_by}, {label}; {flops / kernel_ms / 1e9:.1f} T "
                   f"ops/s; {blocks} blocks of {tile}, {blocks / sms:.2f} "
-                  f"waves on {sms} SMs, {chunks} K chunks each); one wrapper "
-                  f"call: device {device_ms:.3f} ms in "
-                  f"{sum(k for k, _ in by_name.values()) // reps} kernels, "
-                  f"host enqueue {host_ms:.3f} ms; largest: "
-                  + "; ".join(f"{kn[:60]} x{k // reps} {us / reps / 1e3:.4f}"
-                              f" ms" for kn, (k, us) in top), flush=True)
+                  f"waves on {sms} SMs, {chunks} K chunks each); "
+                  + one_call(torch, q["call"]), flush=True)
+
+
+def one_call(torch, call, reps=5):
+    """One call's device time by kernel (``torch.profiler`` over ``reps``
+    calls) beside the host's time to enqueue it (10 calls), as text."""
+    cuda = torch.autograd.DeviceType.CUDA
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == cuda:
+            k, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (k + 1, us + e.time_range.elapsed_us())
+    device_ms = sum(us for _, us in by_name.values()) / reps / 1e3
+    t0 = time.perf_counter()
+    for _ in range(10):
+        call()
+    host_ms = (time.perf_counter() - t0) / 10 * 1e3
+    torch.cuda.synchronize()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    return (f"one wrapper call: device {device_ms:.3f} ms in "
+            f"{sum(k for k, _ in by_name.values()) // reps} kernels, host "
+            f"enqueue {host_ms:.3f} ms; largest: "
+            + "; ".join(f"{kn[:60]} x{k // reps} {us / reps / 1e3:.4f} ms"
+                        for kn, (k, us) in top))
+
+
+def time_k6(torch):
+    """K6 at the int8 forward's norm shapes (N=2 in f32 and bf16, the
+    served N=16 in f32) and the layer route's body (N=1 bf16): its route
+    (``k6_plan_for``: group, cluster or chunks, band, active clusters), the
+    kernel alone on a built plan and output (CUDA events), one wrapper
+    call's device time by kernel beside the host's enqueue time, and the
+    bounds of one read and of two reads."""
+    from ctagan_tpu_torch.ops import pallas_kernels as pk
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for shape, act, dts in (((2, 512, 512, 64), "relu", ("float32",
+                                                          "bfloat16")),
+                            ((2, 128, 128, 256), None, ("float32",
+                                                        "bfloat16")),
+                            ((2, 256, 256, 128), "leaky_relu",
+                             ("float32", "bfloat16")),
+                            ((16, 512, 512, 64), "relu", ("float32",)),
+                            ((16, 128, 128, 256), "relu", ("float32",)),
+                            ((1, 128, 128, 256), None, ("bfloat16",))):
+        for dt_name in dts:
+            x = (torch.randn(*shape, generator=gen, device="cuda") * 2.0
+                 + 0.5).to(getattr(torch, dt_name))
+            out = torch.empty_like(x)
+            plan = pk.k6_plan_for(x)
+            active = (pk.k6_active_clusters(x, plan)
+                      if plan.route == "cluster" else "-")
+            kernel_ms = cuda_ms(torch, lambda: pk._k6_launch(
+                x, out, plan, 1e-5, act))
+            one = nbytes(x) / PEAK_BYTES * 1e3
+            blocks = shape[0] * plan.groups(shape[3]) * plan.chunks
+            print(f"K6 {dt_name} N={shape[0]} {shape[1]}x{shape[2]}x"
+                  f"{shape[3]} {act}: route {plan.route} (vec {plan.vec}, "
+                  f"group {plan.group}, cluster {plan.cluster}, band "
+                  f"{plan.band} px, {blocks} blocks of {plan.threads}, smem "
+                  f"{plan.smem} B, active clusters {active}); kernel alone "
+                  f"{kernel_ms:.4f} ms (bound one read {2 * one:.4f} ms, "
+                  f"two reads {3 * one:.4f} ms: {2 * one / kernel_ms:.0%} "
+                  f"of the first); "
+                  + one_call(torch, lambda: pk.instance_norm_pallas(
+                      x, activation=act)), flush=True)
+            del x, out
 
 
 def _counted():
@@ -1147,11 +1231,14 @@ def check_serving(torch, card, quantize=""):
     return counts
 
 
-def check_zero_pad_serving(torch, card):
+def check_zero_pad_serving(torch, card, norm_switch=False):
     """``configs/HdGan_fast.yaml`` (bf16, ``pad_mode: zero``) built by the
     serve entry point's ``build_generator`` (``fused_body`` on) and served:
     the generator's layer route, as JAX's ``chain_ok`` leaves zero pad out of
-    its fused body; no kernel launches."""
+    its fused body; no kernel launches. With ``norm_switch`` JAX's
+    ``USE_PALLAS_INSTANCE_NORM`` is on while it serves: all 23 of the
+    generator's InstanceNorms run K6 (23 launches per forward), and each
+    response is held to the switch-off forward by the same bound."""
     import numpy as np
 
     from ctagan_tpu_torch.__main__ import build_generator
@@ -1173,21 +1260,28 @@ def check_zero_pad_serving(torch, card):
     rng = np.random.default_rng(config.seed)
     slices = [make_ct_slice(synthetic_ct_pixels(rng, config.size))
               for _ in range(ZERO_PAD_REQUESTS)]
-    reset_counts()
-    server, service, port = serve_async(
-        g, size=config.size, max_batch=config.max_batch,
-        quantize=config.serve_quantize,
-        channels=config.input_nc * config.context_slices)
-    try:
-        with concurrent.futures.ThreadPoolExecutor(len(slices)) as ex:
-            replies = list(ex.map(lambda ds: _post(port, dicom_bytes(ds)),
-                                  slices))
-    finally:
-        server.shutdown()
-        server.server_close()
-        service.stop()
-        torch.cuda.synchronize()
+    with pallas_norm_switch(norm_switch):
+        reset_counts()
+        server, service, port = serve_async(
+            g, size=config.size, max_batch=config.max_batch,
+            quantize=config.serve_quantize,
+            channels=config.input_nc * config.context_slices)
+        try:
+            with concurrent.futures.ThreadPoolExecutor(len(slices)) as ex:
+                replies = list(ex.map(
+                    lambda ds: _post(port, dicom_bytes(ds)), slices))
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/healthz", timeout=60) as r:
+                health = json.loads(r.read())
+        finally:
+            server.shutdown()
+            server.server_close()
+            service.stop()
+            torch.cuda.synchronize()
     counts = launch_counts()
+    # + the warm-up forward
+    expect = counts_of(instance_norm_pallas=ZERO_PAD_NORMS * (
+        health["batches_served"] + 1) if norm_switch else 0)
     served = [read_dicom(body) for status, body in replies if status == 200]
     if len(served) != len(slices):
         fail(f"zero pad: {len(slices) - len(served)} requests not answered")
@@ -1204,13 +1298,16 @@ def check_zero_pad_serving(torch, card):
                 fail(f"zero pad: bad response {px.shape}")
             errs.append(float(np.abs(px / 4095.0 * 2.0 - 1.0 - ref11).mean()))
     print(f"serving {config.name} (HdGan_fast.yaml: {config.compute_dtype}, "
-          f"pad_mode {config.pad_mode}) size {config.size}: "
+          f"pad_mode {config.pad_mode}) size {config.size}"
+          f"{', InstanceNorm switch on' if norm_switch else ''}: "
           f"{len(served)} requests answered 200 with valid DICOM through the "
-          f"layer route; mean |error| per slice over [-1, 1] vs the same "
-          f"forward alone largest {max(errs):.4f} (tol "
-          f"{ZERO_PAD_MEAN_TOL:.4f}); launches {counts} [{card}]", flush=True)
-    if counts != counts_of():
-        fail(f"zero pad launched kernels {counts}")
+          f"layer route in {health['batches_served']} batches; mean |error| "
+          f"per slice over [-1, 1] vs the same forward alone"
+          f"{' (switch off)' if norm_switch else ''} largest {max(errs):.4f} "
+          f"(tol {ZERO_PAD_MEAN_TOL:.4f}); launches {counts} (expected "
+          f"{expect}) [{card}]", flush=True)
+    if counts != expect:
+        fail(f"zero pad launched kernels {counts}, expected {expect}")
     if max(errs) > ZERO_PAD_MEAN_TOL:
         fail("zero pad: served pixels disagree with the layer route")
     del g
@@ -1399,9 +1496,12 @@ def main():
             if cases is None or "K5" in cases:
                 check_k5_operands(torch)
             time_wrapper_parts(torch, cases)
+            if cases is None or "K6" in cases:
+                time_k6(torch)
         elif phase == "generator":
             check_generator(torch, card)
             check_zero_pad_serving(torch, card)
+            check_zero_pad_serving(torch, card, norm_switch=True)
         elif phase == "int8":
             check_int8_generator(torch, card)
         elif phase == "grad":

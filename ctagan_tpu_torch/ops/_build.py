@@ -51,8 +51,11 @@ _SIGNATURES = {
     # x, w, scale, b, norm, out, stats, n, h, w, c, cout, in_kind, out_bf16,
     # qmul, stream
     "ctk_conv3x3_reflect_s8": [_P] * 7 + [_I] * 7 + [_F, _P],
-    # x, out, stats, n, h, w, c, act, bf16, eps, stream
-    "ctk_instance_norm": [_P] * 3 + [_I] * 6 + [_F, _P],
+    # x, out, scratch, counters, n, h, w, c, act, bf16, eps, vec, group,
+    # cluster, band, chunks, stream
+    "ctk_instance_norm": [_P] * 4 + [_I] * 6 + [_F] + [_I] * 5 + [_P],
+    # bf16, vec, group, cluster, band, &count
+    "ctk_instance_norm_clusters": [_I] * 5 + [ctypes.POINTER(_I)],
 }
 
 _lock = threading.Lock()

@@ -93,7 +93,7 @@ def breakdown(torch, prof, wall_s, n_fwd):
             parts[part] += e.time_range.elapsed_us()
         elif "k7_wgmma_kernel" in e.name:
             parts["K7"] += e.time_range.elapsed_us()
-        elif "in_stats_kernel" in e.name or "in_norm_kernel" in e.name:
+        elif "inorm::k6_" in e.name:  # csrc/instance_norm.cu
             parts["K6"] += e.time_range.elapsed_us()
     seen = set()
     for e in prof.events():
