@@ -62,9 +62,24 @@ card, ``nvcc`` and no network, and imports nothing of JAX. Phases:
    ``train()`` on ``configs/HdGan.yaml`` with its list paths pointed at a
    seeded 512² corpus: finite losses, G, R and D all updated, 36 K1, 18 K4
    and 18 K5 launches per step; the p50 step time of the kernel route and
-   of the plain route (``fused_body_grad: off``).
+   of the plain route (``fused_body_grad: off``); the kernel route's
+   12 steps end epoch 1, whose checkpoint goes to a temporary ``save_root``;
+9. ``test``, a main path: ``python -m ctagan_tpu_torch --mode test``'s
+   ``test()`` and then ``validate()`` on ``configs/HdGan.yaml`` (full
+   width, seeded weights, TF32 off) over a seeded 512² corpus of 48 slice
+   pairs (val: 8 slices; test: 36 slices of three patients, one of them
+   with SE1 headers at WC 300 / WW 1500), at ``eval_batch`` 1 and 16, on
+   three routes: ``fused_body: true`` (18 K1, 2 K3 and 2 K2 launches per
+   forward), the default config (the training route: 18 K1 per forward)
+   and the plain route (``fused_body_grad: off``, none). Each kernel
+   route's aggregates within 0.01 dB (PSNR, PSNRw) and 1e-4 (the others)
+   of the plain route's; every SE2 file read back (count, layout, one
+   fresh SeriesInstanceUID per patient, pixels within 4 stored units of
+   the plain route's and of a direct plain forward), SE0/SE1 copies
+   byte-equal to their sources; test() and validate() slices/s per route
+   and batch (host wall, after one warm-up forward per route and batch).
 
-The launch counts of the three main paths (each counted from zero) are the
+The launch counts of the four main paths (each counted from zero) are the
 ``launches`` of the kernels line. ``--phases a,b`` runs a subset and stops
 before the result lines; ``--cases K2,K3`` keeps only the kernel phase's
 cases and timing lines of those kernels (and stops there too). Any failure
@@ -169,8 +184,20 @@ WGMMA_KERNELS = {"K1": "k1_wgmma_kernel", "K2": "k2_wgmma_kernel",
 # would be the CUDA-core dot product of its first version
 K7_WGMMA_KERNEL = "k7_wgmma_kernel"
 K7_KINDS = 6
+# the test phase: a 512² corpus of 4 patients of 12 slices; val = 8 of
+# patient 0's slices, test = the other three patients' 36 (patient 2's SE1
+# headers at WC 300 / WW 1500); its kernel routes' aggregates against the
+# plain route's: PSNR and PSNRw in dB, the others absolute (the f32
+# generator routes differ far below GEN_TOL, which moves a fake pixel
+# across a window level or a 0.3 mask boundary only where it sits on one)
+EVAL_SIZE, EVAL_PATIENTS, EVAL_SLICES = 512, 4, 12  # HdGan.yaml's size
+VAL_SLICES = 8
+TEST_SLICES = (EVAL_PATIENTS - 1) * EVAL_SLICES
+EVAL_BATCHES = (1, 16)
+TEST_PSNR_TOL = 0.01
+TEST_TOL = 1e-4
 ALL_PHASES = ("kernels", "generator", "int8", "grad", "serving",
-              "int8_serving", "training")
+              "int8_serving", "training", "test")
 
 
 def fail(msg):
@@ -1314,14 +1341,20 @@ def check_zero_pad_serving(torch, card, norm_switch=False):
     torch.cuda.empty_cache()
 
 
-def _smoke_config(tmp, train_list, extra=""):
-    """configs/HdGan.yaml with its list paths pointed at ``train_list``."""
+def _smoke_config(tmp, lists, extra=""):
+    """configs/HdGan.yaml with its list paths pointed at ``lists`` (one path
+    for all three lists, or a dict by list name) and its checkpoints under
+    ``tmp``, then ``extra``."""
+    if isinstance(lists, str):
+        lists = dict.fromkeys(("train", "val", "test"), lists)
     with open(os.path.join(REPO, "configs", "HdGan.yaml")) as f:
         text = f.read()
-    text += "".join(f"\n{k}_list: '{train_list}'"
-                    for k in ("train", "val", "test")) + "\n" + extra
-    path = os.path.join(tmp, f"HdGan_smoke{len(extra)}.yaml")
-    with open(path, "w") as f:
+    text += "".join(f"\n{k}_list: '{lists[k]}'"
+                    for k in ("train", "val", "test"))
+    text += f"\nsave_root: '{tmp}/model/'\n" + extra
+    fd, path = tempfile.mkstemp(suffix=".yaml", prefix="HdGan_smoke",
+                                dir=tmp)
+    with os.fdopen(fd, "w") as f:
         f.write(text)
     return path
 
@@ -1387,6 +1420,197 @@ def check_training(torch, card):
     return counts
 
 
+def _eval_corpus(tmp):
+    """The test phase's corpus: val and test list paths, the test slices."""
+    from ctagan_tpu_torch.data import dicom
+    from ctagan_tpu_torch.data.fixtures import make_corpus
+
+    lists = make_corpus(tmp, n_patients=EVAL_PATIENTS,
+                        slices_per_patient=EVAL_SLICES, size=EVAL_SIZE, seed=0,
+                        lists=("train",))
+    with open(lists["train"]) as f:
+        paths = [ln.strip() for ln in f if ln.strip()]
+    for p in paths:
+        if f"patient2{os.sep}" in p:  # per-slice windows in test()
+            se1 = p.replace("SE0", "SE1")
+            ds = dicom.read_dicom(se1)
+            ds.set_str(dicom.TAG_WINDOW_CENTER, "300", b"DS")
+            ds.set_str(dicom.TAG_WINDOW_WIDTH, "1500", b"DS")
+            dicom.write_dicom(ds, se1)
+    test = [p for p in paths if f"patient0{os.sep}" not in p]
+    for name, chunk in (("val", paths[:VAL_SLICES]), ("test", test)):
+        lists[name] = os.path.join(tmp, f"{name}.txt")
+        with open(lists[name], "w") as f:
+            f.write("\n".join(chunk) + "\n")
+    return lists, test
+
+
+def _read_se2_tree(root, test_paths):
+    """Every file of one test() writeback: checks the layout and the copies,
+    returns {slice name within its patient: SE2 stored pixels}."""
+    import numpy as np
+
+    from ctagan_tpu_torch.data import dicom
+
+    patients = sorted({p.split("SE0")[0] for p in test_paths})
+    se2, uids = {}, set()
+    for idx, src_dir in enumerate(patients, 1):
+        names = sorted(os.path.basename(p) for p in test_paths
+                       if p.startswith(src_dir))
+        src_uid = dicom.read_dicom(
+            os.path.join(src_dir, "SE1", names[0])).series_instance_uid
+        for se, st in (("SE0", "ST0"), ("SE1", "ST0"), ("SE2", "ST1")):
+            d = os.path.join(root, st, str(idx), se)
+            if sorted(os.listdir(d)) != names:
+                fail(f"test: {d} holds {sorted(os.listdir(d))}, expected "
+                     f"{names}")
+        for name in names:
+            for se in ("SE0", "SE1"):
+                with open(os.path.join(root, "ST0", str(idx), se, name),
+                          "rb") as f, open(os.path.join(src_dir, se, name),
+                                           "rb") as g:
+                    if f.read() != g.read():
+                        fail(f"test: the {se} copy of {src_dir}{name} "
+                             "differs from its source")
+            ds = dicom.read_dicom(os.path.join(root, "ST1", str(idx), "SE2",
+                                               name))
+            px = ds.pixel_array().astype(np.int32)
+            uid = ds.series_instance_uid
+            if px.shape != (EVAL_SIZE,) * 2 or uid == src_uid:
+                fail(f"test: SE2 {idx}/{name}: shape {px.shape}, series "
+                     f"UID {uid} (source {src_uid})")
+            se2[(idx, name)] = px
+            uids.add((idx, uid))
+    if len(se2) != len(test_paths) or len(uids) != len(patients) or len(
+            {u for _, u in uids}) != len(patients):
+        fail(f"test: {len(se2)} SE2 files of {len(test_paths)}, series "
+             f"UIDs {sorted(uids)}")
+    return se2
+
+
+def _direct_plain_pixels(torch, trainer, src):
+    """One test slice through the plain layer route outside test(),
+    de-normalized as the writeback stores it."""
+    import numpy as np
+
+    from ctagan_tpu_torch.data import dicom
+    from ctagan_tpu_torch.ops.windowing import dual_window
+
+    raw = dicom.read_dicom(src).pixel_array()
+    x = dual_window(raw)[1][None, :, :, None].to(trainer.device)
+    with torch.no_grad():
+        y = trainer.g_model(x, fused_body=False)[0, :, :, 0].float()
+    return ((y + 1.0) * 0.5 * 4095.0).to(torch.int16).cpu().numpy().astype(
+        np.int32)
+
+
+def _warm_up_routes(torch, dev):
+    """Each eval route's first forwards at each batch size, outside the
+    timed runs (kernel module loads, cuDNN's per-shape set-up)."""
+    from ctagan_tpu_torch.models import Generator
+
+    g = Generator(1, 1, fused_body=False, fused_body_grad="auto")
+    g = g.reset_parameters(0).to(dev)
+    with torch.no_grad():
+        for k in EVAL_BATCHES:
+            x = torch.zeros(k, EVAL_SIZE, EVAL_SIZE, 1, device=dev)
+            for grad_route in ("auto", False):
+                g.fused_body_grad = grad_route
+                g(x)
+            g(x, fused_body=True)
+    torch.cuda.synchronize()
+    del g
+    torch.cuda.empty_cache()
+
+
+def check_test(torch, card):
+    """Phase 9, a main path: test() and validate() through the test entry
+    point on three routes at eval_batch 1 and 16."""
+    import math
+
+    import numpy as np
+
+    from ctagan_tpu_torch.__main__ import test as run_test
+    from ctagan_tpu_torch.utils.config import load_config
+
+    dev = torch.device("cuda")
+    routes = {
+        "fused_body": ("fused_body: true\n", PER_FORWARD),
+        "default": ("", counts_of(conv3x3_reflect_stats=18)),
+        "plain": ("fused_body: false\nfused_body_grad: off\n", counts_of()),
+    }
+    total = counts_of()
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        lists, test_paths = _eval_corpus(tmp)
+        _warm_up_routes(torch, dev)
+        for route, (extra, per_forward) in routes.items():
+            for k in EVAL_BATCHES:
+                img = os.path.join(tmp, f"img_{route}_{k}")
+                config = load_config(_smoke_config(
+                    tmp, lists, extra + f"eval_batch: {k}\n"
+                    f"image_save: '{img}/'\n"))
+                reset_counts()
+                trainer, agg, secs = run_test(config, dev)
+                torch.cuda.synchronize()
+                t_counts = launch_counts()
+                reset_counts()
+                t0 = time.perf_counter()
+                val = trainer.validate()
+                torch.cuda.synchronize()
+                v_secs = time.perf_counter() - t0
+                v_counts = launch_counts()
+                for what, counts, n in (("test()", t_counts, TEST_SLICES),
+                                        ("validate()", v_counts, VAL_SLICES)):
+                    want = {name: c * math.ceil(n / k)
+                            for name, c in per_forward.items()}
+                    if counts != want:
+                        fail(f"test: {route} eval_batch {k} {what} launches "
+                             f"{counts}, expected {want}")
+                    for name, c in counts.items():
+                        total[name] += c
+                se2 = _read_se2_tree(img, test_paths)
+                if route == "plain" and k == 1:
+                    src = test_paths[0]
+                    direct = _direct_plain_pixels(torch, trainer, src)
+                    got = se2[(1, os.path.basename(src))]
+                    d = int(np.abs(got - direct).max())
+                    if d > PIXEL_TOL:
+                        fail(f"test: SE2 of {src} is {d} stored units from "
+                             "a direct plain forward")
+                runs[(route, k)] = (agg, val, se2)
+                line = (f"test {route} route, eval_batch {k}, {EVAL_SIZE}^2 "
+                        f"f32 (cuDNN TF32 off): test() {TEST_SLICES} slices "
+                        f"in {secs:.3f} s = {TEST_SLICES / secs:.2f} slices/s, "
+                        f"validate() {VAL_SLICES} slices in {v_secs:.3f} s = "
+                        f"{VAL_SLICES / v_secs:.2f} slices/s; PSNRw "
+                        f"{agg['PSNRw']:.4f} PSNR {agg['PSNR']:.4f} SSIM "
+                        f"{agg['SSIM']:.6f}, val PSNR {val[0]:.4f} SSIM "
+                        f"{val[1]:.6f} [{card}]")
+                print(line, flush=True)
+                del trainer
+                torch.cuda.empty_cache()
+    for k in EVAL_BATCHES:
+        p_agg, p_val, p_se2 = runs[("plain", k)]
+        for route in ("fused_body", "default"):
+            agg, val, se2 = runs[(route, k)]
+            errs = {key: abs(agg[key] - p_agg[key]) for key in p_agg}
+            errs["val PSNR"] = abs(val[0] - p_val[0])
+            errs["val SSIM"] = abs(val[1] - p_val[1])
+            px = max(int(np.abs(se2[n] - p_se2[n]).max()) for n in p_se2)
+            print(f"test {route} vs plain route, eval_batch {k}: "
+                  + ", ".join(f"{key} {v:.3e}" for key, v in errs.items())
+                  + f" (tol {TEST_PSNR_TOL} dB PSNR, {TEST_TOL:.0e} the "
+                  f"others); SE2 max |diff| {px} stored units (tol "
+                  f"{PIXEL_TOL:.0f})", flush=True)
+            bad = [key for key, v in errs.items()
+                   if v > (TEST_PSNR_TOL if "PSNR" in key else TEST_TOL)]
+            if bad or px > PIXEL_TOL:
+                fail(f"test: {route} route at eval_batch {k} disagrees with "
+                     f"the plain route on {bad or 'SE2 pixels'}")
+    return total
+
+
 def check_tensor_cores(lib_path):
     """K1's, K2's, K3's, K4's and K5's kernels (each instantiation, f32 and
     bf16 I/O) hold HGMMA (wgmma) instructions in the built library's SASS,
@@ -1447,7 +1671,8 @@ SOURCES = {
 MAIN_PATHS = {"serving": check_serving,
               "int8_serving": lambda torch, card: check_serving(
                   torch, card, quantize="int8"),
-              "training": check_training}
+              "training": check_training,
+              "test": check_test}
 
 
 def main():

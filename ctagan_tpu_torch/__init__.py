@@ -12,11 +12,12 @@ package.
 - ``ctagan_tpu_torch.models``  — ``Generator``, ``RegNet``,
   ``Discriminator``, their NHWC layers and the JAX-param converters.
 - ``ctagan_tpu_torch.ops``     — the fused conv kernels K1-K3, the residual
-  body's backward kernels K4-K5, and the training step's plain ops (warp,
-  augmentation, losses, resize, device windowing).
+  body's backward kernels K4-K5, and the plain ops of the training step and
+  the eval path (warp, augmentation, losses, resize, windowing, metrics).
 - ``ctagan_tpu_torch.serving`` — the HTTP synthesis service.
-- ``ctagan_tpu_torch.train``   — the HD stage-1 step and trainer.
-- ``ctagan_tpu_torch.utils``   — the config reader.
+- ``ctagan_tpu_torch.train``   — the HD stage-1 step and trainer (train,
+  validate, checkpoints, resume, test() with the SE2 DICOM writeback).
+- ``ctagan_tpu_torch.utils``   — the config reader and the checkpoints.
 """
 
 __version__ = "0.1.0"

@@ -4,6 +4,8 @@
         [--generator-ckpt G.pth] [--device cuda|cpu]
     python -m ctagan_tpu_torch --config configs/HdGan.yaml --mode train \
         [--max-steps N] [--device cuda|cpu]
+    python -m ctagan_tpu_torch --config configs/HdGan.yaml --mode test \
+        [--generator-ckpt G.pth|G.pt] [--no-write] [--device cuda|cpu]
 
 ``serve`` serves the generator over HTTP (``serving/server.py``), like the
 ``--mode serve`` branch of the JAX package's ``train.py``. The checkpoint is
@@ -13,16 +15,27 @@ JAX checkpoint. Without one, the generator serves weights drawn from the
 config's ``seed``.
 
 ``train`` runs HD stage 1 (``train/trainers.py::HdTrainerStage1``) from
-seeded weights on the config's ``train_list``, printing the losses every
-``log_every`` steps and a step-time summary at the end.
+seeded weights on the config's ``train_list`` (or from the newest
+checkpoint in ``save_root`` with ``resume: true``), printing the losses
+every ``log_every`` steps, validating every ``val_every`` epochs and saving
+a checkpoint after every epoch, and a step-time summary at the end.
 
-Both run on the CUDA card unless ``--device cpu`` is given; with no card
-and no ``--device`` they stop with an error.
+``test`` runs the HD stage-1 trainer's ``test()`` on the config's
+``test_list``: the generator from ``--generator-ckpt`` (a reference-format
+``.pth`` or a port ``.pt`` checkpoint), else ``generator_ckpt``, else the
+newest checkpoint in ``save_root``, else seeded weights. It prints the
+masked window and full-range aggregates (MAE, PSNR, SSIM, UQI) as the
+reference does and writes the synthetic SE2 series under ``image_save``
+(``--no-write`` skips the writeback).
+
+All three run on the CUDA card unless ``--device cpu`` is given; with no
+card and no ``--device`` they stop with an error.
 """
 from __future__ import annotations
 
 import argparse
 import sys
+import time
 
 import torch
 
@@ -80,23 +93,50 @@ def train(config: Config, device: torch.device,
     return trainer
 
 
+def test(config: Config, device: torch.device, write_dicom: bool = True):
+    """Run HD stage 1's ``test()`` on ``config``; returns the trainer, the
+    aggregate metrics and the seconds ``test()`` took."""
+    from ctagan_tpu_torch.train.trainers import HdTrainerStage1
+
+    trainer = HdTrainerStage1(config, device)
+    route = ("serving route (fused_body)" if config.fused_body else
+             f"training route (fused_body_grad {config.fused_body_grad})")
+    print(f"testing {config.name} (HD stage 1) at {config.size}^2 on "
+          f"{device}, {route}, eval_batch {config.eval_batch}", flush=True)
+    t0 = time.perf_counter()
+    agg = trainer.test(write_dicom=write_dicom)
+    secs = time.perf_counter() - t0
+    n = len(trainer.test_dataset)
+    print(f"test: {n} slices in {secs:.2f} s ({n / secs:.2f} slices/s)"
+          + (f"; SE2 series under {config.image_save}" if write_dicom
+             else ""), flush=True)
+    return trainer, agg, secs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m ctagan_tpu_torch")
     ap.add_argument("--config", required=True)
-    ap.add_argument("--mode", choices=["serve", "train"], default="serve")
+    ap.add_argument("--mode", choices=["serve", "train", "test"],
+                    default="serve")
     ap.add_argument("--generator-ckpt", default="",
-                    help="reference-format .pth (default: config "
-                         "generator_ckpt, else seeded weights)")
+                    help="reference-format .pth, or for test also a port "
+                         ".pt checkpoint (default: config generator_ckpt)")
     ap.add_argument("--device", default=None,
                     help="cuda, cuda:N or cpu (default: cuda; without a "
                          "card, only an explicit cpu runs)")
     ap.add_argument("--max-steps", type=int, default=None,
                     help="train: stop after this many steps")
+    ap.add_argument("--no-write", action="store_true",
+                    help="test: skip the SE2 DICOM writeback")
     opts = ap.parse_args(argv)
     config = load_config(opts.config)
     device = _device(opts.device)
     if opts.mode == "train":
         train(config, device, opts.max_steps)
+        return 0
+    if opts.mode == "test":
+        config.generator_ckpt = opts.generator_ckpt or config.generator_ckpt
+        test(config, device, write_dicom=not opts.no_write)
         return 0
     ckpt = opts.generator_ckpt or config.generator_ckpt
     g = build_generator(config, device, ckpt)

@@ -32,8 +32,7 @@ def _pair(paths: Sequence[str]) -> List[str]:
 
 
 def _stored_pixels(path: str) -> np.ndarray:
-    with open(path, "rb") as f:
-        return read_dicom(f.read()).pixel_array()
+    return read_dicom(path).pixel_array()
 
 
 class DualWindowDataset:

@@ -1,6 +1,7 @@
-"""DICOM codec of the serving path (``ctagan_tpu/data/dicom.py``).
+"""DICOM codec of the port (``ctagan_tpu/data/dicom.py``).
 
-The subset of DICOM the synthesis service touches, in numpy and the standard
+The subset of DICOM the synthesis service, the datasets and the test-time
+writeback touch, in numpy and the standard
 library: part-10 files (128-byte preamble + ``DICM``), the file meta group,
 and the two uncompressed little-endian transfer syntaxes (implicit VR
 1.2.840.10008.1.2, explicit VR 1.2.840.10008.1.2.1). Every top-level element
@@ -15,7 +16,7 @@ import os
 import struct
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
@@ -139,6 +140,18 @@ class DicomFile:
     def set_us(self, tag, value: int):
         self.set_bytes(tag, struct.pack("<H", value), b"US")
 
+    def get_ds(self, tag) -> Optional[List[float]]:
+        """Decimal String, possibly multi-valued ('50\\400')."""
+        s = self.get_str(tag)
+        if not s:
+            return None
+        return [float(p) for p in s.split("\\") if p.strip()]
+
+    def get_ds1(self, tag, default: Optional[float] = None
+                ) -> Optional[float]:
+        v = self.get_ds(tag)
+        return v[0] if v else default
+
     @property
     def rows(self) -> int:
         return self.get_us(TAG_ROWS) or 0
@@ -154,6 +167,14 @@ class DicomFile:
     @property
     def pixel_representation(self) -> int:
         return self.get_us(TAG_PIXEL_REP) or 0
+
+    @property
+    def window_center(self) -> Optional[float]:
+        return self.get_ds1(TAG_WINDOW_CENTER)
+
+    @property
+    def window_width(self) -> Optional[float]:
+        return self.get_ds1(TAG_WINDOW_WIDTH)
 
     @property
     def series_instance_uid(self) -> str:
@@ -249,9 +270,13 @@ def _parse_elements(buf: bytes, pos: int, explicit: bool,
     return out, pos
 
 
-def read_dicom(data: bytes) -> DicomFile:
-    """Parse a part-10 DICOM file held in memory."""
-    buf = bytes(data)
+def read_dicom(path_or_bytes: Union[str, bytes, os.PathLike]) -> DicomFile:
+    """Parse a part-10 DICOM file, from its path or its bytes."""
+    if isinstance(path_or_bytes, (bytes, bytearray, memoryview)):
+        buf = bytes(path_or_bytes)
+    else:
+        with open(path_or_bytes, "rb") as f:
+            buf = f.read()
     pos = 132 if len(buf) > 132 and buf[128:132] == b"DICM" else 0
     ds = DicomFile()
     # the file meta group (0002) is always explicit VR little endian

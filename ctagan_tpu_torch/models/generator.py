@@ -100,9 +100,12 @@ class Generator(nn.Module):
                 m.reset_parameters(gen)
         return self
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (N, H, W, input_nc) -> (N, H, W, output_nc) in [-1, 1]."""
-        if self.fused_body:
+    def forward(self, x: torch.Tensor,
+                fused_body: Optional[bool] = None) -> torch.Tensor:
+        """x: (N, H, W, input_nc) -> (N, H, W, output_nc) in [-1, 1].
+        ``fused_body`` picks the route for this call (default: the
+        module's), on the same parameters: the trainer's eval forward."""
+        if self.fused_body if fused_body is None else fused_body:
             if self.pad_mode == "zero":
                 # the model's layer route, on every device: JAX's chain_ok
                 # leaves zero pad out of its fused body in the same way (the

@@ -1,27 +1,61 @@
 """The HD stage-1 trainer of the port (``ctagan_tpu/train/trainers.py::
-HdTrainerStage1`` on a minimal ``TrainerBase``).
+HdTrainerStage1`` on ``TrainerBase``).
 
 The epoch loop redraws the oversampled ``DualWindowDataset`` every epoch,
 feeds raw uint16 pixels and windows them on the device
 (``device_windowing``), and runs :func:`~ctagan_tpu_torch.train.steps.
 reg_train_step`. The learning-rate schedule keeps the reference's
 accelerating decay (the decrement is recomputed from the already-decayed lr)
-and the HD family's frozen D lr. Not ported yet (ROADMAP M6): validation,
-checkpoints, resume, the watchdog, live panels and the collapse guard.
+and the HD family's frozen D lr. After every epoch it validates (masked
+PSNR and SSIM, every ``val_every`` epochs) and saves a checkpoint, stamped
+with the metrics when it validated; it also saves every
+``checkpoint_every_iters`` steps and, on an exception, before re-raising.
+``resume`` starts from the newest checkpoint, and the collapse guard
+restores the best stamped one when validation falls ``collapse_drop_db``
+below it. ``test()`` scores the test list with the eight masked metrics and
+writes the synthetic SE2 series (``train/evaluation.py``).
+
+Validation and test run the generator's serving route (K3, K1, K2) with
+``fused_body``, else the training model's route (on CUDA with
+``fused_body_grad: auto``, the body through K1), on the same parameters.
+Not ported yet (ROADMAP M6): JAX's msgpack checkpoints, the watchdog,
+``--supervise``, live panels and the dashboard.
 """
 from __future__ import annotations
 
+import functools
+import os
+import sys
 import time
-from typing import Dict, List, Optional
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ctagan_tpu_torch.data.datasets import DualWindowDataset
+from ctagan_tpu_torch.data.dicom import read_dicom
 from ctagan_tpu_torch.data.loader import PrefetchLoader
 from ctagan_tpu_torch.models import Discriminator, Generator, RegNet
-from ctagan_tpu_torch.ops.windowing import dual_window_from_stored
+from ctagan_tpu_torch.ops.metrics import masked_psnr, ssim
+from ctagan_tpu_torch.ops.windowing import (
+    dual_window_from_stored,
+    fullrange_from_stored,
+)
 from ctagan_tpu_torch.train import steps
+from ctagan_tpu_torch.train.evaluation import (
+    METRIC_KEYS,
+    DicomWriteback,
+    _metric_suite,
+    aggregate,
+)
+from ctagan_tpu_torch.utils.checkpoint import (
+    checkpoint_name,
+    find_checkpoints,
+    find_latest_checkpoint,
+    load_checkpoint,
+    save_checkpoint,
+)
 from ctagan_tpu_torch.utils.config import Config
 
 
@@ -79,6 +113,9 @@ class TrainerBase:
         self.lr = float(config.lr)
         self.lr_d = float(config.lrd)
         self.start_epoch = int(config.epoch)
+        self._current_epoch = self.start_epoch
+        # best validation of this run: (psnr, stamped checkpoint name)
+        self._best_val: Optional[Tuple[float, str]] = None
         self.steps_done = 0
         # every step's losses (read after the step timer's synchronize)
         self.loss_history: List[Dict[str, float]] = []
@@ -91,6 +128,8 @@ class TrainerBase:
         self._build_models()
         self.state = self._init_state()
         self.timer = StepTimer(self.device)
+        if config.resume:
+            self._try_resume()
 
     def _build_models(self):
         raise NotImplementedError
@@ -131,19 +170,17 @@ class TrainerBase:
                 f"{cfg.batchSize} (drop_last); grow the training list")
         return loader
 
+    def _to_device(self, v: np.ndarray) -> torch.Tensor:
+        if v.dtype == np.uint16:
+            # two bytes a pixel over the link: int16 bits, unsigned again on
+            # the device
+            t = torch.from_numpy(v.view(np.int16)).to(self.device)
+            return t.to(torch.int32) & 0xFFFF
+        return torch.from_numpy(v).to(self.device)
+
     def _device_batch(self, batch) -> Dict[str, torch.Tensor]:
-        out = {}
-        for k, v in batch.items():
-            if k.endswith("_path"):
-                continue
-            if v.dtype == np.uint16:
-                # two bytes a pixel over the link: int16 bits, unsigned again
-                # on the device
-                t = torch.from_numpy(v.view(np.int16)).to(self.device)
-                v = t.to(torch.int32) & 0xFFFF
-            else:
-                v = torch.from_numpy(v).to(self.device)
-            out[k] = v
+        out = {k: self._to_device(v) for k, v in batch.items()
+               if not k.endswith("_path")}
         return self._window_device_batch(out)
 
     def _window_device_batch(self, db):
@@ -156,19 +193,122 @@ class TrainerBase:
         b1, b2 = dual_window_from_stored(db["B"])
         return {"A1": a1, "A2": a2, "B1": b1, "B2": b2}
 
+    # -- checkpoints --------------------------------------------------------
+    @property
+    def ckpt_prefix(self) -> str:
+        return f"{self.config.name}_{self.family}"
+
+    def _checkpoint_state(self) -> Dict[str, object]:
+        st = self.state
+        return {"g": st.g_model.state_dict(), "r": st.r_model.state_dict(),
+                "d": st.d_model.state_dict(), "g_opt": st.g_opt.state_dict(),
+                "r_opt": st.r_opt.state_dict(),
+                "d_opt": st.d_opt.state_dict(), "rng": st.gen.get_state()}
+
+    def _load_state(self, state) -> None:
+        st = self.state
+        for name in ("g", "r", "d"):
+            getattr(st, f"{name}_model").load_state_dict(state[name])
+            getattr(st, f"{name}_opt").load_state_dict(state[f"{name}_opt"])
+        st.gen.set_state(state["rng"])
+
+    def _save(self, epoch: int, psnr: Optional[float] = None,
+              ssim_v: Optional[float] = None) -> str:
+        payload = {"state": self._checkpoint_state(), "epoch": epoch,
+                   "lr": self.lr, "lr_d": self.lr_d}
+        return save_checkpoint(self.config.save_root, self.ckpt_prefix, epoch,
+                               payload, psnr, ssim_v)
+
+    def _try_resume(self) -> None:
+        """Restore the newest readable checkpoint; an unreadable one (torn by
+        a crash mid-write, or a dying disk) is renamed ``.corrupt`` and the
+        next newest is tried."""
+        for path, _ in find_checkpoints(self.config.save_root,
+                                        self.ckpt_prefix):
+            try:
+                payload = load_checkpoint(path)
+            except Exception as e:  # unreadable: keep it aside, go on
+                quarantined = path + ".corrupt"
+                try:
+                    os.replace(path, quarantined)
+                except OSError:
+                    quarantined = path
+                print(f"[resume] checkpoint {path} unreadable ({e}) — "
+                      f"quarantined as {quarantined}, trying the next newest",
+                      file=sys.stderr, flush=True)
+                continue
+            self._load_state(payload["state"])
+            self.start_epoch = self._current_epoch = int(payload["epoch"])
+            self.lr = float(payload["lr"])
+            self.lr_d = float(payload["lr_d"])
+            if not self.quiet:
+                print(f"resumed from {path} (epoch {self.start_epoch})")
+            return
+
+    def load_generator(self, path: str) -> None:
+        """G's weights from a reference-format ``.pth`` state dict or from a
+        port checkpoint (told apart by content)."""
+        obj = load_checkpoint(path)
+        if isinstance(obj, dict) and "state" in obj and "epoch" in obj:
+            obj = obj["state"]["g"]
+        self.g_model.load_state_dict(obj, strict=True)
+
+    def _collapse_guard(self, epoch: int, psnr_v: float, ssim_v: float
+                        ) -> bool:
+        """GAN collapse guard (config ``collapse_guard``, on by default):
+        when a validation lands ``collapse_drop_db`` below the best of this
+        run, G, R, D and their optimizers restore from the best stamped
+        checkpoint and the D lr is multiplied by ``collapse_lrd_backoff``.
+        Returns True when it fired."""
+        cfg = self.config
+        name = checkpoint_name(self.ckpt_prefix, epoch, psnr_v, ssim_v)
+        if self._best_val is None or psnr_v > self._best_val[0]:
+            self._best_val = (psnr_v, name)
+            return False
+        best_psnr, best_name = self._best_val
+        if not cfg.collapse_guard or best_psnr - psnr_v < cfg.collapse_drop_db:
+            return False
+        best_path = os.path.join(cfg.save_root, best_name)
+        if not os.path.exists(best_path):
+            return False  # the stamped best was pruned or moved
+        self._load_state(load_checkpoint(best_path)["state"])
+        self.lr_d = float(self.lr_d) * float(cfg.collapse_lrd_backoff)
+        if not self.quiet:
+            print(f"[collapse guard] val PSNR {psnr_v:.2f} fell "
+                  f"{best_psnr - psnr_v:.2f} dB below best {best_psnr:.2f} — "
+                  f"restored {best_name}, D lr backed off to {self.lr_d:g}",
+                  flush=True)
+        return True
+
     # -- loop ---------------------------------------------------------------
     def train(self, max_steps: Optional[int] = None) -> "TrainerBase":
+        """Epochs from ``start_epoch + 1``. ``max_steps`` stops the run
+        after that many steps; an epoch it cuts short ends without its
+        validation and checkpoint. On an exception (or an interrupt) an
+        emergency checkpoint is saved and the exception re-raised."""
+        try:
+            self._train_epochs(max_steps)
+        except (KeyboardInterrupt, Exception):
+            self._save(self._current_epoch)
+            if not self.quiet:
+                print(f"\nemergency checkpoint saved at epoch "
+                      f"{self._current_epoch}", flush=True)
+            raise
+        return self
+
+    def _train_epochs(self, max_steps: Optional[int]) -> None:
         cfg = self.config
         for epoch in range(self.start_epoch + 1, cfg.total_epochs + 1):
             if max_steps is not None and self.steps_done >= max_steps:
-                break
+                return
+            self._current_epoch = epoch
             if epoch > cfg.n_epochs:
                 self.update_learning_rate()
             loader = self._train_loader()  # per-epoch oversampling redraw
             n_batches = len(loader)
             for i, batch in enumerate(loader):
                 if max_steps is not None and self.steps_done >= max_steps:
-                    break
+                    return
                 losses = self._step(self._device_batch(batch), self.lr,
                                     self.lr_d)
                 self.steps_done += 1
@@ -182,7 +322,170 @@ class TrainerBase:
                     print(f"Epoch {epoch:03d}/{cfg.total_epochs:03d} "
                           f"[{i + 1:04d}/{n_batches:04d}] -- {shown}",
                           flush=True)
-        return self
+                if (i + 1) % cfg.checkpoint_every_iters == 0:
+                    self._save(epoch)
+            if epoch % cfg.val_every == 0:
+                psnr_v, ssim_v = self.validate()
+                if not self.quiet:
+                    print(f"PSNR: {psnr_v}\nSSIM: {ssim_v}", flush=True)
+                self._save(epoch, psnr_v, ssim_v)
+                self._collapse_guard(epoch, psnr_v, ssim_v)
+            else:
+                self._save(epoch)
+
+    # -- evaluation -----------------------------------------------------------
+    # the eval datasets are built at first use: a run that never validates
+    # needs no val or test list
+    @functools.cached_property
+    def val_dataset(self) -> DualWindowDataset:
+        return DualWindowDataset(self.config.val_list, size=self.config.size,
+                                 raw_feed=self.config.device_windowing)
+
+    @functools.cached_property
+    def test_dataset(self) -> DualWindowDataset:
+        return DualWindowDataset(self.config.test_list, size=self.config.size,
+                                 raw_feed=self.config.device_windowing)
+
+    @staticmethod
+    def _val_pairs(batch):
+        """The full-range pair: the host's views, or raw stored pixels."""
+        if "A2" in batch:
+            return batch["A2"], batch["B2"]
+        return batch["A"], batch["B"]
+
+    def _eval_put(self, x) -> torch.Tensor:
+        return self._to_device(np.asarray(x))
+
+    @staticmethod
+    def _eval_input(x: torch.Tensor) -> torch.Tensor:
+        """Raw stored pixels -> full range on the device; floats as they
+        are."""
+        return x if x.is_floating_point() else fullrange_from_stored(x)
+
+    def _eval_pair(self, a, b):
+        """G's (N, H, W) f32 fake and the (N, H, W) real, by the eval route:
+        the serving route with ``fused_body``, else the training model's."""
+        a, b = self._eval_input(a), self._eval_input(b)
+        fake = self.g_model(a, fused_body=self.config.fused_body)
+        return fake[..., 0].float(), b[..., 0].float()
+
+    @torch.no_grad()
+    def _val_step(self, a, b):
+        fb, rb = self._eval_pair(a, b)
+        return masked_psnr(fb, rb), ssim(fb, rb)
+
+    @torch.no_grad()
+    def _test_step(self, a, b, wc, ww):
+        """G, the (8, N) metric matrix and the fakes as stored int16 values
+        (de-normalized on the device; the cast truncates)."""
+        fb, rb = self._eval_pair(a, b)
+        mat = _metric_suite(fb, rb, wc, ww)
+        stored = ((fb + 1.0) * 0.5 * 4095.0).to(torch.int16)
+        return stored, mat
+
+    def validate(self) -> Tuple[float, float]:
+        """Mean masked PSNR and SSIM over the val list. Every batch's values
+        stay queued on the device and are pulled together; the means are
+        summed on the host in slice order."""
+        k = max(1, int(self.config.eval_batch))
+        loader = PrefetchLoader(self.val_dataset, batch_size=k,
+                                num_threads=self.config.n_cpu)
+        psnr_sum = ssim_sum = 0.0
+        num = 0
+        pending: List[Tuple[torch.Tensor, torch.Tensor]] = []
+
+        def drain():
+            nonlocal psnr_sum, ssim_sum, num
+            if not pending:
+                return
+            ps = torch.cat([p for p, _ in pending]).cpu().numpy()
+            ss = torch.cat([s for _, s in pending]).cpu().numpy()
+            pending.clear()
+            for p_i, s_i in zip(ps, ss):
+                psnr_sum += float(p_i)
+                ssim_sum += float(s_i)
+                num += 1
+
+        for batch in loader:
+            a, b = self._val_pairs(batch)
+            pending.append(self._val_step(self._eval_put(a),
+                                          self._eval_put(b)))
+            if len(pending) > 256:  # bound the device memory in flight
+                drain()
+        drain()
+        if num == 0:
+            return 0.0, 0.0
+        return psnr_sum / num, ssim_sum / num
+
+    def test(self, write_dicom: bool = True) -> Dict[str, float]:
+        """Score the test list (``generator_ckpt``, else the newest
+        checkpoint unless ``resume``) and write the SE2 series. The SE1
+        header windows are read ahead by a thread pool; one writer thread
+        pulls the stored slices and keeps :class:`DicomWriteback`'s order;
+        the metric matrices are pulled once at the end."""
+        cfg = self.config
+        if cfg.generator_ckpt:
+            self.load_generator(cfg.generator_ckpt)
+        elif cfg.resume is False:
+            found = find_latest_checkpoint(cfg.save_root, self.ckpt_prefix)
+            if found:
+                self.load_generator(found[0])
+        k = max(1, int(cfg.eval_batch))
+        loader = PrefetchLoader(self.test_dataset, batch_size=k,
+                                num_threads=cfg.n_cpu)
+        writeback = DicomWriteback(cfg.image_save) if write_dicom else None
+        mats: List[torch.Tensor] = []
+        with ThreadPoolExecutor(max(1, cfg.n_cpu)) as pool, \
+                ThreadPoolExecutor(1) as writer:
+            windows = {p: pool.submit(_se1_window, p)
+                       for p in self.test_dataset.files_a}
+            written = []
+            for batch in loader:
+                a, b = self._val_pairs(batch)
+                paths = batch["A_path"]
+                wcww = [windows[p].result() for p in paths]
+                wc, ww = (torch.tensor([w[i] for w in wcww],
+                                       dtype=torch.float32,
+                                       device=self.device) for i in (0, 1))
+                stored, mat = self._test_step(
+                    self._eval_put(a), self._eval_put(b), wc, ww)
+                mats.append(mat)
+                if writeback is not None:
+                    written.append(writer.submit(_write_batch, writeback,
+                                                 paths, stored))
+            for f in written:
+                f.result()  # raise a writeback error here
+        rows = []
+        if mats:
+            full = torch.cat(mats, dim=1).cpu().numpy()
+            rows = [{mk: float(full[i, j]) for i, mk in enumerate(METRIC_KEYS)}
+                    for j in range(full.shape[1])]
+        agg = aggregate(rows)
+        if not self.quiet:
+            for key in ("MAEw", "PSNRw", "SSIMw", "UQIw"):
+                if key in agg:
+                    print(f"{key}: {agg[key]}")
+            print()
+            for key in ("MAE", "PSNR", "SSIM", "UQI"):
+                if key in agg:
+                    print(f"{key}: {agg[key]}")
+            # the reference prints 10 aggregates; say why two are missing
+            print("LPIPSw/LPIPS: not computed — no lpips_weights configured "
+                  "(LPIPS is not ported yet: ROADMAP M10)", flush=True)
+        return agg
+
+
+def _se1_window(a_path: str) -> Tuple[float, float]:
+    """The (WC, WW) of a slice's SE1 partner, 50 / 400 where unset."""
+    ds1 = read_dicom(a_path.replace("SE0", "SE1"))
+    return ds1.window_center or 50.0, ds1.window_width or 400.0
+
+
+def _write_batch(writeback: DicomWriteback, paths, stored: torch.Tensor
+                 ) -> None:
+    px = stored.cpu().numpy()
+    for j, path in enumerate(paths):
+        writeback.write(path, px[j])
 
 
 class HdTrainerStage1(TrainerBase):

@@ -1,5 +1,5 @@
-"""The port's config: the fields the serving and HD stage-1 training slices
-read, from the same ``configs/*.yaml`` files as ``ctagan_tpu/utils/
+"""The port's config: the fields the serving, HD stage-1 training and eval
+slices read, from the same ``configs/*.yaml`` files as ``ctagan_tpu/utils/
 config.py``, with the same defaults.
 
 The repo's configs are flat ``key: value`` YAML. This reader parses that
@@ -8,6 +8,12 @@ booleans, null; ``#`` comments) and rejects any line it cannot parse, such
 as nested mappings, lists or flow collections. Keys that are not fields land
 in ``extras``, as in the JAX package (``serve_port``, ``serve_quantize``,
 ``max_batch`` are read from there).
+
+The keys of the JAX package's TPU workarounds are accepted and ignored:
+``checkpoint_backend`` (validated as in JAX, but it picks a JAX serialiser;
+the port writes its own ``.pt`` checkpoints, ``utils/checkpoint.py``), and
+in ``extras`` ``compilation_cache``, ``warp_impl``, ``reg_tap_convs`` and
+``reg_im2col_levels``.
 """
 from __future__ import annotations
 
@@ -39,6 +45,8 @@ class Config:
     pad_mode: str = "reflect"
     seed: int = 42
     generator_ckpt: str = ""
+    save_root: str = "./output/model/"
+    image_save: str = "./output/img/"
     # --- HD stage-1 training ---
     noise_level: int = 1
     Adv_lamda1: float = 1.0
@@ -60,6 +68,17 @@ class Config:
     d_refwd: bool = True  # D's update re-forwards the updated G
     aligned_aug: bool = False  # A and B share one affine draw
     log_every: int = 50
+    # --- validation, checkpoints, test() ---
+    val_every: int = 5  # epochs between validations
+    eval_batch: int = 1  # slices per val/test forward
+    fused_body: bool = False  # val/test run the serving route (K1-K3)
+    checkpoint_every_iters: int = 40000  # mid-epoch checkpoint cadence
+    resume: bool = False  # start from the newest checkpoint in save_root
+    collapse_guard: bool = True
+    collapse_drop_db: float = 6.0  # val-PSNR drop below the best that fires
+    collapse_lrd_backoff: float = 0.5  # D-lr multiplier on each fire
+    lpips_weights: str = ""  # LPIPS is not ported: non-empty raises
+    checkpoint_backend: str = "msgpack"  # accepted and ignored (see above)
     # semantic knobs this slice does not port: a non-default value raises
     # NotImplementedError naming its ROADMAP item (train/steps.py)
     grad_accum: int = 1
@@ -101,6 +120,16 @@ class Config:
         if self.fused_body_grad not in (True, False, "auto", "on", "off"):
             raise ValueError(
                 "fused_body_grad must be a bool, 'auto', 'on' or 'off'")
+        if self.checkpoint_backend not in ("msgpack", "orbax"):
+            raise ValueError(
+                f"unknown checkpoint_backend {self.checkpoint_backend}")
+        if self.collapse_drop_db <= 0:
+            raise ValueError("collapse_drop_db must be > 0")
+        if not (0 < self.collapse_lrd_backoff <= 1):
+            raise ValueError("collapse_lrd_backoff must be in (0, 1]")
+        if self.lpips_weights:
+            raise NotImplementedError(
+                "lpips_weights: LPIPS is not ported yet (ROADMAP M10)")
         return self
 
 

@@ -360,7 +360,8 @@ def _train_config(tmp, train_list, extra=""):
     with open(os.path.join(REPO, "configs", "HdGan.yaml")) as f:
         text = f.read()
     text += "".join(f"\n{k}_list: '{train_list}'"
-                    for k in ("train", "val", "test")) + "\n" + extra
+                    for k in ("train", "val", "test"))
+    text += f"\nsave_root: '{tmp}/model/'\n" + extra
     path = os.path.join(tmp, f"HdGan_profile{len(extra)}.yaml")
     with open(path, "w") as f:
         f.write(text)
@@ -377,7 +378,9 @@ def profile_training(torch, card):
            torch.profiler.ProfilerActivity.CUDA]
     results = {}
     with tempfile.TemporaryDirectory() as tmp:
-        lists = make_corpus(tmp, n_patients=2, slices_per_patient=6,
+        # 24 slices: an epoch outlasts the 2 + TRAIN_STEPS steps, so no
+        # epoch-end checkpoint lands in the profiled window
+        lists = make_corpus(tmp, n_patients=2, slices_per_patient=12,
                             size=512, seed=0, lists=("train",))
         for route, tf32, extra in (
                 ("kernel route, TF32 off", False, ""),
