@@ -77,9 +77,25 @@ card, ``nvcc`` and no network, and imports nothing of JAX. Phases:
    fresh SeriesInstanceUID per patient, pixels within 4 stored units of
    the plain route's and of a direct plain forward), SE0/SE1 copies
    byte-equal to their sources; test() and validate() slices/s per route
-   and batch (host wall, after one warm-up forward per route and batch).
+   and batch (host wall, after one warm-up forward per route and batch);
+10. ``stage2``, a main path: HD stage 2 through ``python -m
+   ctagan_tpu_torch --mode train``'s ``train()``. (a) One stage-1 epoch on
+   ``configs/HdGan.yaml`` (12 slice pairs of a seeded 512² corpus) saves
+   ``HdGan_hd1_e1.pt`` in a temporary ``save_root``; (b)
+   ``configs/HdGan2.yaml`` on the same corpus and ``save_root`` trains 12
+   steps on the kernel route: G and R at step 1 bit-equal to the stage-1
+   checkpoint's and D the seeded multi-scale D, 36 K1, 18 K4 and 18 K5
+   launches per step, finite losses with ``SR_loss2``, G, R and D all
+   updated, the epoch's ``HdGan2_hd2_e1.pt`` saved, its p50 step; (c) the
+   plain route (``fused_body_grad: off``) from the same bootstrap, no
+   launch, its first step's ``toal_loss`` within a relative 1e-3 of the
+   kernel route's (the same augmentation draws), its p50 step; (d)
+   ``configs/HdGan_fast.yaml`` (bf16, ``pad_mode: zero``, ``warp_max_disp:
+   4``, ``reg_downsample: 2``) trains a stage-1 epoch of 6 slices on the
+   layer route, then (renamed ``HdGan2``) a stage-2 epoch bootstrapped
+   from it: finite losses, no launch, their p50 steps.
 
-The launch counts of the four main paths (each counted from zero) are the
+The launch counts of the five main paths (each counted from zero) are the
 ``launches`` of the kernels line. ``--phases a,b`` runs a subset and stops
 before the result lines; ``--cases K2,K3`` keeps only the kernel phase's
 cases and timing lines of those kernels (and stops there too). Any failure
@@ -196,8 +212,15 @@ TEST_SLICES = (EVAL_PATIENTS - 1) * EVAL_SLICES
 EVAL_BATCHES = (1, 16)
 TEST_PSNR_TOL = 0.01
 TEST_TOL = 1e-4
+# the stage2 phase: the kernel route's first-step toal_loss against the
+# plain route's from the same bootstrap and the same augmentation draws,
+# relative (f32 on two routes; the stage-1 step's routes differ ~1e-6)
+STAGE2_ROUTE_TOL = 1e-3
+# configs/HdGan_fast.yaml (bf16, layer route) in stage 1 and then stage 2:
+# steps of each, on a list of as many slices, so each run ends an epoch
+FAST_STEPS = 6
 ALL_PHASES = ("kernels", "generator", "int8", "grad", "serving",
-              "int8_serving", "training", "test")
+              "int8_serving", "training", "test", "stage2")
 
 
 def fail(msg):
@@ -1341,13 +1364,13 @@ def check_zero_pad_serving(torch, card, norm_switch=False):
     torch.cuda.empty_cache()
 
 
-def _smoke_config(tmp, lists, extra=""):
-    """configs/HdGan.yaml with its list paths pointed at ``lists`` (one path
+def _smoke_config(tmp, lists, extra="", base="HdGan.yaml"):
+    """configs/``base`` with its list paths pointed at ``lists`` (one path
     for all three lists, or a dict by list name) and its checkpoints under
     ``tmp``, then ``extra``."""
     if isinstance(lists, str):
         lists = dict.fromkeys(("train", "val", "test"), lists)
-    with open(os.path.join(REPO, "configs", "HdGan.yaml")) as f:
+    with open(os.path.join(REPO, "configs", base)) as f:
         text = f.read()
     text += "".join(f"\n{k}_list: '{lists[k]}'"
                     for k in ("train", "val", "test"))
@@ -1417,6 +1440,190 @@ def check_training(torch, card):
         fail(f"training launches {counts}, expected {expect}")
     if plain_counts != counts_of():
         fail(f"plain route launched kernels {plain_counts}")
+    return counts
+
+
+def _snapshot(model):
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def _equal_state(got, want):
+    return set(got) == set(want) and all(got[k].equal(want[k]) for k in want)
+
+
+def _train_stage2(torch, config, steps):
+    """``__main__.train`` on a stage-2 config, with every kernel count set
+    to 0 just before and read just after; G, R and D as the first step
+    found them (after the bootstrap)."""
+    from ctagan_tpu_torch.__main__ import train
+    from ctagan_tpu_torch.train import trainers
+
+    first = {}
+    step = trainers.HdTrainerStage2._step
+
+    def spy(self, batch, lr, lr_d):
+        if not first:
+            first.update(G=_snapshot(self.g_model), R=_snapshot(self.r_model),
+                         D=_snapshot(self.d_model))
+        return step(self, batch, lr, lr_d)
+
+    trainers.HdTrainerStage2._step = spy
+    try:
+        reset_counts()
+        trainer = train(config, torch.device("cuda"), max_steps=steps)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    finally:
+        trainers.HdTrainerStage2._step = step
+    if type(trainer) is not trainers.HdTrainerStage2:
+        fail(f"stage2: {config.name} built {type(trainer).__name__}")
+    return trainer, first, counts
+
+
+def _moved(trainer, first):
+    nets = {"G": trainer.g_model, "R": trainer.r_model, "D": trainer.d_model}
+    return {k: max(float((v.cpu() - first[k][n]).abs().max())
+                   for n, v in nets[k].state_dict().items()) for k in nets}
+
+
+def _finite(losses):
+    import math
+
+    return bool(losses) and all(math.isfinite(v) for lo in losses
+                                for v in lo.values())
+
+
+def check_stage2(torch, card):
+    """Phase 10, a main path: HD stage 2 through the train entry point,
+    bootstrapped from a stage-1 epoch, on the kernel and plain routes; then
+    configs/HdGan_fast.yaml (bf16) in stage 1 and stage 2."""
+    from ctagan_tpu_torch.__main__ import train
+    from ctagan_tpu_torch.data.fixtures import make_corpus
+    from ctagan_tpu_torch.models import MultiScaleDiscriminator
+    from ctagan_tpu_torch.utils.config import load_config
+
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        lists = make_corpus(tmp, n_patients=2, slices_per_patient=6,
+                            size=512, seed=0, lists=("train",))
+        # (a) one stage-1 epoch (12 slices): HdGan_hd1_e1.pt in save_root
+        s1 = train(load_config(_smoke_config(tmp, lists["train"])), dev,
+                   max_steps=TRAIN_STEPS)
+        del s1
+        torch.cuda.empty_cache()
+        ckpt = os.path.join(tmp, "model", "HdGan_hd1_e1.pt")
+        if not os.path.exists(ckpt):
+            fail(f"stage2: the stage-1 epoch saved no {ckpt}")
+        stage1 = torch.load(ckpt, map_location="cpu",
+                            weights_only=True)["state"]
+
+        def stage2_config(extra=""):
+            return load_config(_smoke_config(tmp, lists["train"], extra,
+                                             base="HdGan2.yaml"))
+
+        # (b) configs/HdGan2.yaml on the kernel route
+        config = stage2_config()
+        trainer, first, counts = _train_stage2(torch, config, TRAIN_STEPS)
+        losses = trainer.loss_history
+        moved = _moved(trainer, first)
+        p50 = trainer.timer.summary(skip=1)["p50_ms"]
+        saved = os.path.exists(os.path.join(tmp, "model",
+                                            "HdGan2_hd2_e1.pt"))
+        del trainer
+        torch.cuda.empty_cache()
+        seeded_d = _snapshot(MultiScaleDiscriminator().reset_parameters(
+            config.seed + 2))
+        boot = {"G": _equal_state(first["G"], stage1["g"]),
+                "R": _equal_state(first["R"], stage1["r"]),
+                "D seeded": _equal_state(first["D"], seeded_d)}
+        # (c) the plain route from the same bootstrap
+        plain, plain_first, plain_counts = _train_stage2(
+            torch, stage2_config("fused_body_grad: off\n"), PLAIN_STEPS)
+        plain_losses = plain.loss_history
+        plain_p50 = plain.timer.summary(skip=1)["p50_ms"]
+        plain_boot = all(_equal_state(plain_first[k], first[k])
+                         for k in first)
+        del plain
+        torch.cuda.empty_cache()
+        # (d) HdGan_fast.yaml: bf16, pad_mode zero, warp_max_disp 4,
+        # reg_downsample 2; the layer route, stage 1 then stage 2
+        fast_root = os.path.join(tmp, "fast")
+        os.makedirs(fast_root)
+        with open(lists["train"]) as f:
+            paths = [ln.strip() for ln in f if ln.strip()][:FAST_STEPS]
+        fast_list = os.path.join(fast_root, "train.txt")
+        with open(fast_list, "w") as f:
+            f.write("\n".join(paths) + "\n")
+        reset_counts()
+        fast1 = train(load_config(_smoke_config(
+            fast_root, fast_list, base="HdGan_fast.yaml")), dev,
+            max_steps=FAST_STEPS)
+        fast1_counts = launch_counts()
+        fast1_losses = fast1.loss_history
+        fast1_p50 = fast1.timer.summary(skip=1)["p50_ms"]
+        del fast1
+        torch.cuda.empty_cache()
+        fast2, fast2_first, fast2_counts = _train_stage2(
+            torch, load_config(_smoke_config(fast_root, fast_list,
+                                             "name: HdGan2\n",
+                                             base="HdGan_fast.yaml")),
+            FAST_STEPS)
+        fast2_losses = fast2.loss_history
+        fast2_p50 = fast2.timer.summary(skip=1)["p50_ms"]
+        fast_stage1 = torch.load(
+            os.path.join(fast_root, "model", "HdGan_hd1_e1.pt"),
+            map_location="cpu", weights_only=True)["state"]
+        fast_boot = _equal_state(fast2_first["G"], fast_stage1["g"])
+        fast_saved = os.path.exists(os.path.join(fast_root, "model",
+                                                 "HdGan2_hd2_e1.pt"))
+        del fast2
+        torch.cuda.empty_cache()
+    expect = {k: v * TRAIN_STEPS for k, v in PER_TRAIN_STEP.items()}
+    k_loss = losses[0]["toal_loss"]
+    p_loss = plain_losses[0]["toal_loss"]
+    gap = abs(k_loss - p_loss) / max(abs(p_loss), 1e-12)
+    print(f"stage2 {config.name} HD stage 2 {config.size}^2 b=1 f32 (cuDNN "
+          f"TF32 off), "
+          f"num_d {config.num_d}, bootstrapped from {os.path.basename(ckpt)}:"
+          f" bit-equal at step 1 {boot}; {len(losses)} steps, last losses "
+          f"{losses[-1]}, all finite {_finite(losses)}; largest parameter "
+          f"change G {moved['G']:.3e}, R {moved['R']:.3e}, D "
+          f"{moved['D']:.3e}; launches {counts} (expected {expect}); saved "
+          f"HdGan2_hd2_e1.pt {saved}; first-step toal_loss kernel route "
+          f"{k_loss!r}, plain route {p_loss!r}, relative gap {gap:.3e} (tol "
+          f"{STAGE2_ROUTE_TOL:.0e}); p50 step after 2 warm-up steps: kernel "
+          f"route {p50:.1f} ms, plain route (fused_body_grad off) "
+          f"{plain_p50:.1f} ms [{card}]", flush=True)
+    print(f"stage2 HdGan_fast.yaml (bf16, pad_mode zero, warp_max_disp 4, "
+          f"reg_downsample 2, layer route) {config.size}^2 b=1: stage 1 "
+          f"{len(fast1_losses)} steps, last losses {fast1_losses[-1]}, p50 "
+          f"{fast1_p50:.1f} ms; stage 2 {len(fast2_losses)} steps, last "
+          f"losses {fast2_losses[-1]}, p50 {fast2_p50:.1f} ms; all finite "
+          f"{_finite(fast1_losses) and _finite(fast2_losses)}; bootstrapped "
+          f"G bit-equal {fast_boot}; saved HdGan2_hd2_e1.pt {fast_saved}; "
+          f"launches {fast1_counts} / {fast2_counts} [{card}]", flush=True)
+    if not all(boot.values()) or not plain_boot or not fast_boot:
+        fail("stage2: the bootstrap did not start from the stage-1 "
+             "checkpoint's G and R and a seeded D")
+    if (len(losses) != TRAIN_STEPS or not _finite(losses)
+            or "SR_loss2" not in losses[0] or not _finite(plain_losses)):
+        fail("stage2: missing or non-finite losses")
+    if min(moved.values()) <= 0.0:
+        fail(f"stage2: a net was not updated {moved}")
+    if not saved or not fast_saved:
+        fail("stage2: an epoch ended without its HdGan2_hd2_e1.pt")
+    if counts != expect:
+        fail(f"stage2 launches {counts}, expected {expect}")
+    if plain_counts != counts_of():
+        fail(f"stage2: the plain route launched kernels {plain_counts}")
+    if gap > STAGE2_ROUTE_TOL:
+        fail(f"stage2: the routes' first-step toal_loss differ by {gap:.3e}")
+    if (len(fast1_losses) != FAST_STEPS or len(fast2_losses) != FAST_STEPS
+            or not _finite(fast1_losses) or not _finite(fast2_losses)):
+        fail("stage2: HdGan_fast.yaml missing or non-finite losses")
+    if fast1_counts != counts_of() or fast2_counts != counts_of():
+        fail(f"stage2: HdGan_fast.yaml's layer route launched kernels "
+             f"{fast1_counts} / {fast2_counts}")
     return counts
 
 
@@ -1672,7 +1879,8 @@ MAIN_PATHS = {"serving": check_serving,
               "int8_serving": lambda torch, card: check_serving(
                   torch, card, quantize="int8"),
               "training": check_training,
-              "test": check_test}
+              "test": check_test,
+              "stage2": check_stage2}
 
 
 def main():

@@ -14,16 +14,22 @@ as the one ``ctagan_tpu.models.torch_export.save_state_dict`` writes from a
 JAX checkpoint. Without one, the generator serves weights drawn from the
 config's ``seed``.
 
-``train`` runs HD stage 1 (``train/trainers.py::HdTrainerStage1``) from
-seeded weights on the config's ``train_list`` (or from the newest
-checkpoint in ``save_root`` with ``resume: true``), printing the losses
-every ``log_every`` steps, validating every ``val_every`` epochs and saving
-a checkpoint after every epoch, and a step-time summary at the end.
+``train`` runs the trainer of the config's ``name`` (``HdGan``: HD stage 1,
+``HdGan2``: HD stage 2; ``train/trainers.py::build_trainer``; the JAX
+package's other families raise naming their ROADMAP item) from seeded
+weights on the config's ``train_list`` (or from the newest checkpoint in
+``save_root`` with ``resume: true``), printing the losses every
+``log_every`` steps, validating every ``val_every`` epochs and saving a
+checkpoint after every epoch, and a step-time summary at the end. A fresh
+stage-2 run first loads G and R from ``stage1_ckpt``, else from the newest
+``*_hd1_e*.pt`` in ``save_root``; with none it warns and starts from seeded
+weights.
 
-``test`` runs the HD stage-1 trainer's ``test()`` on the config's
+``test`` runs the same trainer's ``test()`` on the config's
 ``test_list``: the generator from ``--generator-ckpt`` (a reference-format
 ``.pth`` or a port ``.pt`` checkpoint), else ``generator_ckpt``, else the
-newest checkpoint in ``save_root``, else seeded weights. It prints the
+newest checkpoint of the trainer in ``save_root``, else the bootstrapped
+(stage 2) or seeded weights. It prints the
 masked window and full-range aggregates (MAE, PSNR, SSIM, UQI) as the
 reference does and writes the synthetic SE2 series under ``image_save``
 (``--no-write`` skips the writeback).
@@ -74,13 +80,27 @@ def _device(name: str | None) -> torch.device:
     return dev
 
 
+def _trainer(config: Config, device: torch.device):
+    """The config's trainer by name; a fresh HD stage-2 run (``HdGan2`` at
+    epoch 0) bootstraps G and R from the newest stage-1 checkpoint, as the
+    JAX package's ``train.py`` does."""
+    from ctagan_tpu_torch.train.trainers import build_trainer
+
+    trainer = build_trainer(config, device)
+    if config.name == "HdGan2" and trainer.start_epoch == 0:
+        try:
+            trainer.bootstrap_from_stage1()
+        except FileNotFoundError:
+            print("warning: no stage-1 checkpoint found; training from "
+                  "scratch", flush=True)
+    return trainer
+
+
 def train(config: Config, device: torch.device,
           max_steps: int | None = None):
-    """Run HD stage 1 on ``config``; returns the trainer."""
-    from ctagan_tpu_torch.train.trainers import HdTrainerStage1
-
-    trainer = HdTrainerStage1(config, device)
-    print(f"training {config.name} (HD stage 1) at {config.size}^2 on "
+    """Run the config's trainer (HD stage 1 or 2); returns the trainer."""
+    trainer = _trainer(config, device)
+    print(f"training {config.name} ({trainer.title}) at {config.size}^2 on "
           f"{device}, fused_body_grad {config.fused_body_grad}"
           + (f", max {max_steps} steps" if max_steps is not None else ""),
           flush=True)
@@ -94,14 +114,12 @@ def train(config: Config, device: torch.device,
 
 
 def test(config: Config, device: torch.device, write_dicom: bool = True):
-    """Run HD stage 1's ``test()`` on ``config``; returns the trainer, the
+    """Run the config's trainer's ``test()``; returns the trainer, the
     aggregate metrics and the seconds ``test()`` took."""
-    from ctagan_tpu_torch.train.trainers import HdTrainerStage1
-
-    trainer = HdTrainerStage1(config, device)
+    trainer = _trainer(config, device)
     route = ("serving route (fused_body)" if config.fused_body else
              f"training route (fused_body_grad {config.fused_body_grad})")
-    print(f"testing {config.name} (HD stage 1) at {config.size}^2 on "
+    print(f"testing {config.name} ({trainer.title}) at {config.size}^2 on "
           f"{device}, {route}, eval_batch {config.eval_batch}", flush=True)
     t0 = time.perf_counter()
     agg = trainer.test(write_dicom=write_dicom)

@@ -1,4 +1,5 @@
-__all__ = ["Discriminator", "Generator", "RegNet"]
+__all__ = ["Discriminator", "Generator", "MultiScaleDiscriminator",
+           "NLayerDiscriminator", "RegNet"]
 
 
 def __getattr__(name):
@@ -12,8 +13,9 @@ def __getattr__(name):
         from ctagan_tpu_torch.models.reg import RegNet
 
         return RegNet
-    if name == "Discriminator":
-        from ctagan_tpu_torch.models.discriminator import Discriminator
+    if name in ("Discriminator", "NLayerDiscriminator",
+                "MultiScaleDiscriminator"):
+        from ctagan_tpu_torch.models import discriminator
 
-        return Discriminator
+        return getattr(discriminator, name)
     raise AttributeError(name)

@@ -1,8 +1,10 @@
 """JAX parameter trees -> the port's (reference-format) state dicts.
 
 Reimplementations of ``ctagan_tpu/models/torch_export.py``'s
-``generator_state_dict``, ``discriminator_state_dict`` and
-``regnet_state_dict`` that need no JAX: the tree is nested dicts of numpy
+``generator_state_dict``, ``discriminator_state_dict``,
+``nlayer_discriminator_state_dict`` and ``regnet_state_dict`` (and the
+multi-scale discriminator's, that one under ``scale{i}.`` prefixes) that
+need no JAX: the tree is nested dicts of numpy
 arrays, ``{"params": {"ConvTorch_0": {"Conv_0": {"kernel", "bias"}}, ...}}``.
 
 - Conv kernel (kh, kw, I, O)                        -> Conv2d (O, I, kh, kw)
@@ -66,6 +68,32 @@ def discriminator_state_dict(tree: Dict[str, Any]
     sd: Dict[str, torch.Tensor] = {}
     for i, idx in enumerate((0, 2, 5, 8, 11)):
         _weight(sd, f"model.{idx}", params[f"ConvTorch_{i}"]["Conv_0"])
+    return sd
+
+
+def nlayer_discriminator_state_dict(tree: Dict[str, Any], n_layers: int = 3
+                                    ) -> Dict[str, torch.Tensor]:
+    """models.NLayerDiscriminator params -> the pix2pixHD getIntermFeat
+    layout, ``model{n}.0`` for its n_layers + 2 convs."""
+    params = tree["params"] if "params" in tree else tree
+    sd: Dict[str, torch.Tensor] = {}
+    for n in range(n_layers + 2):
+        _weight(sd, f"model{n}.0", params[f"ConvTorch_{n}"]["Conv_0"])
+    return sd
+
+
+def multiscale_discriminator_state_dict(tree: Dict[str, Any],
+                                        n_layers: int = 3
+                                        ) -> Dict[str, torch.Tensor]:
+    """models.MultiScaleDiscriminator params -> the port's
+    ``MultiScaleDiscriminator``: each ``scale{i}``'s NLayer state dict under
+    the prefix ``scale{i}.``."""
+    params = tree["params"] if "params" in tree else tree
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(len(params)):
+        for k, v in nlayer_discriminator_state_dict(
+                params[f"scale{i}"], n_layers).items():
+            sd[f"scale{i}.{k}"] = v
     return sd
 
 

@@ -18,8 +18,18 @@ from torch import nn
 
 
 def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
-    """ReflectionPad2d for NHWC input."""
-    y = F.pad(x.permute(0, 3, 1, 2), (pad, pad, pad, pad), mode="reflect")
+    """ReflectionPad2d for NHWC input. An axis of length 1 repeats its one
+    value, as numpy's and JAX's reflect pad do (torch's refuses it): the
+    RegNet's 1×1 bottleneck at 128²."""
+    y = x.permute(0, 3, 1, 2)
+    h, w = y.shape[2], y.shape[3]
+    if h > 1 and w > 1:
+        y = F.pad(y, (pad, pad, pad, pad), mode="reflect")
+    else:
+        y = F.pad(y, (pad, pad, 0, 0),
+                  mode="replicate" if w == 1 else "reflect")
+        y = F.pad(y, (0, 0, pad, pad),
+                  mode="replicate" if h == 1 else "reflect")
     return y.permute(0, 2, 3, 1).contiguous()
 
 
@@ -190,6 +200,24 @@ def max_pool(x: torch.Tensor, window: int = 2) -> torch.Tensor:
         h, w = x.shape[1], x.shape[2]
     xr = x.reshape(n, h // window, window, w // window, window, c)
     return xr.amax(dim=(2, 4))
+
+
+def avg_pool_same(x: torch.Tensor, window: int = 3,
+                  stride: int = 2) -> torch.Tensor:
+    """AvgPool2d(3, stride 2, padding 1, count_include_pad=False) on NHWC:
+    the pix2pixHD pyramid downsampler (``ctagan_tpu/models/layers.py::
+    avg_pool_same``)."""
+    y = F.avg_pool2d(x.permute(0, 3, 1, 2), window, stride,
+                     padding=window // 2, count_include_pad=False)
+    return y.permute(0, 2, 3, 1)
+
+
+def center_crop(x: torch.Tensor, size: int) -> torch.Tensor:
+    """torchvision's center_crop on NHWC: the HD stage-2 multi-scale
+    transition."""
+    h, w = x.shape[1], x.shape[2]
+    top, left = (h - size) // 2, (w - size) // 2
+    return x[:, top: top + size, left: left + size, :]
 
 
 def global_avg_pool_logit(x: torch.Tensor) -> torch.Tensor:

@@ -4,8 +4,15 @@
 ``F.grid_sample(align_corners=True, padding_mode='border')`` at the pixel
 grid plus the flow. With align_corners the normalisation round-trips to
 pixel units, and border padding clamps the sample point to [0, S−1], the
-JAX package's gather formulation. The TPU variants (``warp2d_local``,
-``warp2d_adaptive``, ``warp2d_dense``) are not ported.
+JAX package's gather formulation.
+
+``warp2d_local`` (config ``warp_max_disp``) is the JAX function of that
+name: the same warp of the flow clipped to [−R, R] per component. JAX
+computes it as a sum of shifted images, a TPU lowering that avoids a
+gather; here it is the clip and ``grid_sample``, whose gradient with
+respect to the flow is zero where the clip saturates, as JAX's is. The
+other TPU variants (``warp2d_adaptive``, ``warp2d_dense``) are exact
+lowerings of ``warp2d`` and are not ported.
 """
 from __future__ import annotations
 
@@ -15,16 +22,31 @@ import torch.nn.functional as F
 
 def warp2d(src: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """Warp ``src`` (N, H, W, C) by a flow (N, H, W, 2) whose channel 0
-    displaces rows (y) and channel 1 columns (x). Differentiable in both."""
+    displaces rows (y) and channel 1 columns (x). Differentiable in both.
+    The sample points and the result are at least f32, as the JAX
+    package's f32 pixel grid makes them: a bf16 grid would be whole pixels
+    off past row 256."""
     n, h, w, _ = flow.shape
-    yy = torch.arange(h, dtype=flow.dtype, device=flow.device)[None, :, None]
-    xx = torch.arange(w, dtype=flow.dtype, device=flow.device)[None, None, :]
+    dt = torch.promote_types(torch.promote_types(flow.dtype, src.dtype),
+                             torch.float32)
+    flow = flow.to(dt)
+    yy = torch.arange(h, dtype=dt, device=flow.device)[None, :, None]
+    xx = torch.arange(w, dtype=dt, device=flow.device)[None, None, :]
     gy = (yy + flow[..., 0]) * (2.0 / (h - 1)) - 1.0
     gx = (xx + flow[..., 1]) * (2.0 / (w - 1)) - 1.0
     grid = torch.stack([gx, gy], dim=-1)  # grid_sample wants (x, y)
-    out = F.grid_sample(src.permute(0, 3, 1, 2), grid, mode="bilinear",
-                        padding_mode="border", align_corners=True)
+    out = F.grid_sample(src.to(dt).permute(0, 3, 1, 2), grid,
+                        mode="bilinear", padding_mode="border",
+                        align_corners=True)
     return out.permute(0, 2, 3, 1)
+
+
+def warp2d_local(src: torch.Tensor, flow: torch.Tensor,
+                 max_displacement: int = 4) -> torch.Tensor:
+    """:func:`warp2d` of the flow clipped to [−max_displacement,
+    max_displacement] per component."""
+    r = float(max_displacement)
+    return warp2d(src, flow.clamp(-r, r))
 
 
 def smoothing_loss(flow: torch.Tensor) -> torch.Tensor:

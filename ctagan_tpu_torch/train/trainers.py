@@ -1,5 +1,7 @@
-"""The HD stage-1 trainer of the port (``ctagan_tpu/train/trainers.py::
-HdTrainerStage1`` on ``TrainerBase``).
+"""The HD trainers of the port (``ctagan_tpu/train/trainers.py::
+HdTrainerStage1`` and ``HdTrainerStage2`` on ``TrainerBase``), and
+:func:`build_trainer`, which picks one by the config's ``name`` as the JAX
+package does.
 
 The epoch loop redraws the oversampled ``DualWindowDataset`` every epoch,
 feeds raw uint16 pixels and windows them on the device
@@ -36,7 +38,12 @@ import torch
 from ctagan_tpu_torch.data.datasets import DualWindowDataset
 from ctagan_tpu_torch.data.dicom import read_dicom
 from ctagan_tpu_torch.data.loader import PrefetchLoader
-from ctagan_tpu_torch.models import Discriminator, Generator, RegNet
+from ctagan_tpu_torch.models import (
+    Discriminator,
+    Generator,
+    MultiScaleDiscriminator,
+    RegNet,
+)
 from ctagan_tpu_torch.ops.metrics import masked_psnr, ssim
 from ctagan_tpu_torch.ops.windowing import (
     dual_window_from_stored,
@@ -53,6 +60,7 @@ from ctagan_tpu_torch.utils.checkpoint import (
     checkpoint_name,
     find_checkpoints,
     find_latest_checkpoint,
+    find_latest_of_family,
     load_checkpoint,
     save_checkpoint,
 )
@@ -493,14 +501,18 @@ class HdTrainerStage1(TrainerBase):
     frozen D lr."""
 
     family = "hd1"
+    title = "HD stage 1"
+    stage2 = False
 
     def _build_models(self):
         cfg = self.config
         self.r_model = RegNet(cfg.input_nc, cfg.input_nc, dtype=_dtype(cfg)
                               ).reset_parameters(cfg.seed + 1).to(self.device)
-        self.d_model = Discriminator(cfg.input_nc, dtype=_dtype(cfg)
-                                     ).reset_parameters(cfg.seed + 2
+        self.d_model = self._build_d().reset_parameters(cfg.seed + 2
                                                         ).to(self.device)
+
+    def _build_d(self):
+        return Discriminator(self.config.input_nc, dtype=_dtype(self.config))
 
     def _init_state(self):
         return steps.init_reg_state(self.g_model, self.r_model, self.d_model,
@@ -508,8 +520,69 @@ class HdTrainerStage1(TrainerBase):
 
     def _step(self, batch, lr, lr_d):
         cfg = {k: getattr(self.config, k) for k in (
-            "Adv_lamda1", "Corr_lamda1", "Smooth_lamda", "noise_level",
-            "aligned_aug", "d_refwd", "grad_accum", "ema_decay", "r1_gamma",
-            "warp_max_disp", "reg_downsample")}
+            "Adv_lamda1", "Corr_lamda1", "Corr_lamda2", "FM_lamda",
+            "Smooth_lamda", "noise_level", "aligned_aug", "d_refwd",
+            "grad_accum", "ema_decay", "r1_gamma", "warp_max_disp",
+            "reg_downsample")}
         return steps.reg_train_step(self.state, cfg, batch, lr, lr_d=lr_d,
-                                    dual_window_mode=True)
+                                    dual_window_mode=True, stage2=self.stage2)
+
+
+class HdTrainerStage2(HdTrainerStage1):
+    """CTA-GAN stage 2, the fine-tune: a multi-scale D (``num_d`` scales,
+    the reference's 1, over a center-crop pyramid), the weighted GAN loss
+    and the window-masked SR_loss2, from stage 1's G and R
+    (:meth:`bootstrap_from_stage1`)."""
+
+    family = "hd2"
+    title = "HD stage 2"
+    stage2 = True
+
+    def _build_d(self):
+        cfg = self.config
+        return MultiScaleDiscriminator(cfg.input_nc, num_d=cfg.num_d,
+                                       pyramid=cfg.pyramid,
+                                       dtype=_dtype(cfg))
+
+    def bootstrap_from_stage1(self, path: Optional[str] = None
+                              ) -> "HdTrainerStage2":
+        """G and R from a port stage-1 checkpoint: ``path``, else
+        ``stage1_ckpt``, else the newest ``*_hd1_e*.pt`` in ``save_root``
+        under any config name. D, the optimizers and the augmentation RNG
+        stay as they are (fresh in a new run), as in the JAX package."""
+        path = path or self.config.stage1_ckpt
+        if not path:
+            found = find_latest_of_family(self.config.save_root,
+                                          HdTrainerStage1.family)
+            if found is None:
+                raise FileNotFoundError(
+                    f"no stage-1 checkpoint (*_hd1_e*.pt) in "
+                    f"{self.config.save_root}; set stage1_ckpt (JAX .ckpt "
+                    "files are not read yet: ROADMAP M6)")
+            path = found[0]
+        state = load_checkpoint(path)["state"]
+        self.g_model.load_state_dict(state["g"], strict=True)
+        self.r_model.load_state_dict(state["r"], strict=True)
+        if not self.quiet:
+            print(f"stage 2 bootstrapped G and R from {path}", flush=True)
+        return self
+
+
+TRAINERS = {"HdGan": HdTrainerStage1, "HdGan2": HdTrainerStage2}
+# the JAX package's other trainer families, by config name
+_NOT_PORTED = {"P2p": "M8 (P2p)", "CycleGan": "M8 (Cyc)",
+               "RegGan": "M8 (Reg)", "P3d": "M9 (the 3-D family)"}
+
+
+def build_trainer(config: Config, device: torch.device,
+                  quiet: bool = False) -> TrainerBase:
+    """The trainer of ``config.name``, as the JAX package dispatches."""
+    name = config.name
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"trainer {name!r} is not ported yet (ROADMAP "
+            f"{_NOT_PORTED[name]}); the port trains {sorted(TRAINERS)}")
+    if name not in TRAINERS:
+        raise KeyError(f"unknown trainer '{name}' (have "
+                       f"{sorted([*TRAINERS, *_NOT_PORTED])})")
+    return TRAINERS[name](config, device, quiet=quiet)

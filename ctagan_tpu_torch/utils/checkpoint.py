@@ -74,3 +74,19 @@ def find_latest_checkpoint(save_root: str, prefix: str
     """The newest (path, epoch) of ``prefix``, or None."""
     found = find_checkpoints(save_root, prefix)
     return found[0] if found else None
+
+
+def find_latest_of_family(save_root: str, family: str
+                          ) -> Optional[Tuple[str, int]]:
+    """The newest (path, epoch) whose prefix ends in ``_<family>``, under any
+    config name (ties to the name that sorts last), or None."""
+    if not os.path.isdir(save_root):
+        return None
+    best: Optional[Tuple[int, str]] = None
+    for fn in os.listdir(save_root):
+        m = _CKPT_RE.match(fn)
+        if m and m.group("prefix").endswith(f"_{family}"):
+            cand = (int(m.group("epoch")), fn)
+            best = cand if best is None or cand > best else best
+    return None if best is None else (os.path.join(save_root, best[1]),
+                                      best[0])

@@ -1,5 +1,5 @@
-"""The port's config: the fields the serving, HD stage-1 training and eval
-slices read, from the same ``configs/*.yaml`` files as ``ctagan_tpu/utils/
+"""The port's config: the fields the serving, HD stage-1 and stage-2
+training and eval slices read, from the same ``configs/*.yaml`` files as ``ctagan_tpu/utils/
 config.py``, with the same defaults.
 
 The repo's configs are flat ``key: value`` YAML. This reader parses that
@@ -7,7 +7,7 @@ subset without PyYAML (scalars: quoted or bare strings, ints, floats,
 booleans, null; ``#`` comments) and rejects any line it cannot parse, such
 as nested mappings, lists or flow collections. Keys that are not fields land
 in ``extras``, as in the JAX package (``serve_port``, ``serve_quantize``,
-``max_batch`` are read from there).
+``max_batch`` and stage 2's ``num_d`` and ``pyramid`` are read from there).
 
 The keys of the JAX package's TPU workarounds are accepted and ignored:
 ``checkpoint_backend`` (validated as in JAX, but it picks a JAX serialiser;
@@ -47,10 +47,16 @@ class Config:
     generator_ckpt: str = ""
     save_root: str = "./output/model/"
     image_save: str = "./output/img/"
-    # --- HD stage-1 training ---
+    # --- HD training ---
     noise_level: int = 1
-    Adv_lamda1: float = 1.0
+    Adv_lamda1: float = 1.0  # both stages' adversarial weight
+    # read by nothing, as in the JAX package: its stage 2 weights the
+    # adversarial terms with Adv_lamda1 too
+    Adv_lamda2: float = 0.1
     Corr_lamda1: float = 20.0
+    Corr_lamda2: float = 2.0  # stage 2's window-masked SR_loss2
+    FM_lamda: float = 0.0  # stage 2's feature matching (0: the reference)
+    stage1_ckpt: str = ""  # stage 2's bootstrap (G and R from stage 1)
     Smooth_lamda: float = 10.0
     epoch: int = 0  # starting epoch
     n_epochs: int = 60
@@ -79,13 +85,13 @@ class Config:
     collapse_lrd_backoff: float = 0.5  # D-lr multiplier on each fire
     lpips_weights: str = ""  # LPIPS is not ported: non-empty raises
     checkpoint_backend: str = "msgpack"  # accepted and ignored (see above)
-    # semantic knobs this slice does not port: a non-default value raises
+    r1_gamma: float = 0.0  # R1 penalty on D(real) (0: the reference)
+    warp_max_disp: int = 0  # > 0: the warp's flow clipped to [-R, R]
+    reg_downsample: int = 1  # > 1: R runs at 1/ds resolution
+    # semantic knobs the port does not run yet: a non-default value raises
     # NotImplementedError naming its ROADMAP item (train/steps.py)
     grad_accum: int = 1
     ema_decay: float = 0.0
-    r1_gamma: float = 0.0
-    warp_max_disp: int = 0
-    reg_downsample: int = 1
     extras: Dict[str, Any] = field(default_factory=dict)
 
     @property
@@ -103,6 +109,17 @@ class Config:
     @property
     def max_batch(self) -> int:
         return int(self.extras.get("max_batch", 16))
+
+    @property
+    def num_d(self) -> int:
+        """Stage 2's discriminator scales (the reference's num_D=1)."""
+        return int(self.extras.get("num_d", 1))
+
+    @property
+    def pyramid(self) -> str:
+        """Stage 2's scale transition: 'center_crop' (the reference's) or
+        'avg_pool'."""
+        return str(self.extras.get("pyramid", "center_crop"))
 
     def validate(self) -> "Config":
         if self.size % 4 != 0:

@@ -147,14 +147,11 @@ def test_adam_first_moments_match_jax(one_step, net):
 def test_unported_knobs_raise(one_step):
     _, _, pstate, _ = one_step
     batch = {k: torch.from_numpy(v) for k, v in _batch().items()}
-    for knob, value in (("grad_accum", 2), ("ema_decay", 0.999),
-                        ("r1_gamma", 0.1), ("warp_max_disp", 4),
-                        ("reg_downsample", 2)):
+    for knob, value in (("grad_accum", 2), ("ema_decay", 0.999)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             steps.reg_train_step(pstate, dict(CFG, **{knob: value}), batch,
                                  LR, dual_window_mode=True)
-    for kw in (dict(dual_window_mode=False), dict(stage2=True),
-               dict(pipeline_1f1b=object())):
+    for kw in (dict(dual_window_mode=False), dict(pipeline_1f1b=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             steps.reg_train_step(pstate, CFG, batch, LR,
                                  **dict(dict(dual_window_mode=True), **kw))
