@@ -93,9 +93,30 @@ card, ``nvcc`` and no network, and imports nothing of JAX. Phases:
    ``configs/HdGan_fast.yaml`` (bf16, ``pad_mode: zero``, ``warp_max_disp:
    4``, ``reg_downsample: 2``) trains a stage-1 epoch of 6 slices on the
    layer route, then (renamed ``HdGan2``) a stage-2 epoch bootstrapped
-   from it: finite losses, no launch, their p50 steps.
+   from it: finite losses, no launch, their p50 steps;
+11. ``families``, a main path: the other 2-D trainers through ``python -m
+   ctagan_tpu_torch --mode train``'s ``train()`` at full width, 512², b=1,
+   f32, seeded weights: ``configs/RegGan.yaml`` (G, the ResUNet R, the
+   scalar D), ``configs/P2p.yaml`` (G, a 2-channel conditional D) and
+   ``configs/CycleGan.yaml`` (two Gs under one Adam, two Ds, two 50-slot
+   replay pools), each built by name on a list of 6 seeded slice pairs:
+   6 kernel-route steps end epoch 1, which validates 2 slices and saves
+   ``<name>_<family>_e1_*.pt``; finite losses under JAX's keys, every net
+   updated, exactly 36 K1, 18 K4 and 18 K5 launches a step (RegGAN, P2p:
+   G's forward and D's re-forward of the updated G) or 72, 72 and 72
+   (CycleGAN: four differentiated G forwards), plus 18 K1 per validated
+   slice; the p50 step and the peak device memory; then 2 plain-route
+   steps (``fused_body_grad: off``), no launch, first-step total loss
+   within a relative 1e-3 of the kernel route's. CycleGAN again with
+   ``batchSize: 2``, ``grad_accum: 2`` and ``ema_decay: 0.999`` for 2
+   steps: 180 K1, 144 K4 and 144 K5 a step (each microbatch's four
+   forwards, and one no-grad forward of each G over the batch for the
+   pools); its validation reads the EMA, which differs from the live
+   G_A2B. Last, ``--mode test`` of the P2p epoch's checkpoint on the
+   serving route (``fused_body: true``): 18 K1, 2 K3 and 2 K2 a slice,
+   the 8 metrics finite, the SE2 series written.
 
-The launch counts of the five main paths (each counted from zero) are the
+The launch counts of the six main paths (each counted from zero) are the
 ``launches`` of the kernels line. ``--phases a,b`` runs a subset and stops
 before the result lines; ``--cases K2,K3`` keeps only the kernel phase's
 cases and timing lines of those kernels (and stops there too). Any failure
@@ -219,8 +240,19 @@ STAGE2_ROUTE_TOL = 1e-3
 # configs/HdGan_fast.yaml (bf16, layer route) in stage 1 and then stage 2:
 # steps of each, on a list of as many slices, so each run ends an epoch
 FAST_STEPS = 6
+# the families phase: each 2-D family's config trains FAMILY_STEPS steps on
+# the kernel route over a list of as many slices (the epoch ends, validates
+# FAMILY_VAL slices and saves), then FAMILY_PLAIN_STEPS on the plain route,
+# whose first-step total loss lies within FAMILY_ROUTE_TOL (relative) of the
+# kernel route's (the same seeds, so the same batch and augmentation draws)
+FAMILY_STEPS = 6
+FAMILY_PLAIN_STEPS = 2
+FAMILY_VAL = 2
+FAMILY_ROUTE_TOL = 1e-3
+# CycleGAN with batchSize 2, grad_accum 2 and ema_decay 0.999: steps
+ACCUM_STEPS = 2
 ALL_PHASES = ("kernels", "generator", "int8", "grad", "serving",
-              "int8_serving", "training", "test", "stage2")
+              "int8_serving", "training", "test", "stage2", "families")
 
 
 def fail(msg):
@@ -945,6 +977,15 @@ PER_FORWARD = counts_of(conv3x3_reflect_stats=18, conv3x3_s2_zero_stats=2,
                         convt2x_stats=2)
 PER_TRAIN_STEP = counts_of(conv3x3_reflect_stats=36, conv3x3_input_grad=18,
                            conv3x3_weight_grad=18)
+# CycleGAN: four differentiated generator forwards (G_A2B(a), G_B2A(b) and
+# the two cycles) and no re-forward: the Ds train on the pools' fakes
+PER_CYC_STEP = counts_of(conv3x3_reflect_stats=72, conv3x3_input_grad=72,
+                         conv3x3_weight_grad=72)
+# grad_accum 2 (batchSize 2): those per microbatch, plus one no-grad forward
+# of each generator over the whole batch for the pools
+PER_CYC_ACCUM2_STEP = counts_of(conv3x3_reflect_stats=2 * 72 + 2 * 18,
+                                conv3x3_input_grad=2 * 72,
+                                conv3x3_weight_grad=2 * 72)
 # int8 forward with the InstanceNorm switch on: 2 K7 per residual block; K6
 # after the head, the two downs and the two ups
 PER_INT8_FORWARD = counts_of(conv3x3_reflect_s8=18, instance_norm_pallas=5)
@@ -1627,6 +1668,206 @@ def check_stage2(torch, card):
     return counts
 
 
+def _train_family(torch, config, steps):
+    """``__main__.train`` on a 2-D family's config, every kernel count set
+    to 0 just before and read just after; the first step's nets (by
+    checkpoint key) and the peak device memory of the run."""
+    from ctagan_tpu_torch.__main__ import train
+    from ctagan_tpu_torch.train import trainers
+
+    cls = trainers.TRAINERS[config.name]
+    first = {}
+    step = cls._step
+
+    def spy(self, batch, lr, lr_d):
+        if not first:
+            first.update((key, _snapshot(getattr(self.state, net)))
+                         for key, net in self._NETS)
+        return step(self, batch, lr, lr_d)
+
+    cls._step = spy
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        trainer = train(config, torch.device("cuda"), max_steps=steps)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        cls._step = step
+    if type(trainer) is not cls:
+        fail(f"families: {config.name} built {type(trainer).__name__}")
+    moved = {key: max(float((v.cpu() - first[key][n]).abs().max())
+                      for n, v in getattr(trainer.state, net)
+                      .state_dict().items())
+             for key, net in trainer._NETS}
+    return trainer, counts, moved, peak
+
+
+def check_families(torch, card):
+    """Phase 11, a main path: the pix2pix, CycleGAN and RegGAN trainers
+    through the train entry point at full width, 512², b=1, f32: each
+    config's kernel-route epoch and two plain-route steps; CycleGAN at
+    batchSize 2 with grad_accum 2 and ema_decay 0.999; then --mode test of
+    the P2p checkpoint on the serving route."""
+    import math
+
+    from ctagan_tpu_torch.__main__ import test as run_test
+    from ctagan_tpu_torch.data.fixtures import make_corpus
+    from ctagan_tpu_torch.utils.config import load_config
+
+    families = {"RegGan": ("RegGan.yaml", "toal_loss", PER_TRAIN_STEP),
+                "P2p": ("P2p.yaml", "loss_G", PER_TRAIN_STEP),
+                "CycleGan": ("CycleGan.yaml", "loss_G", PER_CYC_STEP)}
+    per_val = counts_of(conv3x3_reflect_stats=18)  # the training route
+    total = counts_of()
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        train_list = make_corpus(tmp, n_patients=1,
+                                 slices_per_patient=FAMILY_STEPS, size=512,
+                                 seed=0, lists=("train",))["train"]
+        with open(train_list) as f:
+            paths = [ln.strip() for ln in f if ln.strip()]
+        short = os.path.join(tmp, "short.txt")
+        with open(short, "w") as f:
+            f.write("\n".join(paths[:FAMILY_VAL]) + "\n")
+        lists = {"train": train_list, "val": short, "test": short}
+        accum_list = os.path.join(tmp, "accum.txt")
+        with open(accum_list, "w") as f:
+            f.write("\n".join(paths[:2 * ACCUM_STEPS]) + "\n")
+
+        def family_config(name, root, extra="", **kw):
+            os.makedirs(root, exist_ok=True)
+            return load_config(_smoke_config(
+                root, dict(lists, **kw), "val_every: 1\n" + extra,
+                base=families[name][0]))
+
+        for name, (base, key, per_step) in families.items():
+            root = os.path.join(tmp, name)
+            config = family_config(name, root)
+            trainer, counts, moved, peak = _train_family(
+                torch, config, FAMILY_STEPS)
+            losses = trainer.loss_history
+            p50 = trainer.timer.summary(skip=1)["p50_ms"]
+            saved = [fn for fn in os.listdir(os.path.join(root, "model"))
+                     if fn.startswith(f"{trainer.ckpt_prefix}_e1_")]
+            del trainer
+            torch.cuda.empty_cache()
+            plain, plain_counts, _, plain_peak = _train_family(
+                torch, family_config(name, os.path.join(root, "plain"),
+                                     "fused_body_grad: off\n"),
+                FAMILY_PLAIN_STEPS)
+            plain_losses = plain.loss_history
+            plain_p50 = plain.timer.summary()["p50_ms"]
+            del plain
+            torch.cuda.empty_cache()
+            expect = {k: v * FAMILY_STEPS + per_val[k] * FAMILY_VAL
+                      for k, v in per_step.items()}
+            k_loss, p_loss = losses[0][key], plain_losses[0][key]
+            gap = abs(k_loss - p_loss) / max(abs(p_loss), 1e-12)
+            print(f"families {name} ({base}) 512^2 b=1 f32 (cuDNN TF32 "
+                  f"off): {len(losses)} steps, loss keys {list(losses[0])}, "
+                  f"last losses {losses[-1]}, all finite {_finite(losses)}; "
+                  f"largest parameter change "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in moved.items())
+                  + f"; launches {counts} (expected {expect}: "
+                  f"{FAMILY_STEPS} steps and {FAMILY_VAL} val slices); "
+                  f"saved {saved}; first-step {key} kernel route {k_loss!r}"
+                  f", plain route {p_loss!r}, relative gap {gap:.3e} (tol "
+                  f"{FAMILY_ROUTE_TOL:.0e}); p50 step: kernel route "
+                  f"{p50:.1f} ms (steps 3-{FAMILY_STEPS}), plain route "
+                  f"{plain_p50:.1f} ms (step 2); peak memory kernel route "
+                  f"{peak / 2 ** 30:.2f} GiB, plain route "
+                  f"{plain_peak / 2 ** 30:.2f} GiB [{card}]", flush=True)
+            if len(losses) != FAMILY_STEPS or not _finite(losses) \
+                    or not _finite(plain_losses):
+                fail(f"families: {name} missing or non-finite losses")
+            if min(moved.values()) <= 0.0:
+                fail(f"families: {name} left a net unchanged {moved}")
+            if len(saved) != 1:
+                fail(f"families: {name}'s epoch saved {saved}")
+            if counts != expect:
+                fail(f"families: {name} launches {counts}, expected {expect}")
+            if plain_counts != counts_of():
+                fail(f"families: {name}'s plain route launched kernels "
+                     f"{plain_counts}")
+            if gap > FAMILY_ROUTE_TOL:
+                fail(f"families: {name}'s routes' first-step {key} differ "
+                     f"by {gap:.3e}")
+            for k, v in counts.items():
+                total[k] += v
+
+        # CycleGAN, batchSize 2, grad_accum 2, ema_decay 0.999: the epoch
+        # (two steps) validates on the EMA
+        root = os.path.join(tmp, "accum")
+        config = family_config("CycleGan", root, "batchSize: 2\n"
+                               "grad_accum: 2\nema_decay: 0.999\n",
+                               train=accum_list)
+        trainer, counts, moved, peak = _train_family(torch, config,
+                                                     ACCUM_STEPS)
+        losses = trainer.loss_history
+        ema, live = trainer.state.g_ema, trainer.g_model
+        reads_ema = trainer._eval_model() is ema
+        ema_gap = max(float((e - p.detach()).abs().max()) for e, p in
+                      zip(ema.parameters(), live.parameters()))
+        reset_counts()
+        val_ema = trainer.validate()
+        trainer.config.ema_decay = 0.0  # the live G_A2B, for comparison
+        val_live = trainer.validate()
+        trainer.config.ema_decay = 0.999
+        total_val = launch_counts()
+        del trainer, ema, live
+        torch.cuda.empty_cache()
+        expect = {k: v * ACCUM_STEPS + per_val[k] * FAMILY_VAL
+                  for k, v in PER_CYC_ACCUM2_STEP.items()}
+        print(f"families CycleGan batchSize 2, grad_accum 2, ema_decay "
+              f"0.999, 512^2 f32: {len(losses)} steps, last losses "
+              f"{losses[-1]}, all finite {_finite(losses)}; launches "
+              f"{counts} (expected {expect}); validation reads the EMA "
+              f"{reads_ema}, EMA vs live G_A2B max |diff| {ema_gap:.3e}, val "
+              f"PSNR/SSIM on the EMA {val_ema}, on the live G {val_live}; "
+              f"peak memory {peak / 2 ** 30:.2f} GiB [{card}]", flush=True)
+        if len(losses) != ACCUM_STEPS or not _finite(losses):
+            fail("families: CycleGan grad_accum missing or non-finite losses")
+        if counts != expect:
+            fail(f"families: CycleGan grad_accum launches {counts}, expected "
+                 f"{expect}")
+        if not reads_ema or not ema_gap > 0.0 or val_ema == val_live:
+            fail("families: CycleGan's validation does not read its EMA")
+        for k, v in counts.items():
+            total[k] += v + total_val[k]
+
+        # --mode test of the P2p epoch's checkpoint on the serving route
+        img = os.path.join(tmp, "P2p", "img")
+        config = family_config("P2p", os.path.join(tmp, "P2p"),
+                               f"fused_body: true\nimage_save: '{img}/'\n")
+        reset_counts()
+        trainer, agg, secs = run_test(config, dev)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        del trainer
+        torch.cuda.empty_cache()
+        se2 = [fn for d, _, fs in os.walk(img) for fn in fs
+               if os.path.basename(d) == "SE2"]
+        expect = {k: v * FAMILY_VAL for k, v in PER_FORWARD.items()}
+        print(f"families P2p --mode test, serving route (fused_body): "
+              f"{FAMILY_VAL} slices in {secs:.3f} s; "
+              + ", ".join(f"{k} {v:.4f}" for k, v in agg.items())
+              + f"; {len(se2)} SE2 files; launches {counts} (expected "
+              f"{expect}) [{card}]", flush=True)
+        if sorted(agg) != sorted(("MAEw", "PSNRw", "SSIMw", "UQIw", "MAE",
+                                  "PSNR", "SSIM", "UQI")) or not all(
+                                      math.isfinite(v) for v in agg.values()):
+            fail(f"families: P2p test() metrics {agg}")
+        if len(se2) != FAMILY_VAL:
+            fail(f"families: P2p test() wrote {len(se2)} SE2 files")
+        if counts != expect:
+            fail(f"families: P2p test() launches {counts}, expected {expect}")
+        for k, v in counts.items():
+            total[k] += v
+    return total
+
+
 def _eval_corpus(tmp):
     """The test phase's corpus: val and test list paths, the test slices."""
     from ctagan_tpu_torch.data import dicom
@@ -1880,7 +2121,8 @@ MAIN_PATHS = {"serving": check_serving,
                   torch, card, quantize="int8"),
               "training": check_training,
               "test": check_test,
-              "stage2": check_stage2}
+              "stage2": check_stage2,
+              "families": check_families}
 
 
 def main():

@@ -14,9 +14,10 @@ as the one ``ctagan_tpu.models.torch_export.save_state_dict`` writes from a
 JAX checkpoint. Without one, the generator serves weights drawn from the
 config's ``seed``.
 
-``train`` runs the trainer of the config's ``name`` (``HdGan``: HD stage 1,
-``HdGan2``: HD stage 2; ``train/trainers.py::build_trainer``; the JAX
-package's other families raise naming their ROADMAP item) from seeded
+``train`` runs the trainer of the config's ``name`` (``P2p``: pix2pix,
+``CycleGan``, ``RegGan``, ``HdGan``: HD stage 1, ``HdGan2``: HD stage 2;
+``train/trainers.py::build_trainer``; ``P3d`` raises naming its ROADMAP
+item) from seeded
 weights on the config's ``train_list`` (or from the newest checkpoint in
 ``save_root`` with ``resume: true``), printing the losses every
 ``log_every`` steps, validating every ``val_every`` epochs and saving a
@@ -98,7 +99,7 @@ def _trainer(config: Config, device: torch.device):
 
 def train(config: Config, device: torch.device,
           max_steps: int | None = None):
-    """Run the config's trainer (HD stage 1 or 2); returns the trainer."""
+    """Run the config's trainer; returns the trainer."""
     trainer = _trainer(config, device)
     print(f"training {config.name} ({trainer.title}) at {config.size}^2 on "
           f"{device}, fused_body_grad {config.fused_body_grad}"

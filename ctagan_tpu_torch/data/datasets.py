@@ -1,16 +1,23 @@
-"""The dual-window dataset of the port (``ctagan_tpu/data/datasets.py::
-DualWindowDataset``).
+"""The list-file datasets of the port (``ctagan_tpu/data/datasets.py``).
 
 Each list file holds NCCT slice paths containing ``SE0``; the CTA partner is
-the same path with ``SE0`` → ``SE1``. An item is {A1, A2, B1, B2}, the
-(windowed, full-range) views of input and target, or with ``raw_feed`` the
-stored uint16 pixels {A, B} that the trainer windows on the device. The
-training list is re-oversampled every epoch by :meth:`resample`: ``traind1``
-appended once, ``traind2`` a random 3..5 times.
+the same path with ``SE0`` → ``SE1``. Two families:
+
+- :class:`PairedSliceDataset` (pix2pix, CycleGAN, RegGAN): an item is the
+  full-range pair {A, B} in [−1, 1], or with ``raw_feed`` the stored uint16
+  pixels that the trainer maps to full range on the device. ``unaligned``
+  draws a fresh B per visit; ``context_slices`` stacks the ±k neighbours
+  of A's series on the channel axis.
+- :class:`DualWindowDataset` (HD): an item is {A1, A2, B1, B2}, the
+  (windowed, full-range) views of input and target, or with ``raw_feed``
+  the stored pixels {A, B}. The training list is re-oversampled every epoch
+  by :meth:`~DualWindowDataset.resample`: ``traind1`` appended once,
+  ``traind2`` a random 3..5 times.
 """
 from __future__ import annotations
 
 import os
+import threading
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -33,6 +40,84 @@ def _pair(paths: Sequence[str]) -> List[str]:
 
 def _stored_pixels(path: str) -> np.ndarray:
     return read_dicom(path).pixel_array()
+
+
+def read_fullrange_slice(path: str) -> np.ndarray:
+    """Stored pixels -> full range [−1, 1]: negatives to 0, /4095, centred
+    (f32, the host codec's arithmetic)."""
+    return dual_window_native(_stored_pixels(path))[1]
+
+
+class PairedSliceDataset:
+    """Single-channel paired dataset (A = NCCT SE0, B = CTA SE1)."""
+
+    def __init__(self, list_file: str, sort: bool = True,
+                 unaligned: bool = False, size: Optional[int] = None,
+                 context_slices: int = 1, seed: int = 0,
+                 raw_feed: bool = False):
+        files_a = _read_list(list_file)
+        if sort:
+            files_a = sorted(files_a)
+        self.files_a = files_a
+        self.files_b = _pair(files_a)
+        self.unaligned = unaligned
+        self.size = size
+        self.seed = seed
+        self.raw_feed = raw_feed
+        # unaligned B draws: visit ``count`` of ``index`` draws from the key
+        # (seed, index, count), so the stream does not depend on the order
+        # in which the loader's threads visit the items
+        self._b_counts: Dict[int, int] = {}
+        self._b_lock = threading.Lock()
+        if context_slices % 2 != 1:
+            raise ValueError("context_slices must be odd")
+        self.context_slices = context_slices
+        # index -> (the indices of its series in list order, its position)
+        self._series_index: Dict[int, tuple] = {}
+        if context_slices > 1:
+            by_series: Dict[str, List[int]] = {}
+            for i, p in enumerate(files_a):
+                by_series.setdefault(os.path.dirname(p), []).append(i)
+            for idxs in by_series.values():
+                for pos, i in enumerate(idxs):
+                    self._series_index[i] = (idxs, pos)
+
+    def __len__(self) -> int:
+        return len(self.files_a)
+
+    def _load(self, path: str) -> np.ndarray:
+        img = (_stored_pixels(path) if self.raw_feed
+               else read_fullrange_slice(path))
+        if self.size:
+            img = _resize_nearest_np(img, self.size)
+        return img[..., None]
+
+    def _load_context(self, index: int) -> np.ndarray:
+        """The ±k neighbours of A's slice in its series, clamped at the
+        series' ends, stacked on the channel axis (the slice at the
+        centre)."""
+        idxs, pos = self._series_index[index]
+        half = self.context_slices // 2
+        return np.stack([
+            self._load(self.files_a[idxs[min(max(pos + off, 0),
+                                             len(idxs) - 1)]])[..., 0]
+            for off in range(-half, half + 1)], axis=-1)
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        a_path = self.files_a[index % len(self.files_a)]
+        if self.unaligned:
+            with self._b_lock:
+                count = self._b_counts[index] = self._b_counts.get(index,
+                                                                   0) + 1
+            rng = np.random.default_rng((self.seed, index, count))
+            b_path = self.files_b[int(rng.integers(0, len(self.files_b)))]
+        else:
+            b_path = self.files_b[index % len(self.files_b)]
+        if self.context_slices > 1:
+            a_img = self._load_context(index % len(self.files_a))
+        else:
+            a_img = self._load(a_path)
+        return {"A": a_img, "B": self._load(b_path), "A_path": a_path}
 
 
 class DualWindowDataset:

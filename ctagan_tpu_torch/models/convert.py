@@ -7,6 +7,9 @@ multi-scale discriminator's, that one under ``scale{i}.`` prefixes) that
 need no JAX: the tree is nested dicts of numpy
 arrays, ``{"params": {"ConvTorch_0": {"Conv_0": {"kernel", "bias"}}, ...}}``.
 
+The ``load_*_state`` functions fill a port family state's nets from a JAX
+family state's trees.
+
 - Conv kernel (kh, kw, I, O)                        -> Conv2d (O, I, kh, kw)
 - ConvTranspose (transpose_kernel=True) (kh, kw, O, I) -> (I, O, kh, kw)
 """
@@ -129,3 +132,37 @@ def regnet_state_dict(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     _weight(sd, "offset_map.output.conv2d",
             params["output"]["ConvTorch_0"]["Conv_0"])
     return sd
+
+
+# -- a JAX family state's params -> the port state's nets ---------------------
+# Each takes the params trees of a JAX ``P2pState``, ``RegState`` or
+# ``CycState`` (numpy) and loads them into the port state of the same family
+# (``train/steps.py``) with ``strict=True``; an EMA shadow starts at the
+# loaded generator, as JAX's ``init_*_state`` copies it.
+
+def _load(net, sd, ema=None) -> None:
+    net.load_state_dict(sd, strict=True)
+    if ema is not None:
+        ema.load_state_dict(sd, strict=True)
+
+
+def load_p2p_state(state, g_params, d_params) -> None:
+    """``g_params``/``d_params`` into a ``P2pState`` (D on the input stack
+    plus the output, 2 channels at ``input_nc`` 1)."""
+    _load(state.g_model, generator_state_dict(g_params), state.g_ema)
+    _load(state.d_model, discriminator_state_dict(d_params))
+
+
+def load_reg_state(state, g_params, r_params, d_params) -> None:
+    """``g_params``/``r_params``/``d_params`` into a ``RegState``."""
+    _load(state.g_model, generator_state_dict(g_params), state.g_ema)
+    _load(state.r_model, regnet_state_dict(r_params))
+    _load(state.d_model, discriminator_state_dict(d_params))
+
+
+def load_cyc_state(state, g_a2b, g_b2a, d_a, d_b) -> None:
+    """The four nets of a JAX ``CycState`` into a port ``CycState``."""
+    _load(state.g_a2b, generator_state_dict(g_a2b), state.g_ema)
+    _load(state.g_b2a, generator_state_dict(g_b2a), state.g_ema_b2a)
+    _load(state.d_a, discriminator_state_dict(d_a))
+    _load(state.d_b, discriminator_state_dict(d_b))

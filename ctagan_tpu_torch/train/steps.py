@@ -1,31 +1,44 @@
-"""The HD train step of the port (``ctagan_tpu/train/steps.py``).
+"""The train steps of the port (``ctagan_tpu/train/steps.py``), one per
+trainer family, each on PyTorch modules updated in place.
 
-:func:`reg_train_step` with ``dual_window_mode=True`` is the JAX step of the
-same name on PyTorch modules: G and R take one Adam step on the joint loss
-(flow smoothness + L1 correlation of the warped fake + adversarial term, D
-frozen), then D takes one on its loss over a fresh, no-grad G forward with
-the updated weights (``d_refwd``, the reference's order) and the real
-target. Adam(0.5, 0.999, eps 1e-8) with the learning rate set on the param
-groups each step, a separate ``lr_d`` for D. Augmentation draws come from
-the state's ``torch.Generator``.
+:func:`reg_train_step` is RegGAN (``dual_window_mode=False``: G's input is
+the augmented A, R registers to the augmented B, ``Adv_lamda`` and
+``Corr_lamda``) and HD (``dual_window_mode=True``: A2 in, B2 the target, B1
+the stage-2 mask source, ``Adv_lamda1`` and ``Corr_lamda1``): G and R take
+one Adam step on the joint loss (flow smoothness + L1 correlation of the
+warped fake + adversarial term, D frozen), then D takes one on its loss over
+a fresh, no-grad G forward with the updated weights (``d_refwd``, the
+reference's order) and the real target. Stage 1 and RegGAN score a scalar D
+with LSGAN. ``stage2=True`` takes a multi-scale D (a list over scales of
+feature lists) with the weighted ``GANLoss``, halves D's loss, adds the
+window-masked ``SR_loss2`` on the B1 body mask, and with ``FM_lamda > 0``
+feature matching against D's features of the real target.
 
-Stage 1 scores a scalar D with LSGAN. ``stage2=True`` takes a multi-scale D
-(a list over scales of feature lists) with the weighted ``GANLoss``, halves
-D's loss, adds the window-masked ``SR_loss2`` on the B1 body mask, and with
-``FM_lamda > 0`` feature matching against D's features of the real target.
-Both stages weight their adversarial terms with ``Adv_lamda1``, as JAX does.
+:func:`p2p_train_step` is pix2pix: ``P2P_lamda``·L1 + ``Adv_lamda``·LSGAN
+of a conditional D on [A, fake], then D on a fresh no-grad forward of the
+updated G. :func:`cyc_train_step` is CycleGAN: one Adam over both
+generators (the reference's ``itertools.chain``), two LSGAN and two
+``Cyc_lamda``·L1 cycle terms with both Ds frozen, then each D on the real
+images and the pre-update fakes through its replay pool.
 
-Knobs: ``warp_max_disp`` > 0 warps with the flow clipped to [−R, R]
-(``ops/warp.py::warp2d_local``); ``reg_downsample`` > 1 runs R at 1/ds
-resolution and upsamples its flow, times ds; ``r1_gamma`` > 0 adds the R1
-penalty 0.5·γ·E‖∇ₓ D(real)‖² to D's loss (and returns it as ``R1_loss``).
-The knobs not ported yet raise ``NotImplementedError`` naming their ROADMAP
-item instead of being ignored.
+Adam(0.5, 0.999, eps 1e-8) with the learning rate set on the param groups
+each step. Augmentation draws come from the state's ``torch.Generator``.
+
+Knobs: ``grad_accum`` K > 1 splits the augmented batch into K equal
+microbatches and averages their losses and gradients (the G and D phases
+alike; D re-forwards G per microbatch). ``ema_decay`` keeps an EMA of G
+whose decay ramps as min(decay, (1 + t)/(10 + t)), t the G optimizer's
+count after the update. ``warp_max_disp`` > 0 warps with the flow clipped
+to [−R, R] (``ops/warp.py::warp2d_local``); ``reg_downsample`` > 1 runs R at
+1/ds resolution and upsamples its flow, times ds; ``r1_gamma`` > 0 adds the
+R1 penalty 0.5·γ·E‖∇ₓ D(real)‖² to D's loss (and returns it as
+``R1_loss``). ``pipeline_1f1b`` is not ported yet and raises.
 """
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -39,12 +52,7 @@ from ctagan_tpu_torch.ops.losses import (
 )
 from ctagan_tpu_torch.ops.resize import interpolate_bilinear
 from ctagan_tpu_torch.ops.warp import smoothing_loss, warp2d, warp2d_local
-
-# knob -> (value that the port runs, the ROADMAP item that ports the rest)
-_UNPORTED = {
-    "grad_accum": (1, "M8 (grad_accum)"),
-    "ema_decay": (0.0, "M5 (ema_decay)"),
-}
+from ctagan_tpu_torch.train.replay_buffer import ReplayBuffer, push_and_pop
 
 
 def make_optimizer(params: Sequence[torch.nn.Parameter]) -> torch.optim.Adam:
@@ -61,6 +69,247 @@ def _apply(opt: torch.optim.Adam, params, grads, lr: float) -> None:
     opt.zero_grad(set_to_none=True)
 
 
+def _count(opt: torch.optim.Adam) -> int:
+    """The optimizer's step count (every param steps together)."""
+    first = opt.param_groups[0]["params"][0]
+    return int(opt.state[first]["step"]) if first in opt.state else 0
+
+
+def make_ema(model: torch.nn.Module) -> torch.nn.Module:
+    """The EMA shadow of ``model``: a frozen copy of its current weights."""
+    return copy.deepcopy(model).requires_grad_(False)
+
+
+def ema_decay_at(decay: float, count: int) -> Tuple[float, float]:
+    """(d, 1 − d) with d = min(decay, (1 + t)/(10 + t)), t = ``count``, in
+    f32 arithmetic as JAX's ``_ema_update`` computes them."""
+    t = torch.tensor(float(count), dtype=torch.float32)
+    d = torch.minimum(torch.tensor(decay, dtype=torch.float32),
+                      (1.0 + t) / (10.0 + t))
+    return float(d), float(1.0 - d)
+
+
+@torch.no_grad()
+def _ema_update(ema: Optional[torch.nn.Module], model: torch.nn.Module,
+                decay: float, count: int) -> None:
+    """ema ← ema·d + params·(1 − d), the decay ramped by the G optimizer's
+    post-update ``count`` (:func:`ema_decay_at`)."""
+    if ema is None:
+        return
+    d, one_minus = ema_decay_at(decay, count)
+    shadow = list(ema.parameters())
+    torch._foreach_mul_(shadow, d)
+    torch._foreach_add_(shadow, torch._foreach_mul(
+        [p.detach() for p in model.parameters()], one_minus))
+
+
+LossFn = Callable[[Dict[str, torch.Tensor]],
+                  Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+
+
+def _value_and_grad(loss_fn: LossFn, params: List[torch.nn.Parameter],
+                    batches: Dict[str, torch.Tensor], n: int = 1):
+    """(loss, aux, grads) of ``loss_fn(mb) -> (loss, aux)``: with ``n`` > 1
+    the means over ``n`` equal microbatches of the batch's leading axis
+    (summed in microbatch order, then scaled by 1/n, as JAX's
+    ``_grad_accum_scan``), holding one microbatch's graph at a time."""
+    lead = next(iter(batches.values())).shape[0]
+    assert lead % n == 0, f"grad_accum={n} must divide the batch ({lead})"
+    m = lead // n
+    loss = aux = grads = None
+    for i in range(n):
+        mb = {k: v[i * m:(i + 1) * m] for k, v in batches.items()}
+        l_i, a_i = loss_fn(mb)
+        g_i = torch.autograd.grad(l_i, params)
+        a_i = {k: v.detach() for k, v in a_i.items()}
+        if loss is None:
+            loss, aux, grads = l_i.detach(), a_i, list(g_i)
+        else:
+            loss = loss + l_i.detach()
+            aux = {k: aux[k] + a_i[k] for k in aux}
+            grads = [g + h for g, h in zip(grads, g_i)]
+    if n > 1:
+        inv = 1.0 / n
+        loss = loss * inv
+        aux = {k: v * inv for k, v in aux.items()}
+        grads = [g * inv for g in grads]
+    return loss, aux, grads
+
+
+def _augment(state, cfg, a: torch.Tensor, b: torch.Tensor):
+    """A and B through independent affine draws (one shared draw with
+    ``aligned_aug``)."""
+    n, h, w, _ = a.shape
+    noise = cfg["noise_level"]
+    params_a = sample_affine_params(state.gen, n, noise, h, w)
+    params_b = (params_a if cfg.get("aligned_aug", False)
+                else sample_affine_params(state.gen, n, noise, h, w))
+    return affine_warp(a, *params_a), affine_warp(b, *params_b)
+
+
+# ===========================================================================
+# pix2pix
+# ===========================================================================
+
+@dataclass
+class P2pState:
+    g_model: torch.nn.Module
+    d_model: torch.nn.Module
+    g_opt: torch.optim.Adam
+    d_opt: torch.optim.Adam
+    gen: torch.Generator  # augmentation draws
+    g_ema: Optional[torch.nn.Module] = None
+
+
+def init_p2p_state(g_model, d_model, seed: int = 0,
+                   ema: bool = False) -> P2pState:
+    return P2pState(
+        g_model, d_model, make_optimizer(list(g_model.parameters())),
+        make_optimizer(list(d_model.parameters())),
+        torch.Generator().manual_seed(seed),
+        make_ema(g_model) if ema else None)
+
+
+def p2p_train_step(state: P2pState, cfg: Dict,
+                   batch: Dict[str, torch.Tensor], lr: float
+                   ) -> Dict[str, torch.Tensor]:
+    """One pix2pix step on ``batch`` {A, B} (NHWC, [−1, 1]; A may hold
+    ``context_slices`` channels). D is conditional on [A, ·]; its
+    predictions are scaled by ``Adv_lamda`` before the MSE, as the
+    reference does."""
+    g_model, d_model = state.g_model, state.d_model
+    a, b = _augment(state, cfg, batch["A"], batch["B"])
+    n_accum = int(cfg.get("grad_accum", 1))
+    adv_w, l1_w = cfg["Adv_lamda"], cfg["P2P_lamda"]
+    g_params = list(g_model.parameters())
+
+    def g_loss(mb):
+        fake = g_model(mb["a"])
+        loss_l1 = l1(fake, mb["b"]) * l1_w
+        pred = d_model(torch.cat([mb["a"], fake], dim=-1))
+        loss_adv = mse(pred, 1.0) * adv_w
+        return loss_l1 + loss_adv, {"loss_L1": loss_l1,
+                                    "loss_GAN_A2B": loss_adv}
+
+    ab = {"a": a, "b": b}
+    g_loss_v, g_aux, g_grads = _value_and_grad(g_loss, g_params, ab, n_accum)
+    _apply(state.g_opt, g_params, g_grads, lr)
+
+    def d_loss(mb):
+        with torch.no_grad():
+            fake2 = g_model(mb["a"])
+        pf = d_model(torch.cat([mb["a"], fake2], dim=-1)) * adv_w
+        pr = d_model(torch.cat([mb["a"], mb["b"]], dim=-1)) * adv_w
+        return mse(pf, 0.0) + mse(pr, 1.0), {}
+
+    d_params = list(d_model.parameters())
+    d_loss_v, _, d_grads = _value_and_grad(d_loss, d_params, ab, n_accum)
+    _apply(state.d_opt, d_params, d_grads, lr)
+    _ema_update(state.g_ema, g_model, cfg.get("ema_decay", 0.999),
+                _count(state.g_opt))
+    return {"loss_G": g_loss_v, **g_aux, "loss_D_B": d_loss_v}
+
+
+# ===========================================================================
+# CycleGAN
+# ===========================================================================
+
+@dataclass
+class CycState:
+    g_a2b: torch.nn.Module
+    g_b2a: torch.nn.Module
+    d_a: torch.nn.Module
+    d_b: torch.nn.Module
+    g_opt: torch.optim.Adam  # over both generators
+    d_a_opt: torch.optim.Adam
+    d_b_opt: torch.optim.Adam
+    fake_a_buffer: ReplayBuffer
+    fake_b_buffer: ReplayBuffer
+    gen: torch.Generator  # augmentation and replay-pool draws
+    g_ema: Optional[torch.nn.Module] = None  # of G_A2B, the eval model
+    g_ema_b2a: Optional[torch.nn.Module] = None
+
+
+def init_cyc_state(g_a2b, g_b2a, d_a, d_b, size: int, input_nc: int = 1,
+                   seed: int = 0, buffer_size: int = 50,
+                   ema: bool = False) -> CycState:
+    first = next(g_a2b.parameters())
+    pool = dict(dtype=first.dtype, device=first.device)
+    return CycState(
+        g_a2b, g_b2a, d_a, d_b,
+        make_optimizer(list(g_a2b.parameters()) + list(g_b2a.parameters())),
+        make_optimizer(list(d_a.parameters())),
+        make_optimizer(list(d_b.parameters())),
+        ReplayBuffer.create(buffer_size, (size, size, input_nc), **pool),
+        ReplayBuffer.create(buffer_size, (size, size, input_nc), **pool),
+        torch.Generator().manual_seed(seed),
+        make_ema(g_a2b) if ema else None,
+        make_ema(g_b2a) if ema else None)
+
+
+def cyc_train_step(state: CycState, cfg: Dict,
+                   batch: Dict[str, torch.Tensor], lr: float
+                   ) -> Dict[str, torch.Tensor]:
+    """One CycleGAN step on ``batch`` {A, B}. Under ``grad_accum`` the
+    pools' fakes come from one extra no-grad forward of both generators
+    over the whole batch at the pre-update weights."""
+    ga, gb, da, db = state.g_a2b, state.g_b2a, state.d_a, state.d_b
+    real_a, real_b = _augment(state, cfg, batch["A"], batch["B"])
+    adv_w, cyc_w = cfg["Adv_lamda"], cfg["Cyc_lamda"]
+    n_accum = int(cfg.get("grad_accum", 1))
+    g_params = list(ga.parameters()) + list(gb.parameters())
+    fakes: Dict[str, torch.Tensor] = {}
+
+    def g_loss(mb):
+        fake_b = ga(mb["a"])
+        loss_gan_a2b = adv_w * mse(db(fake_b), 1.0)
+        fake_a = gb(mb["b"])
+        loss_gan_b2a = adv_w * mse(da(fake_a), 1.0)
+        loss_cyc_aba = cyc_w * l1(gb(fake_b), mb["a"])
+        loss_cyc_bab = cyc_w * l1(ga(fake_a), mb["b"])
+        if n_accum == 1:
+            fakes.update(a=fake_a.detach(), b=fake_b.detach())
+        total = loss_gan_a2b + loss_gan_b2a + loss_cyc_aba + loss_cyc_bab
+        return total, {"loss_GAN_A2B": loss_gan_a2b,
+                       "loss_cycle_ABA": loss_cyc_aba}
+
+    g_loss_v, g_aux, g_grads = _value_and_grad(
+        g_loss, g_params, {"a": real_a, "b": real_b}, n_accum)
+    if n_accum > 1:
+        with torch.no_grad():
+            fakes.update(b=ga(real_a), a=gb(real_b))
+    _apply(state.g_opt, g_params, g_grads, lr)
+
+    # the Ds train on the pre-update fakes, through the history pools
+    fake_a_d = push_and_pop(state.fake_a_buffer, fakes["a"], state.gen)
+    fake_b_d = push_and_pop(state.fake_b_buffer, fakes["b"], state.gen)
+
+    def d_update(d_model, opt, real, fake):
+        params = list(d_model.parameters())
+
+        def d_loss(mb):
+            loss_real = adv_w * mse(d_model(mb["real"]), 1.0)
+            loss_fake = adv_w * mse(d_model(mb["fake"]), 0.0)
+            return loss_real + loss_fake, {}
+
+        loss, _, grads = _value_and_grad(
+            d_loss, params, {"real": real, "fake": fake}, n_accum)
+        _apply(opt, params, grads, lr)
+        return loss
+
+    d_a_loss = d_update(da, state.d_a_opt, real_a, fake_a_d)
+    d_b_loss = d_update(db, state.d_b_opt, real_b, fake_b_d)
+    decay, count = cfg.get("ema_decay", 0.999), _count(state.g_opt)
+    _ema_update(state.g_ema, ga, decay, count)
+    _ema_update(state.g_ema_b2a, gb, decay, count)
+    return {"loss_G": g_loss_v, **g_aux, "loss_D_A": d_a_loss,
+            "loss_D_B": d_b_loss}
+
+
+# ===========================================================================
+# RegGAN and HD stage 1 / stage 2
+# ===========================================================================
+
 @dataclass
 class RegState:
     g_model: torch.nn.Module
@@ -70,34 +319,21 @@ class RegState:
     r_opt: torch.optim.Adam
     d_opt: torch.optim.Adam
     gen: torch.Generator  # augmentation draws
+    g_ema: Optional[torch.nn.Module] = None
 
 
-def init_reg_state(g_model, r_model, d_model, seed: int = 0) -> RegState:
-    """Optimizers for the three nets (their weights as they are) and the
-    augmentation generator seeded from ``seed``."""
+def init_reg_state(g_model, r_model, d_model, seed: int = 0,
+                   ema: bool = False) -> RegState:
+    """Optimizers for the three nets (their weights as they are), the
+    augmentation generator seeded from ``seed`` and with ``ema`` G's EMA."""
     return RegState(
         g_model, r_model, d_model,
         make_optimizer(list(g_model.parameters())),
         make_optimizer(list(r_model.parameters())),
         make_optimizer(list(d_model.parameters())),
         torch.Generator().manual_seed(seed),
+        make_ema(g_model) if ema else None,
     )
-
-
-def _check_supported(cfg, dual_window_mode, pipeline_1f1b):
-    if not dual_window_mode:
-        raise NotImplementedError(
-            "reg_train_step: the RegGAN family (dual_window_mode=False) is "
-            "not ported yet (ROADMAP M8)")
-    if pipeline_1f1b is not None:
-        raise NotImplementedError(
-            "reg_train_step: pipeline_1f1b is not ported yet (ROADMAP M12)")
-    for key, (default, item) in _UNPORTED.items():
-        if cfg.get(key, default) != default:
-            raise NotImplementedError(
-                f"reg_train_step: {key}={cfg[key]!r} is not ported yet "
-                f"(ROADMAP {item}); the port runs {key}={default!r}")
-
 
 def _predict_flow(r_model, moving, fixed, ds: int) -> torch.Tensor:
     """R's flow; with ``ds`` > 1 at (h // ds, w // ds), bilinearly upsampled
@@ -123,85 +359,110 @@ def reg_train_step(state: RegState, cfg: Dict, batch: Dict[str, torch.Tensor],
                    lr: float, lr_d: Optional[float] = None,
                    dual_window_mode: bool = False, stage2: bool = False,
                    pipeline_1f1b=None) -> Dict[str, torch.Tensor]:
-    """One HD step on ``batch`` {A1, A2, B1, B2} (NHWC, [−1, 1]): stage 1, or
-    stage 2 with ``stage2``. Updates the state's nets and optimizers in
-    place; returns the detached losses under the JAX step's keys and in its
-    order (``toal_loss`` as spelled there)."""
-    _check_supported(cfg, dual_window_mode, pipeline_1f1b)
+    """One RegGAN step on ``batch`` {A, B}, or with ``dual_window_mode`` one
+    HD step on {A1, A2, B1, B2} (NHWC, [−1, 1]): stage 1, or stage 2 with
+    ``stage2``. Updates the state's nets and optimizers in place; returns
+    the detached losses under the JAX step's keys and in its order
+    (``toal_loss`` as spelled there)."""
+    if pipeline_1f1b is not None:
+        raise NotImplementedError(
+            "reg_train_step: pipeline_1f1b is not ported yet (ROADMAP M12)")
     g_model, r_model, d_model = state.g_model, state.r_model, state.d_model
-    a2, b2, b1 = batch["A2"], batch["B2"], batch["B1"]
-    n, h, w, _ = a2.shape
-    noise = cfg["noise_level"]
-    params_a = sample_affine_params(state.gen, n, noise, h, w)
-    # aligned_aug: both sides share one draw (the JAX step's k2 = k1)
-    params_b = (params_a if cfg.get("aligned_aug", False)
-                else sample_affine_params(state.gen, n, noise, h, w))
-    real_a = affine_warp(a2, *params_a)
-    # B2 and B1 warp as channels of one gather with the same parameters
-    c2 = b2.shape[-1]
-    warped_b = affine_warp(torch.cat([b2, b1], dim=-1), *params_b)
-    real_b, real_b1 = warped_b[..., :c2], warped_b[..., c2:]
-    adv_w, corr_w = cfg["Adv_lamda1"], cfg["Corr_lamda1"]
+    if dual_window_mode:
+        # B2 and B1 warp as channels of one gather with the same parameters
+        b2 = batch["B2"]
+        real_a, warped_b = _augment(state, cfg, batch["A2"],
+                                    torch.cat([b2, batch["B1"]], dim=-1))
+        c2 = b2.shape[-1]
+        real_b, real_b1 = warped_b[..., :c2], warped_b[..., c2:]
+        adv_w, corr_w = cfg["Adv_lamda1"], cfg["Corr_lamda1"]
+    else:
+        real_a, real_b = _augment(state, cfg, batch["A"], batch["B"])
+        real_b1 = None
+        adv_w, corr_w = cfg["Adv_lamda"], cfg["Corr_lamda"]
     smooth_w = cfg["Smooth_lamda"]
     warp_r = int(cfg.get("warp_max_disp", 0))
     reg_ds = int(cfg.get("reg_downsample", 1))
     r1_w = float(cfg.get("r1_gamma", 0.0))
+    n_accum = int(cfg.get("grad_accum", 1))
     if lr_d is None:
         lr_d = lr
 
+    fakes: List[torch.Tensor] = []
+
+    def gr_loss(mb):
+        rb = mb["b"]
+        fake_b = g_model(mb["a"])
+        if n_accum == 1:
+            fakes.append(fake_b.detach())
+        flow = _predict_flow(r_model, fake_b, rb, reg_ds)
+        warped = (warp2d_local(fake_b, flow, warp_r) if warp_r > 0
+                  else warp2d(fake_b, flow))
+        sm = smooth_w * smoothing_loss(flow)
+        sr = corr_w * l1(warped, rb)
+        d_out = d_model(fake_b)
+        if stage2:
+            adv = adv_w * gan_loss_multiscale(d_out, True)
+        else:
+            adv = adv_w * mse(d_out, 1.0)
+        total = sm + adv + sr
+        aux = {"SM_loss": sm, "SR_loss": sr, "adv_loss": adv}
+        if stage2 and cfg.get("FM_lamda", 0.0) > 0.0:
+            fm = cfg["FM_lamda"] * feature_matching_loss(
+                d_out, d_model(rb), num_d=len(d_out))
+            total = total + fm
+            aux["FM_loss"] = fm
+        if stage2:
+            sr2 = cfg["Corr_lamda2"] * masked_correlation_loss(warped, rb,
+                                                               mb["b1"])
+            total = total + sr2
+            aux["SR_loss2"] = sr2
+        return total, aux
+
     g_params = list(g_model.parameters())
     r_params = list(r_model.parameters())
-    fake_b = g_model(real_a)
-    flow = _predict_flow(r_model, fake_b, real_b, reg_ds)
-    warped = (warp2d_local(fake_b, flow, warp_r) if warp_r > 0
-              else warp2d(fake_b, flow))
-    sm = smooth_w * smoothing_loss(flow)
-    sr = corr_w * l1(warped, real_b)
-    d_out = d_model(fake_b)
-    if stage2:
-        adv = adv_w * gan_loss_multiscale(d_out, True)
-    else:
-        adv = adv_w * mse(d_out, 1.0)
-    total = sm + adv + sr
-    aux = {"SM_loss": sm, "SR_loss": sr, "adv_loss": adv}
-    if stage2 and cfg.get("FM_lamda", 0.0) > 0.0:
-        fm = cfg["FM_lamda"] * feature_matching_loss(
-            d_out, d_model(real_b), num_d=len(d_out))
-        total = total + fm
-        aux["FM_loss"] = fm
-    if stage2:
-        sr2 = cfg["Corr_lamda2"] * masked_correlation_loss(warped, real_b,
-                                                           real_b1)
-        total = total + sr2
-        aux["SR_loss2"] = sr2
-    grads = torch.autograd.grad(total, g_params + r_params)
+    mbs = {"a": real_a, "b": real_b}
+    if real_b1 is not None:
+        mbs["b1"] = real_b1
+    total, aux, grads = _value_and_grad(gr_loss, g_params + r_params, mbs,
+                                        n_accum)
     _apply(state.g_opt, g_params, grads[: len(g_params)], lr)
     _apply(state.r_opt, r_params, grads[len(g_params):], lr)
 
-    if cfg.get("d_refwd", True):
-        with torch.no_grad():
-            fake2 = g_model(real_a)
-    else:
-        fake2 = fake_b.detach()
-    d_params = list(d_model.parameters())
-    # the R1 penalty differentiates D's score of the real target by its input
-    real_d = real_b.detach().requires_grad_(r1_w > 0.0)
-    pf, pr = d_model(fake2), d_model(real_d)
-    if stage2:
-        d_loss = adv_w * (gan_loss_multiscale(pf, False)
-                          + gan_loss_multiscale(pr, True)) / 2.0
-    else:
-        d_loss = adv_w * mse(pf, 0.0) + adv_w * mse(pr, 1.0)
-    out = {"toal_loss": total.detach()}
-    if r1_w > 0.0:
+    def d_loss(mb):
+        if "fake2" in mb:
+            fake2 = mb["fake2"]
+        else:
+            with torch.no_grad():
+                fake2 = g_model(mb["a"])
+        # the R1 penalty differentiates D's score of the real target by its
+        # input
+        real_d = mb["b"].detach().requires_grad_(r1_w > 0.0)
+        pf, pr = d_model(fake2), d_model(real_d)
+        if stage2:
+            loss = adv_w * (gan_loss_multiscale(pf, False)
+                            + gan_loss_multiscale(pr, True)) / 2.0
+        else:
+            loss = adv_w * mse(pf, 0.0) + adv_w * mse(pr, 1.0)
+        if r1_w <= 0.0:
+            return loss, {}
         (gx,) = torch.autograd.grad(_r1_score(pr, stage2), real_d,
                                     create_graph=True)
         gx = gx.float()
         r1 = 0.5 * r1_w * (gx * gx).sum(dim=tuple(range(1, gx.dim()))).mean()
-        d_loss = d_loss + r1.to(d_loss.dtype)
-    _apply(state.d_opt, d_params, torch.autograd.grad(d_loss, d_params), lr_d)
-    out["loss_D_B"] = d_loss.detach()
-    if r1_w > 0.0:
-        out["R1_loss"] = r1.detach()
-    out.update((k, v.detach()) for k, v in aux.items())
+        return loss + r1.to(loss.dtype), {"R1_loss": r1}
+
+    # d_refwd off reuses the G phase's fake (one step stale); under
+    # grad_accum D re-forwards per microbatch either way, as in JAX
+    d_batch = {"a": real_a, "b": real_b}
+    if not cfg.get("d_refwd", True) and fakes:
+        d_batch["fake2"] = fakes[0]
+    d_params = list(d_model.parameters())
+    d_loss_v, d_aux, d_grads = _value_and_grad(d_loss, d_params, d_batch,
+                                               n_accum)
+    _apply(state.d_opt, d_params, d_grads, lr_d)
+    _ema_update(state.g_ema, g_model, cfg.get("ema_decay", 0.999),
+                _count(state.g_opt))
+    out = {"toal_loss": total, "loss_D_B": d_loss_v, **d_aux}
+    out.update(aux)
     return out

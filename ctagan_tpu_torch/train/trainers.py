@@ -1,21 +1,25 @@
-"""The HD trainers of the port (``ctagan_tpu/train/trainers.py::
-HdTrainerStage1`` and ``HdTrainerStage2`` on ``TrainerBase``), and
-:func:`build_trainer`, which picks one by the config's ``name`` as the JAX
-package does.
+"""The trainers of the port (``ctagan_tpu/train/trainers.py``): pix2pix
+(``P2pTrainer``), CycleGAN (``CycTrainer``), RegGAN (``RegTrainer``) and HD
+stage 1 and 2 (``HdTrainerStage1`` and ``HdTrainerStage2``, on RegGAN's
+step), on ``TrainerBase``, and :func:`build_trainer`, which picks one by the
+config's ``name`` as the JAX package does.
 
-The epoch loop redraws the oversampled ``DualWindowDataset`` every epoch,
-feeds raw uint16 pixels and windows them on the device
-(``device_windowing``), and runs :func:`~ctagan_tpu_torch.train.steps.
-reg_train_step`. The learning-rate schedule keeps the reference's
-accelerating decay (the decrement is recomputed from the already-decayed lr)
-and the HD family's frozen D lr. After every epoch it validates (masked
-PSNR and SSIM, every ``val_every`` epochs) and saves a checkpoint, stamped
-with the metrics when it validated; it also saves every
-``checkpoint_every_iters`` steps and, on an exception, before re-raising.
-``resume`` starts from the newest checkpoint, and the collapse guard
-restores the best stamped one when validation falls ``collapse_drop_db``
-below it. ``test()`` scores the test list with the eight masked metrics and
-writes the synthetic SE2 series (``train/evaluation.py``).
+The P2p, Cyc and Reg families read ``PairedSliceDataset`` (the full-range
+pair, with ``unaligned`` a fresh B per visit, with ``context_slices`` the
+2.5-D stack for P2p); the HD family redraws the oversampled
+``DualWindowDataset`` every epoch. Both feed raw uint16 pixels and map them
+on the device (``device_windowing``). The learning-rate schedule keeps the
+reference's accelerating decay (the decrement is recomputed from the
+already-decayed lr) and the HD family's frozen D lr. After every epoch the
+loop validates (masked PSNR and SSIM, every ``val_every`` epochs) and saves
+a checkpoint, stamped with the metrics when it validated; it also saves
+every ``checkpoint_every_iters`` steps and, on an exception, before
+re-raising. ``resume`` starts from the newest checkpoint, and the collapse
+guard restores the best stamped one when validation falls
+``collapse_drop_db`` below it. ``test()`` scores the test list with the
+eight masked metrics and writes the synthetic SE2 series
+(``train/evaluation.py``). With ``ema_decay`` > 0, validation, test, the
+collapse guard's comparison and ``load_generator`` read and write G's EMA.
 
 Validation and test run the generator's serving route (K3, K1, K2) with
 ``fused_body``, else the training model's route (on CUDA with
@@ -35,7 +39,10 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ctagan_tpu_torch.data.datasets import DualWindowDataset
+from ctagan_tpu_torch.data.datasets import (
+    DualWindowDataset,
+    PairedSliceDataset,
+)
 from ctagan_tpu_torch.data.dicom import read_dicom
 from ctagan_tpu_torch.data.loader import PrefetchLoader
 from ctagan_tpu_torch.models import (
@@ -109,12 +116,17 @@ class StepTimer:
 
 class TrainerBase:
     family = "base"
+    dual_window = False
 
     def __init__(self, config: Config, device: torch.device,
                  quiet: bool = False):
-        if config.context_slices > 1:
+        if config.context_slices > 1 and self.family != "p2p":
+            raise ValueError(
+                "context_slices > 1 is supported by the P2p family only")
+        if "pp" in (config.extras.get("mesh") or ()):
             raise NotImplementedError(
-                "context_slices > 1 belongs to the P2p family (ROADMAP M8)")
+                "mesh: {pp: ...} (pipeline-parallel training) is not ported "
+                "yet (ROADMAP M12)")
         self.config = config
         self.device = torch.device(device)
         self.quiet = quiet
@@ -128,16 +140,21 @@ class TrainerBase:
         # every step's losses (read after the step timer's synchronize)
         self.loss_history: List[Dict[str, float]] = []
         self._data_rng = np.random.default_rng(config.seed)
-        self.g_model = Generator(
-            config.input_nc, config.output_nc, dtype=_dtype(config),
-            pad_mode=config.pad_mode, fused_body=False,
-            fused_body_grad=_fused_body_grad(config),
-        ).reset_parameters(config.seed).to(self.device)
+        # G from ``seed``; each family seeds its other nets from seed + 1 on
+        self.g_model = self._generator(config.seed)
         self._build_models()
         self.state = self._init_state()
         self.timer = StepTimer(self.device)
         if config.resume:
             self._try_resume()
+
+    def _generator(self, seed: int) -> Generator:
+        cfg = self.config
+        return Generator(
+            cfg.input_nc * cfg.context_slices, cfg.output_nc,
+            dtype=_dtype(cfg), pad_mode=cfg.pad_mode, fused_body=False,
+            fused_body_grad=_fused_body_grad(cfg),
+        ).reset_parameters(seed).to(self.device)
 
     def _build_models(self):
         raise NotImplementedError
@@ -147,6 +164,31 @@ class TrainerBase:
 
     def _step(self, batch, lr, lr_d):
         raise NotImplementedError
+
+    @property
+    def _ema_on(self) -> bool:
+        return self.config.ema_decay > 0
+
+    def _eval_model(self) -> Generator:
+        """The generator that val, test and the SE2 writeback run: G's EMA
+        with ``ema_decay`` > 0, else the live G."""
+        ema = getattr(self.state, "g_ema", None)
+        return ema if self._ema_on and ema is not None else self.g_model
+
+    def _set_g_params(self, sd) -> None:
+        """Loaded G weights; they overwrite the EMA shadow too."""
+        self.g_model.load_state_dict(sd, strict=True)
+        ema = getattr(self.state, "g_ema", None)
+        if ema is not None:
+            ema.load_state_dict(sd, strict=True)
+
+    def _step_cfg(self, *keys) -> Dict[str, object]:
+        """The step's config dict; ``ema_decay`` as JAX passes it (0 →
+        0.999, read only when an EMA exists)."""
+        cfg = {k: getattr(self.config, k) for k in (
+            "noise_level", "aligned_aug", "grad_accum", *keys)}
+        cfg["ema_decay"] = self.config.ema_decay or 0.999
+        return cfg
 
     # -- schedule -----------------------------------------------------------
     def update_learning_rate(self) -> None:
@@ -164,11 +206,36 @@ class TrainerBase:
             self.lr_d = new_lr
 
     # -- data ---------------------------------------------------------------
+    def _train_dataset(self):
+        """The HD family's oversampled list, redrawn every epoch; the
+        others' one ``PairedSliceDataset`` (its unaligned draws count every
+        visit across epochs)."""
+        cfg = self.config
+        if self.dual_window:
+            return DualWindowDataset(cfg.train_list, oversample=True,
+                                     rng=self._data_rng, size=cfg.size,
+                                     raw_feed=cfg.device_windowing)
+        if self._paired_train is None:
+            self._paired_train = PairedSliceDataset(
+                cfg.train_list, size=cfg.size, unaligned=cfg.unaligned,
+                context_slices=cfg.context_slices, seed=cfg.seed,
+                raw_feed=cfg.device_windowing)
+        return self._paired_train
+
+    _paired_train: Optional[PairedSliceDataset] = None
+
+    def _eval_dataset(self, list_file: str):
+        cfg = self.config
+        if self.dual_window:
+            return DualWindowDataset(list_file, size=cfg.size,
+                                     raw_feed=cfg.device_windowing)
+        return PairedSliceDataset(list_file, size=cfg.size,
+                                  context_slices=cfg.context_slices,
+                                  raw_feed=cfg.device_windowing)
+
     def _train_loader(self) -> PrefetchLoader:
         cfg = self.config
-        ds = DualWindowDataset(cfg.train_list, oversample=True,
-                               rng=self._data_rng, size=cfg.size,
-                               raw_feed=cfg.device_windowing)
+        ds = self._train_dataset()
         loader = PrefetchLoader(ds, batch_size=cfg.batchSize, shuffle=True,
                                 drop_last=True, num_threads=cfg.n_cpu,
                                 rng=self._data_rng)
@@ -193,10 +260,14 @@ class TrainerBase:
 
     def _window_device_batch(self, db):
         """device_windowing: the host sent raw stored pixels; derive the
-        dual-window views on the device, bit-exact with the host codec."""
+        dual-window views (HD) or the full-range pair on the device,
+        bit-exact with the host codec."""
         if not (self.config.device_windowing and "A" in db
                 and not db["A"].is_floating_point()):
             return db
+        if not self.dual_window:
+            return {"A": fullrange_from_stored(db["A"]),
+                    "B": fullrange_from_stored(db["B"])}
         a1, a2 = dual_window_from_stored(db["A"])
         b1, b2 = dual_window_from_stored(db["B"])
         return {"A1": a1, "A2": a2, "B1": b1, "B2": b2}
@@ -206,18 +277,29 @@ class TrainerBase:
     def ckpt_prefix(self) -> str:
         return f"{self.config.name}_{self.family}"
 
+    # the state's nets (checkpoint key, state attribute; G first), its
+    # optimizers and EMAs (by attribute, which is their key)
+    _NETS: Tuple[Tuple[str, str], ...] = ()
+    _OPTS: Tuple[str, ...] = ()
+    _EMAS: Tuple[str, ...] = ("g_ema",)
+
     def _checkpoint_state(self) -> Dict[str, object]:
         st = self.state
-        return {"g": st.g_model.state_dict(), "r": st.r_model.state_dict(),
-                "d": st.d_model.state_dict(), "g_opt": st.g_opt.state_dict(),
-                "r_opt": st.r_opt.state_dict(),
-                "d_opt": st.d_opt.state_dict(), "rng": st.gen.get_state()}
+        out: Dict[str, object] = {key: getattr(st, net).state_dict()
+                                  for key, net in self._NETS}
+        for name in self._OPTS + self._EMAS:
+            if getattr(st, name) is not None:
+                out[name] = getattr(st, name).state_dict()
+        out["rng"] = st.gen.get_state()
+        return out
 
     def _load_state(self, state) -> None:
         st = self.state
-        for name in ("g", "r", "d"):
-            getattr(st, f"{name}_model").load_state_dict(state[name])
-            getattr(st, f"{name}_opt").load_state_dict(state[f"{name}_opt"])
+        for key, net in self._NETS:
+            getattr(st, net).load_state_dict(state[key])
+        for name in self._OPTS + self._EMAS:
+            if getattr(st, name) is not None:
+                getattr(st, name).load_state_dict(state[name])
         st.gen.set_state(state["rng"])
 
     def _save(self, epoch: int, psnr: Optional[float] = None,
@@ -258,16 +340,16 @@ class TrainerBase:
         port checkpoint (told apart by content)."""
         obj = load_checkpoint(path)
         if isinstance(obj, dict) and "state" in obj and "epoch" in obj:
-            obj = obj["state"]["g"]
-        self.g_model.load_state_dict(obj, strict=True)
+            obj = obj["state"][self._NETS[0][0]]
+        self._set_g_params(obj)
 
     def _collapse_guard(self, epoch: int, psnr_v: float, ssim_v: float
                         ) -> bool:
         """GAN collapse guard (config ``collapse_guard``, on by default):
         when a validation lands ``collapse_drop_db`` below the best of this
-        run, G, R, D and their optimizers restore from the best stamped
-        checkpoint and the D lr is multiplied by ``collapse_lrd_backoff``.
-        Returns True when it fired."""
+        run, the whole train state (nets, optimizers, EMAs, replay pools)
+        restores from the best stamped checkpoint and the D lr is multiplied
+        by ``collapse_lrd_backoff``. Returns True when it fired."""
         cfg = self.config
         name = checkpoint_name(self.ckpt_prefix, epoch, psnr_v, ssim_v)
         if self._best_val is None or psnr_v > self._best_val[0]:
@@ -345,14 +427,12 @@ class TrainerBase:
     # the eval datasets are built at first use: a run that never validates
     # needs no val or test list
     @functools.cached_property
-    def val_dataset(self) -> DualWindowDataset:
-        return DualWindowDataset(self.config.val_list, size=self.config.size,
-                                 raw_feed=self.config.device_windowing)
+    def val_dataset(self):
+        return self._eval_dataset(self.config.val_list)
 
     @functools.cached_property
-    def test_dataset(self) -> DualWindowDataset:
-        return DualWindowDataset(self.config.test_list, size=self.config.size,
-                                 raw_feed=self.config.device_windowing)
+    def test_dataset(self):
+        return self._eval_dataset(self.config.test_list)
 
     @staticmethod
     def _val_pairs(batch):
@@ -374,7 +454,7 @@ class TrainerBase:
         """G's (N, H, W) f32 fake and the (N, H, W) real, by the eval route:
         the serving route with ``fused_body``, else the training model's."""
         a, b = self._eval_input(a), self._eval_input(b)
-        fake = self.g_model(a, fused_body=self.config.fused_body)
+        fake = self._eval_model()(a, fused_body=self.config.fused_body)
         return fake[..., 0].float(), b[..., 0].float()
 
     @torch.no_grad()
@@ -496,16 +576,89 @@ def _write_batch(writeback: DicomWriteback, paths, stored: torch.Tensor
         writeback.write(path, px[j])
 
 
-class HdTrainerStage1(TrainerBase):
-    """CTA-GAN stage 1: RegGAN losses on dual-window data with a separate,
-    frozen D lr."""
+class P2pTrainer(TrainerBase):
+    """pix2pix: G and a conditional D on [A (with its 2.5-D context), B]."""
 
-    family = "hd1"
-    title = "HD stage 1"
+    family = "p2p"
+    title = "pix2pix"
+    _NETS = (("g", "g_model"), ("d", "d_model"))
+    _OPTS = ("g_opt", "d_opt")
+
+    def _build_models(self):
+        cfg = self.config
+        # D from seed + 1
+        self.d_model = Discriminator(
+            cfg.input_nc * cfg.context_slices + cfg.output_nc,
+            dtype=_dtype(cfg)).reset_parameters(cfg.seed + 1).to(self.device)
+
+    def _init_state(self):
+        return steps.init_p2p_state(self.g_model, self.d_model,
+                                    self.config.seed, ema=self._ema_on)
+
+    def _step(self, batch, lr, lr_d):
+        return steps.p2p_train_step(
+            self.state, self._step_cfg("P2P_lamda", "Adv_lamda"), batch, lr)
+
+
+class CycTrainer(TrainerBase):
+    """CycleGAN: G_A2B (``g_model``, the one val and test run) and G_B2A
+    under one Adam, two scalar Ds, two 50-slot replay pools."""
+
+    family = "cyc"
+    title = "CycleGAN"
+    _NETS = (("g_a2b", "g_a2b"), ("g_b2a", "g_b2a"), ("d_a", "d_a"),
+             ("d_b", "d_b"))
+    _OPTS = ("g_opt", "d_a_opt", "d_b_opt")
+    _EMAS = ("g_ema", "g_ema_b2a")
+
+    def _build_models(self):
+        cfg = self.config
+        # G_A2B from seed, G_B2A from seed + 1, D_A seed + 2, D_B seed + 3
+        self.g_b2a = self._generator(cfg.seed + 1)
+        self.d_a, self.d_b = (
+            Discriminator(cfg.input_nc, dtype=_dtype(cfg)).reset_parameters(
+                cfg.seed + k).to(self.device) for k in (2, 3))
+
+    def _init_state(self):
+        cfg = self.config
+        return steps.init_cyc_state(self.g_model, self.g_b2a, self.d_a,
+                                    self.d_b, cfg.size, cfg.input_nc,
+                                    seed=cfg.seed, ema=self._ema_on)
+
+    def _step(self, batch, lr, lr_d):
+        return steps.cyc_train_step(
+            self.state, self._step_cfg("Adv_lamda", "Cyc_lamda"), batch, lr)
+
+    def _checkpoint_state(self) -> Dict[str, object]:
+        st = self.state
+        out = super()._checkpoint_state()
+        for key in ("fake_a_buffer", "fake_b_buffer"):
+            buf = getattr(st, key)
+            out[key] = {"data": buf.data, "size": buf.size}
+        return out
+
+    def _load_state(self, state) -> None:
+        super()._load_state(state)
+        st = self.state
+        for key in ("fake_a_buffer", "fake_b_buffer"):
+            buf = getattr(st, key)
+            buf.data.copy_(state[key]["data"])
+            buf.size = int(state[key]["size"])
+
+
+class RegTrainer(TrainerBase):
+    """RegGAN: G, the registration net R and a scalar D on the full-range
+    pair; D trains at G's lr, as the reference's Reg trainer does."""
+
+    family = "reg"
+    title = "RegGAN"
+    _NETS = (("g", "g_model"), ("r", "r_model"), ("d", "d_model"))
+    _OPTS = ("g_opt", "r_opt", "d_opt")
     stage2 = False
 
     def _build_models(self):
         cfg = self.config
+        # R from seed + 1, D from seed + 2
         self.r_model = RegNet(cfg.input_nc, cfg.input_nc, dtype=_dtype(cfg)
                               ).reset_parameters(cfg.seed + 1).to(self.device)
         self.d_model = self._build_d().reset_parameters(cfg.seed + 2
@@ -516,16 +669,26 @@ class HdTrainerStage1(TrainerBase):
 
     def _init_state(self):
         return steps.init_reg_state(self.g_model, self.r_model, self.d_model,
-                                    self.config.seed)
+                                    self.config.seed, ema=self._ema_on)
 
     def _step(self, batch, lr, lr_d):
-        cfg = {k: getattr(self.config, k) for k in (
-            "Adv_lamda1", "Corr_lamda1", "Corr_lamda2", "FM_lamda",
-            "Smooth_lamda", "noise_level", "aligned_aug", "d_refwd",
-            "grad_accum", "ema_decay", "r1_gamma", "warp_max_disp",
-            "reg_downsample")}
-        return steps.reg_train_step(self.state, cfg, batch, lr, lr_d=lr_d,
-                                    dual_window_mode=True, stage2=self.stage2)
+        cfg = self._step_cfg(
+            "Adv_lamda", "Corr_lamda", "Adv_lamda1", "Corr_lamda1",
+            "Corr_lamda2", "FM_lamda", "Smooth_lamda", "d_refwd", "r1_gamma",
+            "warp_max_disp", "reg_downsample")
+        return steps.reg_train_step(
+            self.state, cfg, batch, lr,
+            lr_d=lr_d if self.dual_window else None,
+            dual_window_mode=self.dual_window, stage2=self.stage2)
+
+
+class HdTrainerStage1(RegTrainer):
+    """CTA-GAN stage 1: RegGAN losses on dual-window data with a separate,
+    frozen D lr."""
+
+    family = "hd1"
+    title = "HD stage 1"
+    dual_window = True
 
 
 class HdTrainerStage2(HdTrainerStage1):
@@ -568,10 +731,10 @@ class HdTrainerStage2(HdTrainerStage1):
         return self
 
 
-TRAINERS = {"HdGan": HdTrainerStage1, "HdGan2": HdTrainerStage2}
+TRAINERS = {"P2p": P2pTrainer, "CycleGan": CycTrainer, "RegGan": RegTrainer,
+            "HdGan": HdTrainerStage1, "HdGan2": HdTrainerStage2}
 # the JAX package's other trainer families, by config name
-_NOT_PORTED = {"P2p": "M8 (P2p)", "CycleGan": "M8 (Cyc)",
-               "RegGan": "M8 (Reg)", "P3d": "M9 (the 3-D family)"}
+_NOT_PORTED = {"P3d": "M9 (the 3-D family)"}
 
 
 def build_trainer(config: Config, device: torch.device,

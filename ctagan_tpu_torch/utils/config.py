@@ -1,6 +1,7 @@
-"""The port's config: the fields the serving, HD stage-1 and stage-2
-training and eval slices read, from the same ``configs/*.yaml`` files as ``ctagan_tpu/utils/
-config.py``, with the same defaults.
+"""The port's config: the fields the serving path and the trainers
+(pix2pix, CycleGAN, RegGAN, HD stage 1 and stage 2) read, from the same
+``configs/*.yaml`` files as ``ctagan_tpu/utils/config.py``, with the same
+defaults.
 
 The repo's configs are flat ``key: value`` YAML. This reader parses that
 subset without PyYAML (scalars: quoted or bare strings, ints, floats,
@@ -47,8 +48,13 @@ class Config:
     generator_ckpt: str = ""
     save_root: str = "./output/model/"
     image_save: str = "./output/img/"
-    # --- HD training ---
+    # --- training ---
     noise_level: int = 1
+    Adv_lamda: float = 1.0  # the P2p, Cyc and Reg adversarial weight
+    Cyc_lamda: float = 10.0  # CycleGAN's cycle L1
+    Corr_lamda: float = 20.0  # RegGAN's correlation L1
+    P2P_lamda: float = 100.0  # pix2pix's L1
+    unaligned: bool = False  # a fresh random B per visit (PairedSliceDataset)
     Adv_lamda1: float = 1.0  # both stages' adversarial weight
     # read by nothing, as in the JAX package: its stage 2 weights the
     # adversarial terms with Adv_lamda1 too
@@ -88,10 +94,8 @@ class Config:
     r1_gamma: float = 0.0  # R1 penalty on D(real) (0: the reference)
     warp_max_disp: int = 0  # > 0: the warp's flow clipped to [-R, R]
     reg_downsample: int = 1  # > 1: R runs at 1/ds resolution
-    # semantic knobs the port does not run yet: a non-default value raises
-    # NotImplementedError naming its ROADMAP item (train/steps.py)
-    grad_accum: int = 1
-    ema_decay: float = 0.0
+    grad_accum: int = 1  # > 1: losses and grads averaged over K microbatches
+    ema_decay: float = 0.0  # > 0: an EMA of G, read by val/test
     extras: Dict[str, Any] = field(default_factory=dict)
 
     @property

@@ -28,7 +28,7 @@ JAX's weights reach the port through ``models/convert.py`` and
   that hold them (``toal_loss``, ``loss_D_B``), are held to F32_RTOL = 2e-6
   of the f32 term (about 16 f32 ulps: pairwise sums of 2¹⁶ terms in
   another order), plus the 1e-9 of the rest.
-- ``build_trainer`` on the seven ``configs/*.yaml``;
+- ``build_trainer`` on the seven ``configs/*.yaml`` (P3d alone raises);
   ``HdTrainerStage2.bootstrap_from_stage1``; the train entry point on
   ``HdGan2``, then ``--mode test``.
 
@@ -74,8 +74,11 @@ from ctagan_tpu_torch.models.convert import (
 from ctagan_tpu_torch.ops import losses, warp
 from ctagan_tpu_torch.train import steps
 from ctagan_tpu_torch.train.trainers import (
+    CycTrainer,
     HdTrainerStage1,
     HdTrainerStage2,
+    P2pTrainer,
+    RegTrainer,
     build_trainer,
 )
 from ctagan_tpu_torch.utils.config import load_config
@@ -431,8 +434,8 @@ def test_stage2_adam_first_moments_match_jax(stage2_step, net):
 
 @pytest.mark.parametrize("name,want", [
     ("HdGan", HdTrainerStage1), ("HdGan_fast", HdTrainerStage1),
-    ("HdGan2", HdTrainerStage2), ("P2p", "M8"), ("CycleGan", "M8"),
-    ("RegGan", "M8"), ("P3d", "M9")])
+    ("HdGan2", HdTrainerStage2), ("P2p", P2pTrainer),
+    ("CycleGan", CycTrainer), ("RegGan", RegTrainer), ("P3d", "M9")])
 def test_build_trainer_dispatches_by_config_name(name, want, tmp_path):
     config = load_config(os.path.join(REPO, "configs", f"{name}.yaml"))
     config.save_root = str(tmp_path)  # nothing to resume from
@@ -443,7 +446,8 @@ def test_build_trainer_dispatches_by_config_name(name, want, tmp_path):
     t = build_trainer(config, torch.device("cpu"), quiet=True)
     assert type(t) is want
     assert t.ckpt_prefix == f"{config.name}_{want.family}"
-    assert isinstance(t.d_model, MultiScaleDiscriminator) == (
+    d_model = t.d_a if want is CycTrainer else t.d_model
+    assert isinstance(d_model, MultiScaleDiscriminator) == (
         want is HdTrainerStage2)
 
 
@@ -544,20 +548,26 @@ def _yaml(path, cfg):
 
 def test_entry_point_dispatches_by_name(stage1_ckpt, tmp_path, capsys):
     """The repaired fault: ``HdGan2`` trained HD stage 1, and the JAX
-    package's other families quietly trained HD stage 1 too."""
+    package's other families quietly trained HD stage 1 too. Each name now
+    builds its own family's trainer; P3d alone raises."""
     s1 = stage1_ckpt
     cfg = load_config(_cfg(s1["lists"], s1["root"], "HdGan2"))
     t = port_train(cfg, torch.device("cpu"), max_steps=0)
     assert type(t) is HdTrainerStage2
     assert _same(t.g_model, s1["g"]) and _same(t.r_model, s1["r"])
     assert "(HD stage 2)" in capsys.readouterr().out
-    for name, item in (("RegGan", "M8"), ("CycleGan", "M8"), ("P2p", "M8"),
-                       ("P3d", "M9")):
+    for name, title in (("RegGan", "RegGAN"), ("CycleGan", "CycleGAN"),
+                        ("P2p", "pix2pix"), ("P3d", "M9")):
         path = _yaml(tmp_path / f"{name}.yaml",
                      _cfg(s1["lists"], tmp_path, name))
-        with pytest.raises(NotImplementedError, match=item):
-            main(["--config", path, "--mode", "train", "--device", "cpu",
-                  "--max-steps", "1"])
+        args = ["--config", path, "--mode", "train", "--device", "cpu",
+                "--max-steps", "0"]
+        if name == "P3d":
+            with pytest.raises(NotImplementedError, match=title):
+                main(args)
+            continue
+        assert main(args) == 0
+        assert f"training {name} ({title})" in capsys.readouterr().out
     # a fresh stage-2 run with no stage-1 checkpoint warns and goes on
     cfg = load_config(_cfg(s1["lists"], tmp_path, "HdGan2"))
     t = port_train(cfg, torch.device("cpu"), max_steps=0)

@@ -145,16 +145,13 @@ def test_adam_first_moments_match_jax(one_step, net):
 
 
 def test_unported_knobs_raise(one_step):
+    """``pipeline_1f1b`` alone is not ported yet; ``grad_accum``,
+    ``ema_decay`` and the RegGAN mode (``dual_window_mode=False``) run."""
     _, _, pstate, _ = one_step
     batch = {k: torch.from_numpy(v) for k, v in _batch().items()}
-    for knob, value in (("grad_accum", 2), ("ema_decay", 0.999)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            steps.reg_train_step(pstate, dict(CFG, **{knob: value}), batch,
-                                 LR, dual_window_mode=True)
-    for kw in (dict(dual_window_mode=False), dict(pipeline_1f1b=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            steps.reg_train_step(pstate, CFG, batch, LR,
-                                 **dict(dict(dual_window_mode=True), **kw))
+    with pytest.raises(NotImplementedError, match="ROADMAP M12"):
+        steps.reg_train_step(pstate, CFG, batch, LR, dual_window_mode=True,
+                             pipeline_1f1b=object())
 
 
 def _config(tmp_path, size):
