@@ -40,7 +40,7 @@ card, ``nvcc`` and no network, and imports nothing of JAX. Phases:
    parameters, seeded weights) at 512², b=2: the serving kernel route
    against the plain layer route, 18 K1, 2 K3 and 2 K2 launches per forward;
    forward times at b=1 and b=16; then ``configs/HdGan_fast.yaml`` (bf16,
-   ``pad_mode: zero``) built by ``build_generator`` and served a few
+   ``pad_mode: zero``) built by ``serving_generator`` and served a few
    requests through its layer route, no kernel launched, then again with
    the InstanceNorm switch on: 23 K6 launches per forward, each response
    within the same bound of the switch-off forward;
@@ -52,9 +52,11 @@ card, ``nvcc`` and no network, and imports nothing of JAX. Phases:
 5. ``grad``: the generator's training route (``fused_body_grad``) against
    the plain layer route at 512², b=1, f32: output and every parameter's
    gradient, 18 K1 launches per forward, 18 K4 and 18 K5 per backward;
-6. ``serving``, a main path: ``serve_async`` on ``configs/HdGan.yaml``,
-   concurrent POST /synthesize of synthetic DICOM slices, each response
-   checked, one against the plain route;
+6. ``serving``, a main path: ``serve_async`` on ``configs/HdGan.yaml``
+   with the generator ``--mode serve`` builds (``serving_generator``: the
+   config's trainer, a port ``.pt`` in a temporary ``save_root`` that only
+   its checkpoint lookup finds), concurrent POST /synthesize of synthetic
+   DICOM slices, each response checked, one against the plain route;
 7. ``int8_serving``, a main path: the same on a copy of the config with
    ``serve_quantize: int8`` and the InstanceNorm switch on, every response
    against the f32 plain route (JAX's int8 service bound);
@@ -114,9 +116,30 @@ card, ``nvcc`` and no network, and imports nothing of JAX. Phases:
    pools); its validation reads the EMA, which differs from the live
    G_A2B. Last, ``--mode test`` of the P2p epoch's checkpoint on the
    serving route (``fused_body: true``): 18 K1, 2 K3 and 2 K2 a slice,
-   the 8 metrics finite, the SE2 series written.
+   the 8 metrics finite, the SE2 series written;
+12. ``infer``, a main path: ``python -m ctagan_tpu_torch --mode infer``'s
+   ``infer()`` on ``configs/HdGan.yaml`` (full width, 512², f32) over a
+   seeded 50-slice SE0 series, the generator a port ``.pt`` in a temporary
+   ``save_root`` that only the checkpoint lookup finds (seeded otherwise
+   than the config), on three routes: the default eval route (18 K1 a
+   batch forward), ``fused_body: true`` (18 K1, 2 K3, 2 K2) and the plain
+   route (none); 13 batches of 4, the last padded, so exactly 13 times
+   those; each route after a warm-up call, with slices/s of the whole call
+   and of its load, forward and writeback; every SE2 file named, sized and
+   re-UIDed as its SE0 slice, the kernel routes' stored pixels within 1 of
+   the plain route's (the share equal printed), the plain route's first
+   slice within 1 of a direct forward of the saved G; then
+   ``configs/P2p.yaml`` with ``context_slices: 3`` on the default route;
+13. ``export``: ``serving/export.py`` on the full-width G at 512² with a
+   symbolic batch, loaded by ``load_exported`` and run at b=1 and b=4
+   within 2e-5 of the eager plain route, launching no kernel; the
+   artifact's bytes, the export's seconds, and the b=4 forward of the
+   loaded program, the eager plain route and the ``fused_body`` route;
+14. ``figures``, a main path: ``--mode figures``'s panels of 4 test slices
+   of ``configs/HdGan.yaml`` on the default eval route (18 K1 a slice),
+   each PNG read back with ``read_png_gray`` at (512, 2304).
 
-The launch counts of the six main paths (each counted from zero) are the
+The launch counts of the eight main paths (each counted from zero) are the
 ``launches`` of the kernels line. ``--phases a,b`` runs a subset and stops
 before the result lines; ``--cases K2,K3`` keeps only the kernel phase's
 cases and timing lines of those kernels (and stops there too). Any failure
@@ -130,6 +153,7 @@ import contextlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -251,8 +275,24 @@ FAMILY_VAL = 2
 FAMILY_ROUTE_TOL = 1e-3
 # CycleGAN with batchSize 2, grad_accum 2 and ema_decay 0.999: steps
 ACCUM_STEPS = 2
+# the infer phase: a 50-slice SE0 series in batches of 4 (the last padded);
+# the saved G is seeded INFER_SEED, not the config's seed; each kernel
+# route's SE2 stored pixels within INFER_PIXEL_TOL of the plain route's (a
+# fake within GEN_TOL moves a pixel across a truncation boundary by one)
+INFER_SLICES, INFER_BATCH, INFER_SEED = 50, 4, 7
+INFER_BATCHES = -(-INFER_SLICES // INFER_BATCH)
+INFER_PIXEL_TOL = 1
+# the export phase: the loaded program vs the eager plain route, JAX's own
+# tolerance for its round trip (tests/test_export.py)
+EXPORT_BATCHES = (1, 4)
+EXPORT_TOL = 2e-5
+# the figures phase: panels of 4 test slices, each the input, target and
+# synthetic 512² slices and a 2x zoom of each one's central 128² crop
+FIGURE_SLICES = 4
+FIGURE_SHAPE = (EVAL_SIZE, 3 * EVAL_SIZE + 3 * 2 * 128)
 ALL_PHASES = ("kernels", "generator", "int8", "grad", "serving",
-              "int8_serving", "training", "test", "stage2", "families")
+              "int8_serving", "training", "test", "stage2", "families",
+              "infer", "export", "figures")
 
 
 def fail(msg):
@@ -1207,6 +1247,41 @@ def check_generator_grad(torch, card):
     torch.cuda.empty_cache()
 
 
+def _stand_in_checkpoint(save_root, seed=INFER_SEED):
+    """A trained G's stand-in, seeded ``seed`` (by default not the config's
+    seed) and saved as a port checkpoint of HD stage 1 in ``save_root``,
+    where only the entry point's checkpoint lookup finds it; returns (G,
+    path)."""
+    from ctagan_tpu_torch.models import Generator
+    from ctagan_tpu_torch.utils.checkpoint import save_checkpoint
+
+    g = Generator(1, 1).reset_parameters(seed)
+    return g, save_checkpoint(save_root, "HdGan_hd1", 3, {
+        "state": {"g": g.state_dict()}, "epoch": 3, "lr": 1e-4, "lr_d": 1e-4})
+
+
+def _served_generator(torch, config, stand_in_seed):
+    """``__main__.serving_generator``, the builder of ``--mode serve``, on
+    the card with ``save_root`` a temporary directory: holding
+    :func:`_stand_in_checkpoint`'s file seeded ``stand_in_seed``, which the
+    lookup must load, or empty (None), which leaves the seeded G."""
+    from ctagan_tpu_torch.__main__ import serving_generator
+
+    with tempfile.TemporaryDirectory() as tmp:
+        config.save_root = f"{tmp}/model/"
+        want, ckpt = ((None, None) if stand_in_seed is None else
+                      _stand_in_checkpoint(config.save_root, stand_in_seed))
+        g, found = serving_generator(config, torch.device("cuda"))
+    if found != ckpt:
+        fail(f"serve's lookup loaded {found}, expected {ckpt}")
+    if want is not None and not _equal_state(_snapshot(g),
+                                             _snapshot(want)):
+        fail(f"the served G is not {os.path.basename(ckpt)}'s")
+    if not g.fused_body:
+        fail("serving_generator left fused_body off")
+    return g
+
+
 def _post(port, body, timeout=300):
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}/synthesize", data=body, method="POST")
@@ -1219,10 +1294,12 @@ def check_serving(torch, card, quantize=""):
     ``quantize="int8"`` (phase 7, a main path of its own) the config copy
     sets ``serve_quantize: int8``, the service runs the int8 forward with
     the InstanceNorm switch on, and every response is held to the f32 plain
-    route by the JAX int8 service's bound."""
+    route by the JAX int8 service's bound. The generator is the one the
+    serve entry point builds: :func:`_served_generator` on a stand-in
+    checkpoint that only the lookup finds, seeded ``INFER_SEED`` for f32;
+    int8 keeps the config's seed, the weights its bound was set on."""
     import numpy as np
 
-    from ctagan_tpu_torch.__main__ import build_generator
     from ctagan_tpu_torch.data.dicom import (
         dicom_bytes,
         make_ct_slice,
@@ -1245,7 +1322,8 @@ def check_serving(torch, card, quantize=""):
     if config.serve_quantize != quantize:
         fail(f"serve_quantize read as {config.serve_quantize!r}")
     dev = torch.device("cuda")
-    g = build_generator(config, dev)
+    g = _served_generator(torch, config,
+                          config.seed if quantize else INFER_SEED)
     rng = np.random.default_rng(config.seed)
     slices = [make_ct_slice(synthetic_ct_pixels(rng, config.size))
               for _ in range(N_REQUESTS)]
@@ -1324,7 +1402,8 @@ def check_serving(torch, card, quantize=""):
 
 def check_zero_pad_serving(torch, card, norm_switch=False):
     """``configs/HdGan_fast.yaml`` (bf16, ``pad_mode: zero``) built by the
-    serve entry point's ``build_generator`` (``fused_body`` on) and served:
+    serve entry point's ``serving_generator`` (``fused_body`` on; an empty
+    ``save_root``, so seeded) and served:
     the generator's layer route, as JAX's ``chain_ok`` leaves zero pad out of
     its fused body; no kernel launches. With ``norm_switch`` JAX's
     ``USE_PALLAS_INSTANCE_NORM`` is on while it serves: all 23 of the
@@ -1332,7 +1411,6 @@ def check_zero_pad_serving(torch, card, norm_switch=False):
     response is held to the switch-off forward by the same bound."""
     import numpy as np
 
-    from ctagan_tpu_torch.__main__ import build_generator
     from ctagan_tpu_torch.data.dicom import (
         dicom_bytes,
         make_ct_slice,
@@ -1347,7 +1425,7 @@ def check_zero_pad_serving(torch, card, norm_switch=False):
     if config.pad_mode != "zero":
         fail(f"HdGan_fast.yaml pad_mode read as {config.pad_mode!r}")
     dev = torch.device("cuda")
-    g = build_generator(config, dev)
+    g = _served_generator(torch, config, None)
     rng = np.random.default_rng(config.seed)
     slices = [make_ct_slice(synthetic_ct_pixels(rng, config.size))
               for _ in range(ZERO_PAD_REQUESTS)]
@@ -1936,18 +2014,19 @@ def _read_se2_tree(root, test_paths):
     return se2
 
 
-def _direct_plain_pixels(torch, trainer, src):
-    """One test slice through the plain layer route outside test(),
-    de-normalized as the writeback stores it."""
+def _direct_plain_pixels(torch, g_model, src):
+    """One SE0 slice through ``g_model``'s plain layer route outside the
+    entry points, de-normalized as the writeback stores it."""
     import numpy as np
 
     from ctagan_tpu_torch.data import dicom
     from ctagan_tpu_torch.ops.windowing import dual_window
 
     raw = dicom.read_dicom(src).pixel_array()
-    x = dual_window(raw)[1][None, :, :, None].to(trainer.device)
+    x = dual_window(raw)[1][None, :, :, None].to(
+        next(g_model.parameters()).device)
     with torch.no_grad():
-        y = trainer.g_model(x, fused_body=False)[0, :, :, 0].float()
+        y = g_model(x, fused_body=False)[0, :, :, 0].float()
     return ((y + 1.0) * 0.5 * 4095.0).to(torch.int16).cpu().numpy().astype(
         np.int32)
 
@@ -2020,7 +2099,8 @@ def check_test(torch, card):
                 se2 = _read_se2_tree(img, test_paths)
                 if route == "plain" and k == 1:
                     src = test_paths[0]
-                    direct = _direct_plain_pixels(torch, trainer, src)
+                    direct = _direct_plain_pixels(torch, trainer.g_model,
+                                                  src)
                     got = se2[(1, os.path.basename(src))]
                     d = int(np.abs(got - direct).max())
                     if d > PIXEL_TOL:
@@ -2057,6 +2137,227 @@ def check_test(torch, card):
                 fail(f"test: {route} route at eval_batch {k} disagrees with "
                      f"the plain route on {bad or 'SE2 pixels'}")
     return total
+
+
+def _se2_series(torch, out_dir, series):
+    """One infer_series writeback read back: checks every file's name, rows
+    and cols against its SE0 slice and one new SeriesInstanceUID; returns
+    {name: stored pixels}."""
+    import numpy as np
+
+    from ctagan_tpu_torch.data import dicom
+
+    names = sorted(f for f in os.listdir(series) if f.startswith("IM"))
+    if sorted(os.listdir(out_dir)) != names:
+        fail(f"infer: {out_dir} holds {len(os.listdir(out_dir))} files, "
+             f"expected the series' {len(names)}")
+    src_uid = dicom.read_dicom(os.path.join(series, names[0])
+                               ).series_instance_uid
+    px, uids = {}, set()
+    for n in names:
+        src = dicom.read_dicom(os.path.join(series, n))
+        ds = dicom.read_dicom(os.path.join(out_dir, n))
+        if (ds.rows, ds.cols) != (src.rows, src.cols):
+            fail(f"infer: SE2 {n} is {ds.rows}x{ds.cols}, its SE0 slice "
+                 f"{src.rows}x{src.cols}")
+        px[n] = ds.pixel_array().astype(np.int32)
+        uids.add(ds.series_instance_uid)
+    if len(uids) != 1 or src_uid in uids:
+        fail(f"infer: SE2 series UIDs {sorted(uids)} (source {src_uid})")
+    return px
+
+
+def _infer_run(torch, config, series, per_forward, what):
+    """``__main__.infer`` twice: a warm-up, whose SE2 series is removed, then
+    the timed run with every kernel count set to 0 just before and read just
+    after; returns the counts, the seconds of the call and of its parts, and
+    the SE2 pixels the timed run wrote."""
+    from ctagan_tpu_torch.__main__ import infer
+
+    dev = torch.device("cuda")
+    # kernel module loads, cuDNN's set-up
+    shutil.rmtree(infer(config, dev, series))
+    torch.cuda.synchronize()
+    times = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    out_dir = infer(config, dev, series, times)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    want = {name: c * INFER_BATCHES for name, c in per_forward.items()}
+    if counts != want:
+        fail(f"infer: {what} launches {counts}, expected {want} "
+             f"({INFER_BATCHES} batches of {INFER_BATCH})")
+    return counts, secs, times, _se2_series(torch, out_dir, series)
+
+
+def _infer_line(what, secs, times, n, card):
+    parts = ", ".join(f"{k} {v:.3f} s = {n / v:.2f} slices/s"
+                      for k, v in times.items())
+    return (f"infer {what}: {n} slices in {secs:.3f} s = {n / secs:.2f} "
+            f"slices/s (host wall, after a warm-up call); {parts} [{card}]")
+
+
+def check_infer(torch, card):
+    """Phase 12, a main path: ``--mode infer``'s series inference on
+    ``configs/HdGan.yaml`` (full width, 512²) over a 50-slice SE0 series,
+    the generator found in ``save_root`` by the lookup, on three routes;
+    then a 2.5-D ``configs/P2p.yaml`` run."""
+    import numpy as np
+
+    from ctagan_tpu_torch.data.fixtures import make_corpus
+    from ctagan_tpu_torch.utils.config import load_config
+
+    routes = {
+        "default": ("", counts_of(conv3x3_reflect_stats=18)),
+        "fused_body": ("fused_body: true\n", PER_FORWARD),
+        "plain": ("fused_body: false\nfused_body_grad: off\n", counts_of()),
+    }
+    total = counts_of()
+    with tempfile.TemporaryDirectory() as tmp:
+        lists = make_corpus(tmp, n_patients=1,
+                            slices_per_patient=INFER_SLICES, size=EVAL_SIZE,
+                            seed=0, lists=("train",))
+        series = os.path.join(tmp, "patient0", "ST0", "SE0")
+        g, ckpt = _stand_in_checkpoint(f"{tmp}/model/")
+        px = {}
+        for route, (extra, per_forward) in routes.items():
+            config = load_config(_smoke_config(
+                tmp, lists["train"], extra + f"image_save: '{tmp}/{route}/'\n"))
+            counts, secs, times, px[route] = _infer_run(
+                torch, config, series, per_forward, route)
+            for name, c in counts.items():
+                total[name] += c
+            print(_infer_line(f"HdGan.yaml {route} route, {EVAL_SIZE}^2 f32 "
+                              f"(cuDNN TF32 off), batches of {INFER_BATCH}, "
+                              f"launches {counts}", secs, times,
+                              INFER_SLICES, card), flush=True)
+        # the lookup: the plain route's first slice is the saved G's
+        first = sorted(px["plain"])[0]
+        direct = _direct_plain_pixels(torch, g.to("cuda").eval(),
+                                      os.path.join(series, first))
+        d = int(np.abs(px["plain"][first] - direct).max())
+        if d > INFER_PIXEL_TOL:
+            fail(f"infer: the plain route's {first} is {d} stored units "
+                 f"from {os.path.basename(ckpt)}'s G: the lookup missed it")
+        for route in ("default", "fused_body"):
+            diff = np.stack([np.abs(px[route][n] - px["plain"][n])
+                             for n in px["plain"]])
+            print(f"infer {route} vs plain route: SE2 max |diff| "
+                  f"{int(diff.max())} stored units (tol {INFER_PIXEL_TOL}), "
+                  f"{float((diff == 0).mean()):.6f} of pixels equal",
+                  flush=True)
+            if diff.max() > INFER_PIXEL_TOL:
+                fail(f"infer: the {route} route's SE2 disagrees with the "
+                     "plain route's")
+        # 2.5-D: configs/P2p.yaml with context_slices 3 (seeded weights)
+        config = load_config(_smoke_config(
+            tmp, lists["train"], f"context_slices: 3\nimage_save: "
+            f"'{tmp}/ctx3/'\n", base="P2p.yaml"))
+        counts, secs, times, ctx_px = _infer_run(
+            torch, config, series, counts_of(conv3x3_reflect_stats=18),
+            "P2p.yaml context_slices 3")
+        for name, c in counts.items():
+            total[name] += c
+        if all(int(v.max()) == int(v.min()) for v in ctx_px.values()):
+            fail("infer: every slice of the 2.5-D series is constant")
+        print(_infer_line(f"P2p.yaml context_slices 3, default route, "
+                          f"{EVAL_SIZE}^2, launches {counts}", secs, times,
+                          INFER_SLICES, card), flush=True)
+    return total
+
+
+def check_export(torch, card):
+    """Phase 13: ``serving/export.py`` on the full-width G at 512² with a
+    symbolic batch, loaded by ``load_exported`` and run at b=1 and b=4
+    against the eager plain route; its forward time beside the eager plain
+    and the ``fused_body`` routes."""
+    from ctagan_tpu_torch.models import Generator
+    from ctagan_tpu_torch.serving.export import (
+        export_generator,
+        load_exported,
+    )
+
+    dev = torch.device("cuda")
+    g = Generator(1, 1).reset_parameters(INFER_SEED).to(dev).eval()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "generator.ctpt")
+        t0 = time.perf_counter()
+        export_generator(g, path, size=EVAL_SIZE)
+        secs = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        fn, header = load_exported(path)
+    if header["batch"] is not None or header["platforms"] != ["cuda"]:
+        fail(f"export: header {header}")
+    errs = {}
+    for b in EXPORT_BATCHES:
+        x = torch.rand(b, EVAL_SIZE, EVAL_SIZE, 1, generator=gen,
+                       device=dev) * 2 - 1
+        reset_counts()
+        got = fn(x)
+        torch.cuda.synchronize()
+        if launch_counts() != counts_of():
+            fail(f"export: the artifact launched {launch_counts()}")
+        with torch.no_grad():
+            want = g(x, fused_body=False)
+        errs[b] = float((got - want).abs().max())
+    with torch.no_grad():
+        x = torch.rand(4, EVAL_SIZE, EVAL_SIZE, 1, generator=gen, device=dev)
+        ms = {"exported": cuda_ms(torch, lambda: fn(x), iters=5),
+              "eager plain": cuda_ms(torch, lambda: g(x, fused_body=False),
+                                     iters=5),
+              "fused_body": cuda_ms(torch, lambda: g(x, fused_body=True),
+                                    iters=5)}
+    print(f"export: full-width G at {EVAL_SIZE}^2, symbolic batch, {size} "
+          f"bytes, exported in {secs:.2f} s; loaded program vs eager plain "
+          "route max |diff| "
+          + ", ".join(f"b={b} {e:.3e}" for b, e in errs.items())
+          + f" (tol {EXPORT_TOL:.0e}); b=4 forward "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in ms.items())
+          + f" (CUDA events, mean of 5, cuDNN TF32 off) [{card}]", flush=True)
+    if max(errs.values()) > EXPORT_TOL:
+        fail("export: the loaded program disagrees with the eager plain "
+             "route")
+
+
+def check_figures(torch, card):
+    """Phase 14, a main path: ``--mode figures``'s panels of 4 test slices
+    on ``configs/HdGan.yaml``'s default eval route, read back."""
+    import numpy as np
+
+    from ctagan_tpu_torch.__main__ import figures
+    from ctagan_tpu_torch.data.fixtures import make_corpus
+    from ctagan_tpu_torch.utils.config import load_config
+    from ctagan_tpu_torch.utils.figures import read_png_gray
+
+    with tempfile.TemporaryDirectory() as tmp:
+        lists = make_corpus(tmp, n_patients=1,
+                            slices_per_patient=FIGURE_SLICES,
+                            size=EVAL_SIZE, seed=1, lists=("train",))
+        config = load_config(_smoke_config(
+            tmp, lists["train"], f"image_save: '{tmp}/img/'\n"))
+        reset_counts()
+        t0 = time.perf_counter()
+        out = figures(config, torch.device("cuda"))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = launch_counts()
+        want = counts_of(conv3x3_reflect_stats=18 * FIGURE_SLICES)
+        if counts != want:
+            fail(f"figures: launches {counts}, expected {want}")
+        names = sorted(os.listdir(out))
+        if names != [f"slice{i}.png" for i in range(FIGURE_SLICES)]:
+            fail(f"figures: {out} holds {names}")
+        for n in names:
+            img = read_png_gray(os.path.join(out, n))
+            if img.shape != FIGURE_SHAPE or int(img.max()) == int(img.min()):
+                fail(f"figures: {n} is {img.shape}, range {img.min()}.."
+                     f"{img.max()}; expected {FIGURE_SHAPE}")
+    print(f"figures: {FIGURE_SLICES} panels {FIGURE_SHAPE} in {secs:.2f} s, "
+          f"launches {counts} [{card}]", flush=True)
+    return counts
 
 
 def check_tensor_cores(lib_path):
@@ -2122,7 +2423,9 @@ MAIN_PATHS = {"serving": check_serving,
               "training": check_training,
               "test": check_test,
               "stage2": check_stage2,
-              "families": check_families}
+              "families": check_families,
+              "infer": check_infer,
+              "figures": check_figures}
 
 
 def main():
@@ -2181,6 +2484,8 @@ def main():
             check_int8_generator(torch, card)
         elif phase == "grad":
             check_generator_grad(torch, card)
+        elif phase == "export":
+            check_export(torch, card)
         elif phase in MAIN_PATHS:
             for name, n in MAIN_PATHS[phase](torch, card).items():
                 launches[name] += n

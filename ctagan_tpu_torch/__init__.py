@@ -13,11 +13,17 @@ package.
   ``Discriminator``, their NHWC layers and the JAX-param converters.
 - ``ctagan_tpu_torch.ops``     — the fused conv kernels K1-K3, the residual
   body's backward kernels K4-K5, and the plain ops of the training step and
-  the eval path (warp, augmentation, losses, resize, windowing, metrics).
-- ``ctagan_tpu_torch.serving`` — the HTTP synthesis service.
+  the eval path (warp, augmentation, losses, resize, windowing, metrics,
+  LPIPS).
+- ``ctagan_tpu_torch.parallel`` — whole-series inference (an SE0 series in,
+  an SE2 series out).
+- ``ctagan_tpu_torch.serving`` — the HTTP synthesis service and the
+  exported generator artifact.
 - ``ctagan_tpu_torch.train``   — the HD stage-1 step and trainer (train,
   validate, checkpoints, resume, test() with the SE2 DICOM writeback).
-- ``ctagan_tpu_torch.utils``   — the config reader and the checkpoints.
+- ``ctagan_tpu_torch.utils``   — the config reader, the checkpoints (the
+  port's, and the JAX package's flax msgpack files through a pure-Python
+  decoder) and the PNG figures.
 """
 
 __version__ = "0.1.0"

@@ -1,71 +1,58 @@
-"""Command line of the port::
+"""Command line of the port, with the JAX entry point's (``train.py``)
+modes and flags::
 
-    python -m ctagan_tpu_torch --config configs/HdGan.yaml --mode serve \
-        [--generator-ckpt G.pth] [--device cuda|cpu]
-    python -m ctagan_tpu_torch --config configs/HdGan.yaml --mode train \
-        [--max-steps N] [--device cuda|cpu]
-    python -m ctagan_tpu_torch --config configs/HdGan.yaml --mode test \
-        [--generator-ckpt G.pth|G.pt] [--no-write] [--device cuda|cpu]
+    python -m ctagan_tpu_torch --config configs/HdGan.yaml --mode MODE \
+        [--device cuda|cpu] [--generator-ckpt G] [--resume] \
+        [--train-list F] [--val-list F] [--test-list F]
 
-``serve`` serves the generator over HTTP (``serving/server.py``), like the
-``--mode serve`` branch of the JAX package's ``train.py``. The checkpoint is
-a reference-format ``.pth`` state dict (``model_head.1.weight`` ...), such
-as the one ``ctagan_tpu.models.torch_export.save_state_dict`` writes from a
-JAX checkpoint. Without one, the generator serves weights drawn from the
-config's ``seed``.
+- ``train``: the trainer of the config's ``name`` (``P2p``: pix2pix,
+  ``CycleGan``, ``RegGan``, ``HdGan``: HD stage 1, ``HdGan2``: HD stage 2;
+  ``train/trainers.py::build_trainer``; ``P3d`` raises naming its ROADMAP
+  item) from seeded weights on ``train_list`` (or from the newest
+  checkpoint in ``save_root``, the port's ``.pt`` or the JAX package's
+  ``.ckpt``, with ``resume: true`` or ``--resume``), printing the losses
+  every ``log_every`` steps, validating every ``val_every`` epochs, saving
+  a checkpoint after every epoch and a step-time summary at the end
+  (``--max-steps N`` stops after N steps). A fresh stage-2 run first loads
+  G and R from ``stage1_ckpt``, else from the newest ``*_hd1_e*`` in
+  ``save_root``; with none it warns and starts from seeded weights.
+- ``test``: the trainer's ``test()`` on ``test_list``: the generator from
+  ``--generator-ckpt`` (a reference ``.pth``, a port ``.pt`` or a JAX
+  ``.ckpt``), else ``generator_ckpt``, else the newest checkpoint of the
+  trainer in ``save_root``, else the bootstrapped (stage 2) or seeded
+  weights. It prints the masked window and full-range aggregates (and
+  LPIPSw/LPIPS with ``lpips_weights``) and writes the synthetic SE2 series
+  under ``image_save`` (``--no-write`` skips the writeback).
+- ``train_test``: ``train``, then ``test`` with the same trainer.
+- ``infer --series DIR``: a whole SE0 series through the generator
+  (``parallel/serve.py::infer_series``) into ``<image_save>/volume/SE2``.
+- ``figures``: qualitative PNG panels of the first test slices under
+  ``<image_save>/panels`` (``TrainerBase.make_figures``), from the weights
+  the trainer has (``--resume`` reads the newest checkpoint), as JAX's.
+- ``export [--out PATH]``: a ``torch.export`` artifact of the generator's
+  plain route (``serving/export.py``), by default
+  ``<save_root>/generator.ctpt``.
+- ``serve``: the HTTP service (``serving/server.py``) on the generator of
+  the config's trainer, found as ``infer`` and ``export`` find it.
 
-``train`` runs the trainer of the config's ``name`` (``P2p``: pix2pix,
-``CycleGan``, ``RegGan``, ``HdGan``: HD stage 1, ``HdGan2``: HD stage 2;
-``train/trainers.py::build_trainer``; ``P3d`` raises naming its ROADMAP
-item) from seeded
-weights on the config's ``train_list`` (or from the newest checkpoint in
-``save_root`` with ``resume: true``), printing the losses every
-``log_every`` steps, validating every ``val_every`` epochs and saving a
-checkpoint after every epoch, and a step-time summary at the end. A fresh
-stage-2 run first loads G and R from ``stage1_ckpt``, else from the newest
-``*_hd1_e*.pt`` in ``save_root``; with none it warns and starts from seeded
-weights.
-
-``test`` runs the same trainer's ``test()`` on the config's
-``test_list``: the generator from ``--generator-ckpt`` (a reference-format
-``.pth`` or a port ``.pt`` checkpoint), else ``generator_ckpt``, else the
-newest checkpoint of the trainer in ``save_root``, else the bootstrapped
-(stage 2) or seeded weights. It prints the
-masked window and full-range aggregates (MAE, PSNR, SSIM, UQI) as the
-reference does and writes the synthetic SE2 series under ``image_save``
-(``--no-write`` skips the writeback).
-
-All three run on the CUDA card unless ``--device cpu`` is given; with no
-card and no ``--device`` they stop with an error.
+``infer``, ``export`` and ``serve`` take the generator as JAX's entry point
+does: ``--generator-ckpt`` / ``generator_ckpt``, else the newest checkpoint
+of the trainer's prefix in ``save_root``, else seeded weights; its EMA with
+``ema_decay`` > 0. Every mode runs on the CUDA card unless ``--device cpu``
+is given; with no card and no ``--device`` they stop with an error.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
+from typing import Optional, Tuple
 
 import torch
 
 from ctagan_tpu_torch.models import Generator
 from ctagan_tpu_torch.utils.config import Config, load_config
-
-
-def build_generator(config: Config, device: torch.device,
-                    ckpt: str = "") -> Generator:
-    """The config's full-width generator on ``device``: weights from the
-    ``.pth`` at ``ckpt``, or seeded from ``config.seed``."""
-    g = Generator(
-        config.input_nc * config.context_slices, config.output_nc,
-        dtype=(torch.bfloat16 if config.compute_dtype == "bfloat16"
-               else None),
-        pad_mode=config.pad_mode,
-    )
-    if ckpt:
-        g.load_state_dict(torch.load(ckpt, map_location="cpu",
-                                     weights_only=True), strict=True)
-    else:
-        g.reset_parameters(config.seed)
-    return g.to(device).eval()
 
 
 def _device(name: str | None) -> torch.device:
@@ -97,10 +84,8 @@ def _trainer(config: Config, device: torch.device):
     return trainer
 
 
-def train(config: Config, device: torch.device,
-          max_steps: int | None = None):
-    """Run the config's trainer; returns the trainer."""
-    trainer = _trainer(config, device)
+def _train(trainer, max_steps: Optional[int] = None):
+    config, device = trainer.config, trainer.device
     print(f"training {config.name} ({trainer.title}) at {config.size}^2 on "
           f"{device}, fused_body_grad {config.fused_body_grad}"
           + (f", max {max_steps} steps" if max_steps is not None else ""),
@@ -114,10 +99,8 @@ def train(config: Config, device: torch.device,
     return trainer
 
 
-def test(config: Config, device: torch.device, write_dicom: bool = True):
-    """Run the config's trainer's ``test()``; returns the trainer, the
-    aggregate metrics and the seconds ``test()`` took."""
-    trainer = _trainer(config, device)
+def _test(trainer, write_dicom: bool = True):
+    config, device = trainer.config, trainer.device
     route = ("serving route (fused_body)" if config.fused_body else
              f"training route (fused_body_grad {config.fused_body_grad})")
     print(f"testing {config.name} ({trainer.title}) at {config.size}^2 on "
@@ -132,14 +115,79 @@ def test(config: Config, device: torch.device, write_dicom: bool = True):
     return trainer, agg, secs
 
 
+def train(config: Config, device: torch.device,
+          max_steps: Optional[int] = None):
+    """Run the config's trainer; returns the trainer."""
+    return _train(_trainer(config, device), max_steps)
+
+
+def test(config: Config, device: torch.device, write_dicom: bool = True):
+    """Run the config's trainer's ``test()``; returns the trainer, the
+    aggregate metrics and the seconds ``test()`` took."""
+    return _test(_trainer(config, device), write_dicom)
+
+
+def train_test(config: Config, device: torch.device,
+               max_steps: Optional[int] = None, write_dicom: bool = True):
+    """``train``, then ``test()`` on the same trainer (which reads the
+    newest checkpoint the run saved); returns what :func:`test` does."""
+    return _test(train(config, device, max_steps), write_dicom)
+
+
+def infer(config: Config, device: torch.device, series: str,
+          times: Optional[dict] = None) -> str:
+    """A whole SE0 series into ``<image_save>/volume/SE2``; returns that
+    directory (``times``: see ``infer_series``)."""
+    from ctagan_tpu_torch.parallel.serve import infer_series
+
+    return infer_series(_trainer(config, device), series, config.image_save,
+                        times)
+
+
+def figures(config: Config, device: torch.device) -> str:
+    """The qualitative panels; returns their directory."""
+    return _trainer(config, device).make_figures()
+
+
+def export(config: Config, device: torch.device,
+           out: Optional[str] = None) -> str:
+    """The generator's artifact at ``out`` (default
+    ``<save_root>/generator.ctpt``); returns the path."""
+    from ctagan_tpu_torch.serving.export import export_generator
+
+    trainer = _trainer(config, device)
+    trainer.load_inference_generator()
+    out = out or os.path.join(config.save_root, "generator.ctpt")
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    return export_generator(trainer._eval_model(), out, size=config.size,
+                            channels=config.input_nc * config.context_slices)
+
+
+def serving_generator(config: Config, device: torch.device
+                      ) -> Tuple[Generator, Optional[str]]:
+    """The generator ``serve`` serves, found as the JAX entry point's serve
+    finds it: the config's trainer, its G from ``generator_ckpt`` (a
+    reference ``.pth``, a port ``.pt`` or a JAX ``.ckpt``), else the newest
+    checkpoint of its prefix in ``save_root`` (``.pt`` or ``.ckpt``), else
+    seeded from ``config.seed``; the EMA with ``ema_decay`` > 0. Returned on
+    the serving route (K3, K1, K2; the layer route with ``pad_mode: zero``),
+    with the path loaded (or None)."""
+    trainer = _trainer(config, device)
+    path = trainer.load_inference_generator()
+    g = trainer._eval_model()
+    g.fused_body = True
+    return g.eval(), path
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m ctagan_tpu_torch")
     ap.add_argument("--config", required=True)
-    ap.add_argument("--mode", choices=["serve", "train", "test"],
-                    default="serve")
+    ap.add_argument("--mode", default="serve",
+                    choices=["train", "test", "train_test", "infer",
+                             "figures", "serve", "export"])
     ap.add_argument("--generator-ckpt", default="",
-                    help="reference-format .pth, or for test also a port "
-                         ".pt checkpoint (default: config generator_ckpt)")
+                    help="a reference .pth, a port .pt or a JAX .ckpt "
+                         "(default: config generator_ckpt)")
     ap.add_argument("--device", default=None,
                     help="cuda, cuda:N or cpu (default: cuda; without a "
                          "card, only an explicit cpu runs)")
@@ -147,31 +195,66 @@ def main(argv=None) -> int:
                     help="train: stop after this many steps")
     ap.add_argument("--no-write", action="store_true",
                     help="test: skip the SE2 DICOM writeback")
+    ap.add_argument("--series", default=None,
+                    help="infer: an SE0 series directory (whole volume)")
+    ap.add_argument("--out", default=None,
+                    help="export: the artifact's path (default "
+                         "<save_root>/generator.ctpt)")
+    ap.add_argument("--train-list", default=None,
+                    help="override config train_list")
+    ap.add_argument("--val-list", default=None,
+                    help="override config val_list")
+    ap.add_argument("--test-list", default=None,
+                    help="override config test_list")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the newest checkpoint (overrides "
+                         "config)")
     opts = ap.parse_args(argv)
+    if opts.mode == "infer" and not opts.series:
+        ap.error("--mode infer requires --series <SE0 dir>")
     config = load_config(opts.config)
+    for key in ("train_list", "val_list", "test_list"):
+        if getattr(opts, key):
+            setattr(config, key, getattr(opts, key))
+    if opts.resume:
+        config.resume = True
+    config.generator_ckpt = opts.generator_ckpt or config.generator_ckpt
     device = _device(opts.device)
     if opts.mode == "train":
         train(config, device, opts.max_steps)
-        return 0
-    if opts.mode == "test":
-        config.generator_ckpt = opts.generator_ckpt or config.generator_ckpt
+    elif opts.mode == "test":
         test(config, device, write_dicom=not opts.no_write)
-        return 0
-    ckpt = opts.generator_ckpt or config.generator_ckpt
-    g = build_generator(config, device, ckpt)
+    elif opts.mode == "train_test":
+        train_test(config, device, opts.max_steps,
+                   write_dicom=not opts.no_write)
+    elif opts.mode == "infer":
+        print("synthetic CTA written to:", infer(config, device, opts.series),
+              flush=True)
+    elif opts.mode == "figures":
+        print("panels:", figures(config, device), flush=True)
+    elif opts.mode == "export":
+        print("artifact written to:", export(config, device, opts.out),
+              flush=True)
+    else:
+        _serve(config, device)
+    return 0
+
+
+def _serve(config: Config, device: torch.device) -> None:
     from ctagan_tpu_torch.serving.server import serve
 
+    g, path = serving_generator(config, device)
     port = config.serve_port
     print(
         f"serving CT->CTA synthesis on :{port} (POST /synthesize) on {device}"
-        + (f", weights {ckpt}" if ckpt
-           else f", seeded weights (seed {config.seed}): no checkpoint given"),
-        flush=True,
-    )
+        + (f"; weights {path}" if path
+           else f"; seeded weights (seed {config.seed}): no checkpoint "
+                f"given or found in {config.save_root}")
+        + (f" [{config.serve_quantize}]" if config.serve_quantize else ""),
+        flush=True)
     serve(g, port=port, size=config.size, max_batch=config.max_batch,
           quantize=config.serve_quantize,
           channels=config.input_nc * config.context_slices)
-    return 0
 
 
 if __name__ == "__main__":

@@ -8,7 +8,9 @@ need no JAX: the tree is nested dicts of numpy
 arrays, ``{"params": {"ConvTorch_0": {"Conv_0": {"kernel", "bias"}}, ...}}``.
 
 The ``load_*_state`` functions fill a port family state's nets from a JAX
-family state's trees.
+family state's trees; :func:`load_jax_state` fills a whole port family state
+(nets, EMAs, Adam moments, CycleGAN's replay pools) from a JAX family
+state read from a ``.ckpt`` (``utils/checkpoint.py::load_jax_checkpoint``).
 
 - Conv kernel (kh, kw, I, O)                        -> Conv2d (O, I, kh, kw)
 - ConvTranspose (transpose_kernel=True) (kh, kw, O, I) -> (I, O, kh, kw)
@@ -21,12 +23,17 @@ import numpy as np
 import torch
 
 
+def _array(a) -> np.ndarray:
+    """A leaf as f32, or f64 where it is f64 (a float64 check's tree)."""
+    a = np.asarray(a)
+    return a if a.dtype == np.float64 else a.astype(np.float32)
+
+
 def _weight(sd, key, p) -> None:
-    k = np.asarray(p["kernel"], dtype=np.float32)
+    k = _array(p["kernel"])
     sd[f"{key}.weight"] = torch.from_numpy(
         np.ascontiguousarray(k.transpose(3, 2, 0, 1)))
-    sd[f"{key}.bias"] = torch.from_numpy(
-        np.asarray(p["bias"], dtype=np.float32).copy())
+    sd[f"{key}.bias"] = torch.from_numpy(_array(p["bias"]).copy())
 
 
 def generator_state_dict(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -140,6 +147,16 @@ def regnet_state_dict(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 # (``train/steps.py``) with ``strict=True``; an EMA shadow starts at the
 # loaded generator, as JAX's ``init_*_state`` copies it.
 
+def _d_state_dict(d_model, tree):
+    """A JAX D tree for the port's D: the multi-scale layout where the port's
+    D is a ``MultiScaleDiscriminator`` (HD stage 2), else the scalar one."""
+    from ctagan_tpu_torch.models.discriminator import MultiScaleDiscriminator
+
+    if isinstance(d_model, MultiScaleDiscriminator):
+        return multiscale_discriminator_state_dict(tree)
+    return discriminator_state_dict(tree)
+
+
 def _load(net, sd, ema=None) -> None:
     net.load_state_dict(sd, strict=True)
     if ema is not None:
@@ -157,7 +174,7 @@ def load_reg_state(state, g_params, r_params, d_params) -> None:
     """``g_params``/``r_params``/``d_params`` into a ``RegState``."""
     _load(state.g_model, generator_state_dict(g_params), state.g_ema)
     _load(state.r_model, regnet_state_dict(r_params))
-    _load(state.d_model, discriminator_state_dict(d_params))
+    _load(state.d_model, _d_state_dict(state.d_model, d_params))
 
 
 def load_cyc_state(state, g_a2b, g_b2a, d_a, d_b) -> None:
@@ -166,3 +183,100 @@ def load_cyc_state(state, g_a2b, g_b2a, d_a, d_b) -> None:
     _load(state.g_b2a, generator_state_dict(g_b2a), state.g_ema_b2a)
     _load(state.d_a, discriminator_state_dict(d_a))
     _load(state.d_b, discriminator_state_dict(d_b))
+
+
+# -- a whole JAX family state (a ``.ckpt``'s ``state``) -> the port state ------
+# optax's ``scale_by_adam`` keeps one ``count`` and moment trees ``mu``/``nu``
+# of the params' structure; torch's Adam keeps per param ``step``,
+# ``exp_avg`` and ``exp_avg_sq``. Both correct the bias by the same power
+# of the count, so the moments go through the params' own transposes and
+# the count becomes every param's step. JAX's ``rng`` key has no torch
+# counterpart: the port state keeps its own generator.
+
+def _scalar_dtype() -> torch.dtype:
+    # torch's Adam keeps ``step`` in this type (torch.optim's own rule)
+    return (torch.float64 if torch.get_default_dtype() == torch.float64
+            else torch.float32)
+
+
+def _load_adam(opt: torch.optim.Adam, nets, adam, to_sd) -> None:
+    """optax ``ScaleByAdamState`` {count, mu, nu} into ``opt``, whose params
+    are ``nets``' in order; ``to_sd`` maps one net's moment tree (``mu`` and
+    ``nu`` are that tree for one net, a tuple keyed "0", "1", … for
+    several) to its state dict."""
+    count = int(np.asarray(adam["count"]))
+    opt.state.clear()
+    if count == 0:  # no step taken: torch's Adam starts with no state
+        return
+    step = torch.tensor(float(count), dtype=_scalar_dtype())
+    for i, (net, conv) in enumerate(zip(nets, to_sd)):
+        mu, nu = adam["mu"], adam["nu"]
+        if len(nets) > 1:
+            mu, nu = mu[str(i)], nu[str(i)]
+        mu_sd, nu_sd = conv(mu), conv(nu)
+        named = dict(net.named_parameters())
+        if set(mu_sd) != set(named) or set(nu_sd) != set(named):
+            raise KeyError(f"Adam moments do not match the net's params: "
+                           f"{sorted(set(mu_sd) ^ set(named))}")
+        for name, p in named.items():
+            opt.state[p] = {
+                "step": step.clone(),
+                "exp_avg": mu_sd[name].to(device=p.device, dtype=p.dtype),
+                "exp_avg_sq": nu_sd[name].to(device=p.device, dtype=p.dtype)}
+
+
+def _load_ema(ema, tree, fallback_sd) -> None:
+    """A JAX EMA tree into the port's shadow; a checkpoint without one (its
+    run had no EMA) starts the shadow at the loaded G, as JAX's init does."""
+    if ema is None:
+        return
+    ema.load_state_dict(fallback_sd if tree is None
+                        else generator_state_dict(tree), strict=True)
+
+
+def _load_pool(buf, tree) -> None:
+    data = torch.from_numpy(np.array(tree["data"]))
+    buf.data.copy_(data.to(buf.data.dtype))
+    buf.size = int(np.asarray(tree["size"]))
+
+
+def load_jax_state(state, jax_state: Dict[str, Any]) -> None:
+    """A JAX ``P2pState``, ``RegState`` (RegGAN, HD stage 1 and 2) or
+    ``CycState``, as nested dicts by field name, into the port state of the
+    same family: every net (``strict=True``), the EMAs, the Adam moments and
+    counts, and CycleGAN's two replay pools. The port state's
+    ``torch.Generator`` is left as it is."""
+    st = jax_state
+    if hasattr(state, "g_a2b"):  # CycState
+        load_cyc_state(state, st["g_a2b_params"], st["g_b2a_params"],
+                       st["d_a_params"], st["d_b_params"])
+        _load_ema(state.g_ema, st.get("g_ema"), state.g_a2b.state_dict())
+        _load_ema(state.g_ema_b2a, st.get("g_ema_b2a"),
+                  state.g_b2a.state_dict())
+        _load_adam(state.g_opt, (state.g_a2b, state.g_b2a), st["g_opt"],
+                   (generator_state_dict, generator_state_dict))
+        _load_adam(state.d_a_opt, (state.d_a,), st["d_a_opt"],
+                   (discriminator_state_dict,))
+        _load_adam(state.d_b_opt, (state.d_b,), st["d_b_opt"],
+                   (discriminator_state_dict,))
+        _load_pool(state.fake_a_buffer, st["fake_a_buffer"])
+        _load_pool(state.fake_b_buffer, st["fake_b_buffer"])
+        return
+    d_sd = lambda tree: _d_state_dict(state.d_model, tree)  # noqa: E731
+    if hasattr(state, "r_model"):  # RegState
+        load_reg_state(state, st["g_params"], st["r_params"], st["d_params"])
+        _load_adam(state.r_opt, (state.r_model,), st["r_opt"],
+                   (regnet_state_dict,))
+    else:  # P2pState
+        load_p2p_state(state, st["g_params"], st["d_params"])
+    _load_ema(state.g_ema, st.get("g_ema"), state.g_model.state_dict())
+    _load_adam(state.g_opt, (state.g_model,), st["g_opt"],
+               (generator_state_dict,))
+    _load_adam(state.d_opt, (state.d_model,), st["d_opt"], (d_sd,))
+
+
+def jax_generator_params(jax_state: Dict[str, Any]) -> Dict[str, Any]:
+    """The generator tree of a JAX family state: ``g_params``, or CycleGAN's
+    ``g_a2b_params`` (its eval generator)."""
+    return jax_state["g_params" if "g_params" in jax_state
+                     else "g_a2b_params"]

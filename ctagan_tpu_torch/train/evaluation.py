@@ -6,7 +6,8 @@ header's display window (``to_windowdata``, 0.3 body masks) and in the
 full-range [−1, 1] space under the same masks. :class:`DicomWriteback`
 writes ``image_save/ST0/<i>/{SE0,SE1}`` (copies of the sources) and
 ``image_save/ST1/<i>/SE2`` (the synthetic series under a fresh
-SeriesInstanceUID). LPIPS is not ported (ROADMAP M10).
+SeriesInstanceUID). With an LPIPS function (``ops/lpips.py``) a pair also
+scores LPIPSw and LPIPS on the same masked views.
 """
 from __future__ import annotations
 
@@ -67,12 +68,16 @@ def _metric_suite(fake_b, real_b, wc, ww) -> torch.Tensor:
 
 def evaluate_pair(fake_b, real_b, wc: float, ww: float,
                   lpips_fn: Optional[Callable] = None) -> Dict[str, float]:
-    """Score one full-range (H, W) slice pair in window and raw space."""
-    if lpips_fn is not None:
-        raise NotImplementedError(
-            "evaluate_pair: LPIPS is not ported yet (ROADMAP M10)")
+    """Score one full-range (H, W) slice pair in window and raw space; with
+    ``lpips_fn`` also LPIPSw (the masked window views) and LPIPS (the
+    masked full-range views)."""
     vals = _metric_suite(fake_b, real_b, wc, ww).cpu().numpy()
-    return {k: float(v) for k, v in zip(METRIC_KEYS, vals)}
+    out = {k: float(v) for k, v in zip(METRIC_KEYS, vals)}
+    if lpips_fn is not None:
+        c_m, b_m, fake_m, real_m = _masked_views(fake_b, real_b, wc, ww)
+        out["LPIPSw"] = float(lpips_fn(c_m, b_m))
+        out["LPIPS"] = float(lpips_fn(fake_m, real_m))
+    return out
 
 
 class DicomWriteback:

@@ -18,14 +18,25 @@ re-raising. ``resume`` starts from the newest checkpoint, and the collapse
 guard restores the best stamped one when validation falls
 ``collapse_drop_db`` below it. ``test()`` scores the test list with the
 eight masked metrics and writes the synthetic SE2 series
-(``train/evaluation.py``). With ``ema_decay`` > 0, validation, test, the
-collapse guard's comparison and ``load_generator`` read and write G's EMA.
+(``train/evaluation.py``), with LPIPSw and LPIPS when ``lpips_weights``
+names a weights file (``ops/lpips.py``). ``make_figures`` writes the
+qualitative PNG panels (``utils/figures.py``). With ``ema_decay`` > 0,
+validation, test, figures, the collapse guard's comparison and
+``load_generator`` read and write G's EMA.
+
+Every reader of a checkpoint (``resume``, ``load_generator``, the stage-2
+bootstrap, test(), and through :meth:`TrainerBase.load_inference_generator`
+series inference, export and serving) takes the port's ``.pt`` and the JAX
+package's flax msgpack ``.ckpt`` alike (``utils/checkpoint.py``,
+``models/convert.py::load_jax_state``). A state resumed from a JAX file
+draws its augmentation from the port's own seeded generator: JAX's PRNG key
+has no torch counterpart.
 
 Validation and test run the generator's serving route (K3, K1, K2) with
 ``fused_body``, else the training model's route (on CUDA with
 ``fused_body_grad: auto``, the body through K1), on the same parameters.
-Not ported yet (ROADMAP M6): JAX's msgpack checkpoints, the watchdog,
-``--supervise``, live panels and the dashboard.
+Not ported yet (ROADMAP M6): the watchdog, ``--supervise``, live panels,
+the dashboard and JAX's orbax checkpoints.
 """
 from __future__ import annotations
 
@@ -57,17 +68,26 @@ from ctagan_tpu_torch.ops.windowing import (
     fullrange_from_stored,
 )
 from ctagan_tpu_torch.train import steps
+from ctagan_tpu_torch.models.convert import (
+    generator_state_dict,
+    jax_generator_params,
+    load_jax_state,
+    regnet_state_dict,
+)
+from ctagan_tpu_torch.ops.lpips import make_lpips_fn
 from ctagan_tpu_torch.train.evaluation import (
     METRIC_KEYS,
     DicomWriteback,
     _metric_suite,
     aggregate,
+    evaluate_pair,
 )
 from ctagan_tpu_torch.utils.checkpoint import (
     checkpoint_name,
     find_checkpoints,
     find_latest_checkpoint,
     find_latest_of_family,
+    is_jax_checkpoint,
     load_checkpoint,
     save_checkpoint,
 )
@@ -310,13 +330,16 @@ class TrainerBase:
                                payload, psnr, ssim_v)
 
     def _try_resume(self) -> None:
-        """Restore the newest readable checkpoint; an unreadable one (torn by
-        a crash mid-write, or a dying disk) is renamed ``.corrupt`` and the
-        next newest is tried."""
+        """Restore the newest readable checkpoint, the port's or JAX's; an
+        unreadable one (torn by a crash mid-write, or a dying disk) is
+        renamed ``.corrupt`` and the next newest is tried. An orbax
+        directory raises (not read yet)."""
         for path, _ in find_checkpoints(self.config.save_root,
                                         self.ckpt_prefix):
             try:
                 payload = load_checkpoint(path)
+            except NotImplementedError:
+                raise
             except Exception as e:  # unreadable: keep it aside, go on
                 quarantined = path + ".corrupt"
                 try:
@@ -327,7 +350,10 @@ class TrainerBase:
                       f"quarantined as {quarantined}, trying the next newest",
                       file=sys.stderr, flush=True)
                 continue
-            self._load_state(payload["state"])
+            if is_jax_checkpoint(path):
+                load_jax_state(self.state, payload["state"])
+            else:
+                self._load_state(payload["state"])
             self.start_epoch = self._current_epoch = int(payload["epoch"])
             self.lr = float(payload["lr"])
             self.lr_d = float(payload["lr_d"])
@@ -336,12 +362,24 @@ class TrainerBase:
             return
 
     def load_generator(self, path: str) -> None:
-        """G's weights from a reference-format ``.pth`` state dict or from a
-        port checkpoint (told apart by content)."""
-        obj = load_checkpoint(path)
-        if isinstance(obj, dict) and "state" in obj and "epoch" in obj:
-            obj = obj["state"][self._NETS[0][0]]
-        self._set_g_params(obj)
+        """G's weights (and the EMA's) from a reference-format ``.pth`` state
+        dict, a port checkpoint (told apart by content) or a JAX ``.ckpt``
+        (its state's G: ``g_params``, CycleGAN's ``g_a2b_params``)."""
+        self._set_g_params(generator_weights(path))
+
+    def load_inference_generator(self) -> Optional[str]:
+        """G for series inference, export and serving, as the JAX entry
+        point finds it: ``generator_ckpt``, else the newest checkpoint of
+        the trainer's prefix in ``save_root`` (``.pt`` or ``.ckpt``), else
+        the weights G has. Returns the path loaded, or None."""
+        cfg = self.config
+        path = cfg.generator_ckpt
+        if not path:
+            found = find_latest_checkpoint(cfg.save_root, self.ckpt_prefix)
+            path = found[0] if found else ""
+        if path:
+            self.load_generator(path)
+        return path or None
 
     def _collapse_guard(self, epoch: int, psnr_v: float, ssim_v: float
                         ) -> bool:
@@ -518,11 +556,13 @@ class TrainerBase:
             found = find_latest_checkpoint(cfg.save_root, self.ckpt_prefix)
             if found:
                 self.load_generator(found[0])
+        lpips_fn = make_lpips_fn(cfg.lpips_weights, self.device)
         k = max(1, int(cfg.eval_batch))
         loader = PrefetchLoader(self.test_dataset, batch_size=k,
                                 num_threads=cfg.n_cpu)
         writeback = DicomWriteback(cfg.image_save) if write_dicom else None
         mats: List[torch.Tensor] = []
+        rows: List[Dict[str, float]] = []
         with ThreadPoolExecutor(max(1, cfg.n_cpu)) as pool, \
                 ThreadPoolExecutor(1) as writer:
             windows = {p: pool.submit(_se1_window, p)
@@ -535,32 +575,92 @@ class TrainerBase:
                 wc, ww = (torch.tensor([w[i] for w in wcww],
                                        dtype=torch.float32,
                                        device=self.device) for i in (0, 1))
-                stored, mat = self._test_step(
-                    self._eval_put(a), self._eval_put(b), wc, ww)
-                mats.append(mat)
+                if lpips_fn is None:
+                    stored, mat = self._test_step(
+                        self._eval_put(a), self._eval_put(b), wc, ww)
+                    mats.append(mat)
+                else:  # JAX's per-slice evaluator, LPIPS on the masked views
+                    stored, lp_rows = self._lpips_test_step(
+                        self._eval_put(a), self._eval_put(b), wcww, lpips_fn)
+                    rows.extend(lp_rows)
                 if writeback is not None:
                     written.append(writer.submit(_write_batch, writeback,
                                                  paths, stored))
             for f in written:
                 f.result()  # raise a writeback error here
-        rows = []
         if mats:
             full = torch.cat(mats, dim=1).cpu().numpy()
             rows = [{mk: float(full[i, j]) for i, mk in enumerate(METRIC_KEYS)}
                     for j in range(full.shape[1])]
         agg = aggregate(rows)
         if not self.quiet:
-            for key in ("MAEw", "PSNRw", "SSIMw", "UQIw"):
+            for key in ("MAEw", "PSNRw", "SSIMw", "UQIw", "LPIPSw"):
                 if key in agg:
                     print(f"{key}: {agg[key]}")
             print()
-            for key in ("MAE", "PSNR", "SSIM", "UQI"):
+            for key in ("MAE", "PSNR", "SSIM", "UQI", "LPIPS"):
                 if key in agg:
                     print(f"{key}: {agg[key]}")
-            # the reference prints 10 aggregates; say why two are missing
-            print("LPIPSw/LPIPS: not computed — no lpips_weights configured "
-                  "(LPIPS is not ported yet: ROADMAP M10)", flush=True)
+            if "LPIPS" not in agg:
+                # the reference prints 10 aggregates; say why two are missing
+                print("LPIPSw/LPIPS: not computed — no lpips_weights "
+                      "configured (build the weights file with `python -m "
+                      "ctagan_tpu_torch.ops.lpips`)", flush=True)
         return agg
+
+    @torch.no_grad()
+    def _lpips_test_step(self, a, b, wcww, lpips_fn):
+        """test() with LPIPS: each slice through :func:`evaluate_pair` (the
+        8 metrics and LPIPSw/LPIPS), and the stored fakes as in
+        :meth:`_test_step`."""
+        fb, rb = self._eval_pair(a, b)
+        rows = [evaluate_pair(fb[j], rb[j], wc, ww, lpips_fn=lpips_fn)
+                for j, (wc, ww) in enumerate(wcww)]
+        return ((fb + 1.0) * 0.5 * 4095.0).to(torch.int16), rows
+
+    @torch.no_grad()
+    def make_figures(self, out_dir: Optional[str] = None, limit: int = 8
+                     ) -> str:
+        """Qualitative PNG panels over the first ``limit`` test slices (the
+        reference's ``testt()``): input (with 2.5-D context its centre
+        channel), target and synthetic, then a 2× zoom of each around the
+        centre, on the eval route; into ``<image_save>/panels`` unless
+        ``out_dir`` is given. Returns the directory."""
+        from ctagan_tpu_torch.utils.figures import save_qualitative_panel
+
+        cfg = self.config
+        out_dir = out_dir or os.path.join(cfg.image_save, "panels")
+        loader = PrefetchLoader(self.test_dataset, batch_size=1,
+                                num_threads=cfg.n_cpu)
+        model = self._eval_model()
+        for i, batch in enumerate(loader):
+            if i >= limit:
+                break
+            a, b = self._val_pairs(batch)
+            a_n = self._eval_input(self._eval_put(a))
+            b_n = self._eval_input(self._eval_put(b))
+            fake = model(a_n, fused_body=cfg.fused_body)[0, :, :, 0]
+            save_qualitative_panel(
+                out_dir, f"slice{i}",
+                [a_n[0, :, :, a.shape[-1] // 2].float().cpu().numpy(),
+                 b_n[0, :, :, 0].float().cpu().numpy(),
+                 fake.float().cpu().numpy()],
+                zoom_center=(cfg.size // 2, cfg.size // 2))
+        return out_dir
+
+
+def generator_weights(path: str) -> Dict[str, torch.Tensor]:
+    """The eval generator's state dict in a checkpoint: a reference-format
+    ``.pth`` as it is, a port checkpoint's G (``g``, CycleGAN's ``g_a2b``;
+    told apart by content), a JAX ``.ckpt``'s state's G (``g_params``,
+    CycleGAN's ``g_a2b_params``)."""
+    obj = load_checkpoint(path)
+    if is_jax_checkpoint(path):
+        return generator_state_dict(jax_generator_params(obj["state"]))
+    if isinstance(obj, dict) and "state" in obj and "epoch" in obj:
+        state = obj["state"]
+        return state["g" if "g" in state else "g_a2b"]
+    return obj
 
 
 def _se1_window(a_path: str) -> Tuple[float, float]:
@@ -709,23 +809,28 @@ class HdTrainerStage2(HdTrainerStage1):
 
     def bootstrap_from_stage1(self, path: Optional[str] = None
                               ) -> "HdTrainerStage2":
-        """G and R from a port stage-1 checkpoint: ``path``, else
-        ``stage1_ckpt``, else the newest ``*_hd1_e*.pt`` in ``save_root``
-        under any config name. D, the optimizers and the augmentation RNG
-        stay as they are (fresh in a new run), as in the JAX package."""
+        """G and R from a stage-1 checkpoint, the port's ``.pt`` or JAX's
+        ``.ckpt``: ``path``, else ``stage1_ckpt``, else the newest
+        ``*_hd1_e*`` in ``save_root`` under any config name. D, the
+        optimizers and the augmentation RNG stay as they are (fresh in a new
+        run), as in the JAX package."""
         path = path or self.config.stage1_ckpt
         if not path:
             found = find_latest_of_family(self.config.save_root,
                                           HdTrainerStage1.family)
             if found is None:
                 raise FileNotFoundError(
-                    f"no stage-1 checkpoint (*_hd1_e*.pt) in "
-                    f"{self.config.save_root}; set stage1_ckpt (JAX .ckpt "
-                    "files are not read yet: ROADMAP M6)")
+                    f"no stage-1 checkpoint (*_hd1_e*.pt or .ckpt) in "
+                    f"{self.config.save_root}; set stage1_ckpt")
             path = found[0]
         state = load_checkpoint(path)["state"]
-        self.g_model.load_state_dict(state["g"], strict=True)
-        self.r_model.load_state_dict(state["r"], strict=True)
+        if is_jax_checkpoint(path):
+            g_sd = generator_state_dict(state["g_params"])
+            r_sd = regnet_state_dict(state["r_params"])
+        else:
+            g_sd, r_sd = state["g"], state["r"]
+        self.g_model.load_state_dict(g_sd, strict=True)
+        self.r_model.load_state_dict(r_sd, strict=True)
         if not self.quiet:
             print(f"stage 2 bootstrapped G and R from {path}", flush=True)
         return self

@@ -4,8 +4,14 @@ stamped, atomic, resumable.
 A checkpoint is one ``torch.save`` of ``{"state": {...}, "epoch", "lr",
 "lr_d"}`` named ``<prefix>_e<epoch>[_<psnr>_<ssim>].pt``: the JAX package's
 naming under the port's own suffix, so JAX's ``.ckpt`` pattern never
-matches a port file and this module never matches a JAX one. JAX's flax
-msgpack ``.ckpt`` files are not read yet (ROADMAP M6).
+matches a port file.
+
+The port also reads the JAX package's flax msgpack ``.ckpt`` files
+(:func:`load_jax_checkpoint`, through the pure-Python decoder in
+``utils/msgpack.py``): :func:`find_checkpoints` lists both suffixes under
+one prefix, newest epoch first, the port's ``.pt`` first on an equal
+epoch. JAX's orbax ``.ocp`` directories are listed too, and loading one
+raises (ROADMAP M6, the orbax reader).
 """
 from __future__ import annotations
 
@@ -16,8 +22,11 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 SUFFIX = ".pt"
-_CKPT_RE = re.compile(
-    r"^(?P<prefix>.+?)_e(?P<epoch>\d+)(?:_(?P<metrics>[-\d._]+))?\.pt$")
+JAX_SUFFIX = ".ckpt"
+_CKPT_RE = re.compile(r"^(?P<prefix>.+?)_e(?P<epoch>\d+)"
+                      r"(?:_(?P<metrics>[-\d._]+))?\.(?P<suffix>pt|ckpt|ocp)$")
+# on an equal epoch: the port's own file, then JAX's msgpack, then orbax
+_SUFFIX_RANK = {"pt": 2, "ckpt": 1, "ocp": 0}
 
 
 def checkpoint_name(prefix: str, epoch: int, psnr: Optional[float] = None,
@@ -46,27 +55,56 @@ def save_checkpoint(save_root: str, prefix: str, epoch: int,
     return path
 
 
-def load_checkpoint(path: str) -> Dict[str, Any]:
-    """A port checkpoint's payload, every tensor on the CPU."""
-    if path.endswith((".ckpt", ".ocp")):
+def is_jax_checkpoint(path: str) -> bool:
+    """A JAX package checkpoint (flax msgpack ``.ckpt`` or orbax ``.ocp``)
+    rather than a port ``.pt`` or a reference ``.pth``."""
+    return path.rstrip("/").endswith((JAX_SUFFIX, ".ocp"))
+
+
+def _refuse_orbax(path: str) -> None:
+    if path.rstrip("/").endswith(".ocp"):
         raise NotImplementedError(
-            f"{path}: JAX checkpoints (flax msgpack / orbax) are not read "
-            "by the port yet (ROADMAP M6)")
+            f"{path}: JAX's orbax checkpoints are not read by the port yet "
+            "(ROADMAP M6, the orbax .ocp reader); save with "
+            "checkpoint_backend: msgpack")
+
+
+def load_jax_checkpoint(path: str) -> Dict[str, Any]:
+    """A JAX ``.ckpt``'s payload as nested dicts: ``state`` (the family
+    state's fields by name, numpy arrays at the leaves; tuples keyed "0",
+    "1", ..., optax's ``ScaleByAdamState`` by field), ``epoch``, ``lr`` and
+    ``lr_d``."""
+    from ctagan_tpu_torch.utils.msgpack import unpackb
+
+    _refuse_orbax(path)
+    with open(path, "rb") as f:
+        data = f.read()
+    return unpackb(data)
+
+
+def load_checkpoint(path: str) -> Dict[str, Any]:
+    """A port checkpoint's payload (or a ``.pth`` state dict), every tensor
+    on the CPU; a JAX checkpoint through :func:`load_jax_checkpoint`."""
+    if is_jax_checkpoint(path):
+        return load_jax_checkpoint(path)
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def find_checkpoints(save_root: str, prefix: str) -> List[Tuple[str, int]]:
-    """Every port checkpoint of ``prefix``, newest epoch first, as (path,
-    epoch) pairs."""
+    """Every checkpoint of ``prefix`` (the port's ``.pt``, JAX's ``.ckpt``
+    and ``.ocp``), newest epoch first and the port's on an equal epoch, as
+    (path, epoch) pairs."""
     if not os.path.isdir(save_root):
         return []
-    out: List[Tuple[str, int]] = []
+    found = []
     for fn in os.listdir(save_root):
         m = _CKPT_RE.match(fn)
         if m and m.group("prefix") == prefix:
-            out.append((os.path.join(save_root, fn), int(m.group("epoch"))))
-    out.sort(key=lambda pe: pe[1], reverse=True)
-    return out
+            epoch = int(m.group("epoch"))
+            found.append(((epoch, _SUFFIX_RANK[m.group("suffix")]),
+                          os.path.join(save_root, fn)))
+    found.sort(key=lambda kp: kp[0], reverse=True)
+    return [(path, key[0]) for key, path in found]
 
 
 def find_latest_checkpoint(save_root: str, prefix: str
@@ -79,14 +117,16 @@ def find_latest_checkpoint(save_root: str, prefix: str
 def find_latest_of_family(save_root: str, family: str
                           ) -> Optional[Tuple[str, int]]:
     """The newest (path, epoch) whose prefix ends in ``_<family>``, under any
-    config name (ties to the name that sorts last), or None."""
+    config name and either suffix (on an equal epoch the port's ``.pt``,
+    then the name that sorts last), or None."""
     if not os.path.isdir(save_root):
         return None
-    best: Optional[Tuple[int, str]] = None
+    best: Optional[Tuple[int, int, str]] = None
     for fn in os.listdir(save_root):
         m = _CKPT_RE.match(fn)
         if m and m.group("prefix").endswith(f"_{family}"):
-            cand = (int(m.group("epoch")), fn)
+            cand = (int(m.group("epoch")), _SUFFIX_RANK[m.group("suffix")],
+                    fn)
             best = cand if best is None or cand > best else best
-    return None if best is None else (os.path.join(save_root, best[1]),
+    return None if best is None else (os.path.join(save_root, best[2]),
                                       best[0])

@@ -89,7 +89,7 @@ class Config:
     collapse_guard: bool = True
     collapse_drop_db: float = 6.0  # val-PSNR drop below the best that fires
     collapse_lrd_backoff: float = 0.5  # D-lr multiplier on each fire
-    lpips_weights: str = ""  # LPIPS is not ported: non-empty raises
+    lpips_weights: str = ""  # LPIPS weights file (ops/lpips.py); "" = none
     checkpoint_backend: str = "msgpack"  # accepted and ignored (see above)
     r1_gamma: float = 0.0  # R1 penalty on D(real) (0: the reference)
     warp_max_disp: int = 0  # > 0: the warp's flow clipped to [-R, R]
@@ -148,9 +148,6 @@ class Config:
             raise ValueError("collapse_drop_db must be > 0")
         if not (0 < self.collapse_lrd_backoff <= 1):
             raise ValueError("collapse_lrd_backoff must be in (0, 1]")
-        if self.lpips_weights:
-            raise NotImplementedError(
-                "lpips_weights: LPIPS is not ported yet (ROADMAP M10)")
         return self
 
 

@@ -304,9 +304,18 @@ def test_evaluate_pair_matches_jax(j):
     _check_suite_row([got[k] for k in got], want,
                      _suite_ref64(fakes[j], reals[j], float(wc[j]),
                                   float(ww[j])))
-    with pytest.raises(NotImplementedError, match="M10"):
-        evaluation.evaluate_pair(fakes[j], reals[j], 50.0, 400.0,
-                                 lpips_fn=lambda a, b: 0.0)
+    # with an LPIPS function both score LPIPSw and LPIPS on the same masked
+    # views (here a mean square, which runs on either side's arrays)
+    def sq(a, b):
+        return ((a - b) ** 2).mean()
+
+    got = evaluation.evaluate_pair(fakes[j], reals[j], 50.0, 400.0,
+                                   lpips_fn=sq)
+    want = jax_eval.evaluate_pair(fakes[j], reals[j], 50.0, 400.0,
+                                  lpips_fn=sq)
+    assert list(got) == [*evaluation.METRIC_KEYS, "LPIPSw", "LPIPS"]
+    for key in ("LPIPSw", "LPIPS"):
+        assert abs(got[key] - want[key]) <= 1e-6, (key, got[key], want[key])
 
 
 def test_aggregate_matches_jax():
@@ -403,8 +412,14 @@ def test_config_rejects_what_jax_rejects(bad):
 
 
 def test_config_lpips_raises_and_backend_is_accepted():
-    with pytest.raises(NotImplementedError, match="M10"):
-        load_config({"lpips_weights": "alex.npz"})
+    # LPIPS is ported: the config takes the path, and a configured file
+    # that does not exist raises where test() builds the metric, as JAX's
+    from ctagan_tpu_torch.ops.lpips import make_lpips_fn
+
+    assert load_config({"lpips_weights": "alex.npz"}).lpips_weights == \
+        "alex.npz"
+    with pytest.raises(FileNotFoundError, match="lpips_weights"):
+        make_lpips_fn("/nonexistent/alex.npz")
     assert load_config({"checkpoint_backend": "orbax"}).checkpoint_backend \
         == "orbax"
 
@@ -419,8 +434,9 @@ def test_checkpoint_names_follow_jax_under_the_port_suffix(tmp_path, epoch,
     assert got == want[: -len(".ckpt")] + ".pt"
     for name in (got, want):
         (tmp_path / name).write_bytes(b"x")
+    # the port lists JAX's file too, its own first on an equal epoch
     assert checkpoint.find_checkpoints(str(tmp_path), "HdGan_hd1") == [
-        (str(tmp_path / got), epoch)]
+        (str(tmp_path / got), epoch), (str(tmp_path / want), epoch)]
     assert jax_ckpt.find_checkpoints(str(tmp_path), "HdGan_hd1") == [
         (str(tmp_path / want), epoch)]
 
@@ -437,5 +453,6 @@ def test_checkpoint_save_is_atomic_and_found_newest_first(tmp_path):
     got = checkpoint.load_checkpoint(str(tmp_path / "P_e3.pt"))
     assert torch.equal(got["state"]["w"], payload["state"]["w"])
     assert (got["epoch"], got["lr"], got["lr_d"]) == (3, 1e-4, 2e-4)
+    # JAX's orbax directories are not read yet
     with pytest.raises(NotImplementedError, match="M6"):
-        checkpoint.load_checkpoint(str(tmp_path / "P_e1.ckpt"))
+        checkpoint.load_checkpoint(str(tmp_path / "P_e1.ocp"))

@@ -268,8 +268,20 @@ def test_load_generator_takes_a_pth_or_a_port_checkpoint(corpus, tmp_path,
     t.load_generator(path)
     for k, v in t.g_model.state_dict().items():
         assert torch.equal(v, want[k]), k
+    # a JAX checkpoint (flax msgpack) of JAX's G is read too; JAX's orbax
+    # directories are not read yet
+    from ctagan_tpu.models import torch_import
+    from ctagan_tpu.utils import checkpoint as jax_ckpt
+
+    tree = torch_import.import_generator(
+        {k: v.numpy() for k, v in jax_run["g"].items()})
+    jax_path = jax_ckpt.save_checkpoint(str(tmp_path), "HdGan_hd1", 4, {
+        "state": {"g_params": tree}, "epoch": 4, "lr": 1e-4, "lr_d": 1e-4})
+    t.load_generator(jax_path)
+    for k, v in t.g_model.state_dict().items():
+        assert torch.equal(v, jax_run["g"][k]), k
     with pytest.raises(NotImplementedError, match="M6"):
-        t.load_generator(str(tmp_path / "HdGan_hd1_e1.ckpt"))
+        t.load_generator(str(tmp_path / "HdGan_hd1_e1.ocp"))
 
 
 def _zero_g(t):

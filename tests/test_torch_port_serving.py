@@ -226,7 +226,7 @@ def test_port_runs_without_jax(tmp_path):
         from ctagan_tpu_torch.data.dicom import (
             dicom_bytes, make_ct_slice, read_dicom)
         from ctagan_tpu_torch.data.fixtures import synthetic_ct_pixels
-        from ctagan_tpu_torch.__main__ import build_generator
+        from ctagan_tpu_torch.__main__ import serving_generator
         from ctagan_tpu_torch.models import Generator
         from ctagan_tpu_torch.serving.server import serve_async
         from ctagan_tpu_torch.utils.config import load_config
@@ -236,7 +236,8 @@ def test_port_runs_without_jax(tmp_path):
             y = g(torch.zeros(1, 16, 16, 1))
         assert y.shape == (1, 16, 16, 1) and torch.isfinite(y).all()
         cfg = load_config({{"size": {SIZE}}})
-        g = build_generator(cfg, torch.device("cpu"))
+        g, path = serving_generator(cfg, torch.device("cpu"))
+        assert path is None and g.fused_body
         srv, svc, port = serve_async(g, size={SIZE}, max_batch=2)
         ds = make_ct_slice(synthetic_ct_pixels(np.random.default_rng(0), {SIZE}))
         req = urllib.request.Request(

@@ -522,14 +522,28 @@ def test_bootstrap_loads_g_and_r_and_keeps_d_fresh(stage1_ckpt, tmp_path):
     assert _same(t.d_model, seeded.state_dict())
     assert all(not opt.state for opt in (t.state.g_opt, t.state.r_opt,
                                          t.state.d_opt))
-    # stage1_ckpt names the file; a JAX checkpoint is not read yet
+    # stage1_ckpt names the file
     t2 = HdTrainerStage2(load_config(_cfg(
         s1["lists"], tmp_path, "HdGan2", stage1_ckpt=s1["path"])),
         torch.device("cpu"), quiet=True)
     t2.bootstrap_from_stage1()
     assert _same(t2.g_model, s1["g"])
+    # a JAX stage-1 checkpoint of the same G and R is read too (flax
+    # msgpack); JAX's orbax directories are not read yet
+    from ctagan_tpu.utils import checkpoint as jax_ckpt
+
+    np_sd = {k: {n: v.numpy() for n, v in s1[k].items()} for k in "gr"}
+    jax_path = jax_ckpt.save_checkpoint(str(tmp_path), "HdGan_hd1", 3, {
+        "state": {"g_params": torch_import.import_generator(np_sd["g"]),
+                  "r_params": torch_import.import_regnet(np_sd["r"])},
+        "epoch": 3, "lr": 1e-4, "lr_d": 1e-4})
+    t3 = HdTrainerStage2(load_config(_cfg(s1["lists"], tmp_path, "HdGan2")),
+                         torch.device("cpu"), quiet=True)
+    assert not _same(t3.g_model, s1["g"])
+    t3.bootstrap_from_stage1(jax_path)
+    assert _same(t3.g_model, s1["g"]) and _same(t3.r_model, s1["r"])
     with pytest.raises(NotImplementedError, match="M6"):
-        t2.bootstrap_from_stage1(str(tmp_path / "HdGan_hd1_e3.ckpt"))
+        t2.bootstrap_from_stage1(str(tmp_path / "HdGan_hd1_e3.ocp"))
 
 
 def test_bootstrap_without_a_stage1_checkpoint_raises(stage1_ckpt, tmp_path):

@@ -1,8 +1,8 @@
 """``pad_mode: zero`` serves through the generator's layer route.
 
 ``configs/HdGan_fast.yaml`` (bf16, ``pad_mode: zero``) is built the way the
-serve entry point builds it (``__main__.build_generator``, which keeps the
-default ``fused_body=True``), loaded with the JAX generator's weights, and
+serve entry point builds it (``__main__.serving_generator``, which sets
+``fused_body=True``), loaded with the JAX generator's weights, and
 its forward is held against the JAX generator of the same config. JAX's
 ``chain_ok`` leaves zero pad out of the fused body, and so does the port on
 every device: the branch that picks the layer route reads only
@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ctagan_tpu.models import Generator as JaxGenerator
-from ctagan_tpu_torch.__main__ import build_generator
+from ctagan_tpu_torch.__main__ import serving_generator
 from ctagan_tpu_torch.models.convert import generator_state_dict
 from ctagan_tpu_torch.ops import fused_convt, fused_down, fused_resblock
 from ctagan_tpu_torch.utils.config import load_config
@@ -48,7 +48,10 @@ def test_hdgan_fast_serves_through_the_layer_route(tmp_path, monkeypatch):
 
     ckpt = tmp_path / "G.pth"
     torch.save(generator_state_dict(params), ckpt)
-    g = build_generator(config, torch.device("cpu"), str(ckpt))
+    config.generator_ckpt = str(ckpt)
+    config.save_root = str(tmp_path / "model")
+    g, path = serving_generator(config, torch.device("cpu"))
+    assert path == str(ckpt)
     assert g.fused_body and g.pad_mode == "zero"
     assert g.dtype == torch.bfloat16
 

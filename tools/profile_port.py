@@ -17,7 +17,9 @@ training]``. It imports nothing of JAX. Phases, all at 512² on
    device idle share of the window;
 2. host cost per 512² request: DICOM decode + dual window, and writeback +
    encode, mean over 64 requests;
-3. the HTTP service (``serve_async``, the config's ``max_batch``): 256
+3. the HTTP service (``serve_async``, the config's ``max_batch``) on the
+   generator ``--mode serve`` builds (``__main__.serving_generator``: the
+   newest checkpoint in the config's ``save_root``, else seeded): 256
    requests at 16 and at 64 concurrent clients, untraced (slices/s, request
    latency p50/p99, batches), then the same 64-client window under
    ``torch.profiler`` for the device idle share.
@@ -241,10 +243,10 @@ def _health(port):
 def profile_serving(torch, config, bodies, card):
     import numpy as np
 
-    from ctagan_tpu_torch.__main__ import build_generator
+    from ctagan_tpu_torch.__main__ import serving_generator
     from ctagan_tpu_torch.serving.server import serve_async
 
-    g = build_generator(config, torch.device("cuda"))
+    g, _ = serving_generator(config, torch.device("cuda"))
     server, service, port = serve_async(
         g, size=config.size, max_batch=config.max_batch,
         channels=config.input_nc * config.context_slices)
