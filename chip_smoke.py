@@ -63,9 +63,10 @@ card, ``nvcc`` and no network, and imports nothing of JAX. Phases:
 8. ``training``, a main path: ``python -m ctagan_tpu_torch --mode train``'s
    ``train()`` on ``configs/HdGan.yaml`` with its list paths pointed at a
    seeded 512² corpus: finite losses, G, R and D all updated, 36 K1, 18 K4
-   and 18 K5 launches per step; the p50 step time of the kernel route and
-   of the plain route (``fused_body_grad: off``); the kernel route's
-   12 steps end epoch 1, whose checkpoint goes to a temporary ``save_root``;
+   and 18 K5 launches per step and 18 K1 for the live panel's forward at
+   the epoch's last step; the p50 step time of the kernel route and of the
+   plain route (``fused_body_grad: off``); the kernel route's 12 steps end
+   epoch 1, whose checkpoint goes to a temporary ``save_root``;
 9. ``test``, a main path: ``python -m ctagan_tpu_torch --mode test``'s
    ``test()`` and then ``validate()`` on ``configs/HdGan.yaml`` (full
    width, seeded weights, TF32 off) over a seeded 512² corpus of 48 slice
@@ -87,7 +88,7 @@ card, ``nvcc`` and no network, and imports nothing of JAX. Phases:
    ``configs/HdGan2.yaml`` on the same corpus and ``save_root`` trains 12
    steps on the kernel route: G and R at step 1 bit-equal to the stage-1
    checkpoint's and D the seeded multi-scale D, 36 K1, 18 K4 and 18 K5
-   launches per step, finite losses with ``SR_loss2``, G, R and D all
+   launches per step and the live panel's 18 K1, finite losses with ``SR_loss2``, G, R and D all
    updated, the epoch's ``HdGan2_hd2_e1.pt`` saved, its p50 step; (c) the
    plain route (``fused_body_grad: off``) from the same bootstrap, no
    launch, its first step's ``toal_loss`` within a relative 1e-3 of the
@@ -107,7 +108,8 @@ card, ``nvcc`` and no network, and imports nothing of JAX. Phases:
    updated, exactly 36 K1, 18 K4 and 18 K5 launches a step (RegGAN, P2p:
    G's forward and D's re-forward of the updated G) or 72, 72 and 72
    (CycleGAN: four differentiated G forwards), plus 18 K1 per validated
-   slice; the p50 step and the peak device memory; then 2 plain-route
+   slice and per panel (the live batch's at the epoch's end, the first
+   val slice's after the validation); the p50 step and the peak device memory; then 2 plain-route
    steps (``fused_body_grad: off``), no launch, first-step total loss
    within a relative 1e-3 of the kernel route's. CycleGAN again with
    ``batchSize: 2``, ``grad_accum: 2`` and ``ema_decay: 0.999`` for 2
@@ -137,9 +139,38 @@ card, ``nvcc`` and no network, and imports nothing of JAX. Phases:
    loaded program, the eager plain route and the ``fused_body`` route;
 14. ``figures``, a main path: ``--mode figures``'s panels of 4 test slices
    of ``configs/HdGan.yaml`` on the default eval route (18 K1 a slice),
-   each PNG read back with ``read_png_gray`` at (512, 2304).
+   each PNG read back with ``read_png_gray`` at (512, 2304);
+15. ``loop``, a main path: ``--mode train``'s ``train()`` on
+   ``configs/HdGan.yaml`` at full width on the kernel route over 8 seeded
+   512² slices, one epoch, ``log_every: 4``, ``stall_timeout: 120``, live
+   panels, 2 val slices: ``HdGan_losses.csv`` (JAX's header, the epoch's
+   row equal to the 8 steps' running means), ``HdGan_val.csv``,
+   ``HdGan_latest_panel.png`` read back at (512, 1536), ``dashboard.html``
+   with its SVG charts and inline PNG, the watchdog disarmed after the
+   run, exactly 8 steps' launches plus 18 K1 for each of 2 live panels, 2
+   val slices and the val panel. The wedge drill: ``python -m
+   ctagan_tpu_torch --mode train --supervise 1`` on a two-epoch config
+   with a checkpoint every step and ``stall_timeout: 20``, a
+   ``sitecustomize.py`` shadow first on the child's ``PYTHONPATH`` holding
+   the first attempt's second ``StepTimer.tick`` 600 s: the watchdog's exit
+   42, one relaunch with ``--resume`` from ``HdGan_hd1_e1.pt``, epoch 2
+   trained, exit 0. ``remat``: the HD stage-1 step on the layer route at
+   batchSize 1 and 4 and on the kernel route at 1, off and on: p50 step and
+   peak memory of each, the layer route's first-step G-phase losses within
+   1e-6 (D's, after G's update, within 1e-4), the kernel route's launches
+   and peak memory unchanged;
+16. ``p3d``, a main path: ``configs/P3d.yaml`` (512², ``patch_depth`` 8,
+   bf16, ``Generator3D`` base 32, 6 blocks, b=1) through ``train()`` over
+   a seeded corpus of 4 series of 12 slices: an epoch of 4 steps, finite
+   losses under JAX's keys, G and D updated, no kernel launched (3-D convs
+   are cuDNN's), validated on the windows' centre slices,
+   ``P3d_p3d_e1_*.pt`` saved; its p50 step, peak memory and FLOP bound;
+   the first step again in f32 from the same seeds within 2e-2 of the bf16
+   one; ``--mode infer`` over a seeded 40-slice series: every SE2 file
+   named, sized and re-UIDed as its source, the slices only the first
+   window covers within 1 stored unit of a direct forward of the saved G.
 
-The launch counts of the eight main paths (each counted from zero) are the
+The launch counts of the ten main paths (each counted from zero) are the
 ``launches`` of the kernels line. ``--phases a,b`` runs a subset and stops
 before the result lines; ``--cases K2,K3`` keeps only the kernel phase's
 cases and timing lines of those kernels (and stops there too). Any failure
@@ -290,9 +321,32 @@ EXPORT_TOL = 2e-5
 # synthetic 512² slices and a 2x zoom of each one's central 128² crop
 FIGURE_SLICES = 4
 FIGURE_SHAPE = (EVAL_SIZE, 3 * EVAL_SIZE + 3 * 2 * 128)
+# the loop phase: configs/HdGan.yaml's loop over LOOP_STEPS slices with
+# log_every LOOP_LOG_EVERY (live panels at steps 4 and 8) and LOOP_VAL val
+# slices; the wedge drill on DRILL_SLICES slices, two epochs, its first
+# attempt's second step timer tick held DRILL_SLEEP s against a
+# DRILL_STALL s watchdog, the whole drill within DRILL_TIMEOUT s
+LOOP_STEPS, LOOP_LOG_EVERY, LOOP_VAL = 8, 4, 2
+DRILL_SLICES, DRILL_STALL, DRILL_SLEEP, DRILL_TIMEOUT = 4, 20, 600, 300
+# remat: the HD stage-1 step's steps per run at each batch size (12 slices:
+# b=4 runs two 3-step epochs); the first step's G-phase losses (the forward
+# before any update) with and without remat within REMAT_LOSS_TOL
+# (relative; the same forward either way), its D loss within REMAT_D_TOL:
+# D's loss comes after G's update, whose gradient grid_sample's backward
+# sums with atomics, so it moves ~1e-6 from run to run (measured on an
+# H100: 3.2e-6 between remat off and on at b=1)
+REMAT_SLICES, REMAT_STEPS, REMAT_LOSS_TOL = 12, {1: 6, 4: 6}, 1e-6
+REMAT_D_TOL = 1e-4
+# the p3d phase: configs/P3d.yaml (512², patch_depth 8, bf16) on a corpus of
+# P3D_PATIENTS series of P3D_SLICES slices (an epoch = one window of each);
+# the f32 first step's losses within P3D_F32_TOL (relative) of the bf16
+# run's; --mode infer over a P3D_SERIES-slice series, the slices only the
+# first window covers within INFER_PIXEL_TOL of a direct forward of it
+P3D_PATIENTS, P3D_SLICES, P3D_SERIES, P3D_F32_TOL = 4, 12, 40, 2e-2
+P3D_LOSS_KEYS = ["loss_G", "loss_L1", "loss_GAN_A2B", "loss_D_B"]
 ALL_PHASES = ("kernels", "generator", "int8", "grad", "serving",
               "int8_serving", "training", "test", "stage2", "families",
-              "infer", "export", "figures")
+              "infer", "export", "figures", "loop", "p3d")
 
 
 def fail(msg):
@@ -1026,6 +1080,9 @@ PER_CYC_STEP = counts_of(conv3x3_reflect_stats=72, conv3x3_input_grad=72,
 PER_CYC_ACCUM2_STEP = counts_of(conv3x3_reflect_stats=2 * 72 + 2 * 18,
                                 conv3x3_input_grad=2 * 72,
                                 conv3x3_weight_grad=2 * 72)
+# the training route's generator forward without grad (validation, the live
+# panel): the body's 18 K1
+PER_EVAL_FORWARD = counts_of(conv3x3_reflect_stats=18)
 # int8 forward with the InstanceNorm switch on: 2 K7 per residual block; K6
 # after the head, the two downs and the two ups
 PER_INT8_FORWARD = counts_of(conv3x3_reflect_s8=18, instance_norm_pallas=5)
@@ -1543,7 +1600,9 @@ def check_training(torch, card):
     import math
 
     finite = all(math.isfinite(v) for lo in losses for v in lo.values())
-    expect = {k: v * TRAIN_STEPS for k, v in PER_TRAIN_STEP.items()}
+    # and the live panel's forward at the epoch's last step (log_every 50)
+    expect = {k: v * TRAIN_STEPS + PER_EVAL_FORWARD[k]
+              for k, v in PER_TRAIN_STEP.items()}
     print(f"training {config.name} HD stage 1 512^2 b=1 f32 (cuDNN TF32 "
           f"off): {len(losses)} steps, last losses {losses[-1]}, all finite "
           f"{finite}; largest parameter change G {moved['G']:.3e}, R "
@@ -1697,7 +1756,9 @@ def check_stage2(torch, card):
                                                  "HdGan2_hd2_e1.pt"))
         del fast2
         torch.cuda.empty_cache()
-    expect = {k: v * TRAIN_STEPS for k, v in PER_TRAIN_STEP.items()}
+    # and the live panel's forward at the epoch's last step
+    expect = {k: v * TRAIN_STEPS + PER_EVAL_FORWARD[k]
+              for k, v in PER_TRAIN_STEP.items()}
     k_loss = losses[0]["toal_loss"]
     p_loss = plain_losses[0]["toal_loss"]
     gap = abs(k_loss - p_loss) / max(abs(p_loss), 1e-12)
@@ -1797,7 +1858,7 @@ def check_families(torch, card):
     families = {"RegGan": ("RegGan.yaml", "toal_loss", PER_TRAIN_STEP),
                 "P2p": ("P2p.yaml", "loss_G", PER_TRAIN_STEP),
                 "CycleGan": ("CycleGan.yaml", "loss_G", PER_CYC_STEP)}
-    per_val = counts_of(conv3x3_reflect_stats=18)  # the training route
+    per_val = PER_EVAL_FORWARD  # the training route, without grad
     total = counts_of()
     dev = torch.device("cuda")
     with tempfile.TemporaryDirectory() as tmp:
@@ -1839,7 +1900,9 @@ def check_families(torch, card):
             plain_p50 = plain.timer.summary()["p50_ms"]
             del plain
             torch.cuda.empty_cache()
-            expect = {k: v * FAMILY_STEPS + per_val[k] * FAMILY_VAL
+            # and two panel forwards: the live batch's at the epoch's last
+            # step, the first val slice's after the validation
+            expect = {k: v * FAMILY_STEPS + per_val[k] * (FAMILY_VAL + 2)
                       for k, v in per_step.items()}
             k_loss, p_loss = losses[0][key], plain_losses[0][key]
             gap = abs(k_loss - p_loss) / max(abs(p_loss), 1e-12)
@@ -1849,7 +1912,8 @@ def check_families(torch, card):
                   f"largest parameter change "
                   + ", ".join(f"{k} {v:.3e}" for k, v in moved.items())
                   + f"; launches {counts} (expected {expect}: "
-                  f"{FAMILY_STEPS} steps and {FAMILY_VAL} val slices); "
+                  f"{FAMILY_STEPS} steps, {FAMILY_VAL} val slices and 2 "
+                  f"panels); "
                   f"saved {saved}; first-step {key} kernel route {k_loss!r}"
                   f", plain route {p_loss!r}, relative gap {gap:.3e} (tol "
                   f"{FAMILY_ROUTE_TOL:.0e}); p50 step: kernel route "
@@ -1896,7 +1960,7 @@ def check_families(torch, card):
         total_val = launch_counts()
         del trainer, ema, live
         torch.cuda.empty_cache()
-        expect = {k: v * ACCUM_STEPS + per_val[k] * FAMILY_VAL
+        expect = {k: v * ACCUM_STEPS + per_val[k] * (FAMILY_VAL + 2)
                   for k, v in PER_CYC_ACCUM2_STEP.items()}
         print(f"families CycleGan batchSize 2, grad_accum 2, ema_decay "
               f"0.999, 512^2 f32: {len(losses)} steps, last losses "
@@ -2360,6 +2424,409 @@ def check_figures(torch, card):
     return counts
 
 
+def _write_list(path, paths):
+    with open(path, "w") as f:
+        f.write("\n".join(paths) + "\n")
+    return path
+
+
+def _read_list(path):
+    with open(path) as f:
+        return [ln.strip() for ln in f if ln.strip()]
+
+
+# a sitecustomize shadow, first on the drill child's PYTHONPATH (every
+# python process imports it, so it survives the supervisor's relaunch; no
+# hook goes into the port): the WEDGE_TICK-th StepTimer.tick of the first
+# attempt (no marker file yet) sleeps WEDGE_SLEEP s, a wedged device call
+# that the watchdog must end with exit 42
+WEDGE_SHADOW = """\
+import os, time
+if os.environ.get("WEDGE_MARKER"):
+    from ctagan_tpu_torch.train import trainers as _t
+    _orig, _n = _t.StepTimer.tick, [0]
+    def tick(self):
+        _n[0] += 1
+        m = os.environ["WEDGE_MARKER"]
+        if _n[0] == int(os.environ["WEDGE_TICK"]) and not os.path.exists(m):
+            open(m, "w").write("x")
+            time.sleep(float(os.environ["WEDGE_SLEEP"]))
+        _orig(self)
+    _t.StepTimer.tick = tick
+"""
+
+
+def _wedge_drill(tmp, train_list):
+    """``python -m ctagan_tpu_torch --mode train --supervise 1`` on
+    configs/HdGan.yaml (two epochs, a checkpoint every step, stall_timeout
+    DRILL_STALL) whose first attempt wedges at its second step timer tick:
+    returns the exit code, stdout, stderr, seconds and the saved files."""
+    import signal
+
+    root = os.path.join(tmp, "drill")
+    os.makedirs(root)
+    drill_list = _write_list(os.path.join(root, "train.txt"),
+                             _read_list(train_list)[:DRILL_SLICES])
+    cfg = _smoke_config(root, drill_list,
+                        "n_epochs: 2\ndecay_epoch: 0\nval_every: 100\n"
+                        f"stall_timeout: {DRILL_STALL}\n"
+                        "checkpoint_every_iters: 1\n")
+    hook = os.path.join(root, "hook")
+    os.makedirs(hook)
+    with open(os.path.join(hook, "sitecustomize.py"), "w") as f:
+        f.write(WEDGE_SHADOW)
+    marker = os.path.join(root, "wedged_once")
+    env = dict(os.environ, WEDGE_MARKER=marker, WEDGE_TICK="2",
+               WEDGE_SLEEP=str(DRILL_SLEEP),
+               PYTHONPATH=os.pathsep.join(
+                   p for p in (hook, REPO, os.environ.get("PYTHONPATH"))
+                   if p))
+    t0 = time.perf_counter()
+    # its own session, so that a timeout ends the supervisor and its child
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ctagan_tpu_torch", "--config", cfg, "--mode",
+         "train", "--supervise", "1"], cwd=REPO, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=DRILL_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        fail(f"loop: the wedge drill ran past {DRILL_TIMEOUT} s; stderr "
+             f"{err[-2000:]}")
+    secs = time.perf_counter() - t0
+    saved = sorted(os.listdir(os.path.join(root, "model")))
+    return proc.returncode, out, err, secs, saved, os.path.exists(marker)
+
+
+def _remat_runs(torch, tmp, train_list, card):
+    """The HD stage-1 step with remat off and on: the layer route
+    (fused_body_grad off) at batchSize 1 and 4, the kernel route at 1; each
+    run's first-step losses, p50 step, peak memory and launches."""
+    from ctagan_tpu_torch.__main__ import train
+    from ctagan_tpu_torch.utils.config import load_config
+
+    root = os.path.join(tmp, "remat")
+    os.makedirs(root)
+    lst = _write_list(os.path.join(root, "train.txt"),
+                      _read_list(train_list)[:REMAT_SLICES])
+    runs = {}
+    for route, batches in (("layer", (1, 4)), ("kernel", (1,))):
+        for b in batches:
+            for remat in (False, True):
+                # the step's memory and time alone: no panel forwards
+                extra = (f"batchSize: {b}\nremat: {str(remat).lower()}\n"
+                         "live_panels: false\n"
+                         + ("fused_body_grad: off\n" if route == "layer"
+                            else ""))
+                config = load_config(_smoke_config(root, lst, extra))
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                reset_counts()
+                t = train(config, torch.device("cuda"),
+                          max_steps=REMAT_STEPS[b])
+                torch.cuda.synchronize()
+                runs[route, b, remat] = {
+                    "losses": t.loss_history[0],
+                    "p50_ms": t.timer.summary(skip=1)["p50_ms"],
+                    "peak": torch.cuda.max_memory_allocated(),
+                    "counts": launch_counts()}
+                del t
+    torch.cuda.empty_cache()
+    for (route, b, remat), r in runs.items():
+        print(f"loop remat {str(remat).lower():5s} HD stage 1 {route} route "
+              f"512^2 b={b} f32: p50 step {r['p50_ms']:.1f} ms (steps "
+              f"3-{REMAT_STEPS[b]}), peak memory {r['peak'] / 2 ** 30:.3f} "
+              f"GiB ({r['peak']} B), first-step toal_loss "
+              f"{r['losses']['toal_loss']!r} [{card}]", flush=True)
+    for b in (1, 4):
+        off, on = runs["layer", b, False], runs["layer", b, True]
+        gaps = {k: abs(on["losses"][k] - v) / max(abs(v), 1e-12)
+                for k, v in off["losses"].items()}
+        print(f"loop remat layer route b={b}: first-step losses' relative "
+              f"gaps, remat on vs off: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+              + f" (tol {REMAT_LOSS_TOL:.0e}; loss_D_B {REMAT_D_TOL:.0e}, "
+              "after G's update)", flush=True)
+        if any(v > (REMAT_D_TOL if k == "loss_D_B" else REMAT_LOSS_TOL)
+               for k, v in gaps.items()):
+            fail(f"loop: remat changed the layer route's first-step losses "
+                 f"at b={b}: {gaps}")
+        if on["counts"] != counts_of() or off["counts"] != counts_of():
+            fail("loop: the layer route launched kernels")
+    off, on = runs["kernel", 1, False], runs["kernel", 1, True]
+    if on["counts"] != off["counts"] or on["peak"] != off["peak"]:
+        fail(f"loop: remat moved the kernel route: launches {off['counts']}"
+             f" / {on['counts']}, peak {off['peak']} / {on['peak']} B")
+    return runs
+
+
+def check_loop(torch, card):
+    """Phase 15, a main path: the trainer loop of ``python -m
+    ctagan_tpu_torch --mode train``'s ``train()`` on configs/HdGan.yaml at
+    full width on the kernel route, with the watchdog armed and live panels
+    (the loss, val and panel files, the dashboard, the launch counts with
+    the panel forwards); the wedge drill under ``--supervise 1``; remat."""
+    import csv
+    import math
+
+    from ctagan_tpu_torch.__main__ import train
+    from ctagan_tpu_torch.data.fixtures import make_corpus
+    from ctagan_tpu_torch.utils.config import load_config
+    from ctagan_tpu_torch.utils.figures import read_png_gray
+
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        train_list = make_corpus(tmp, n_patients=2,
+                                 slices_per_patient=REMAT_SLICES // 2,
+                                 size=512, seed=0, lists=("train",))["train"]
+        paths = _read_list(train_list)
+        loop_root = os.path.join(tmp, "loop")
+        os.makedirs(loop_root)
+        lists = {"train": _write_list(os.path.join(loop_root, "train.txt"),
+                                      paths[:LOOP_STEPS]),
+                 "val": _write_list(os.path.join(loop_root, "val.txt"),
+                                    paths[:LOOP_VAL])}
+        lists["test"] = lists["val"]
+        config = load_config(_smoke_config(
+            loop_root, lists, "n_epochs: 1\ndecay_epoch: 0\nval_every: 1\n"
+            f"log_every: {LOOP_LOG_EVERY}\nstall_timeout: 120\n"
+            "live_panels: true\n"))
+        reset_counts()
+        trainer = train(config, dev)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        losses = trainer.loss_history
+        armed_after = trainer._watchdog is not None
+        del trainer
+        torch.cuda.empty_cache()
+        model = os.path.join(loop_root, "model")
+        with open(os.path.join(model, "HdGan_losses.csv")) as f:
+            loss_rows = list(csv.reader(f))
+        with open(os.path.join(model, "HdGan_val.csv")) as f:
+            val_rows = list(csv.reader(f))
+        panel = read_png_gray(os.path.join(model, "HdGan_latest_panel.png"))
+        with open(os.path.join(model, "dashboard.html")) as f:
+            dash = f.read()
+        keys = sorted(losses[0])
+        means = []
+        for k in keys:  # the logger's running mean: summed in order, / n
+            acc = 0.0
+            for lo in losses:
+                acc += lo[k]
+            means.append(repr(acc / len(losses)))
+        # live panels every LOOP_LOG_EVERY steps (the last one ends the
+        # epoch), the val slices and the val panel: eval-route forwards
+        n_panels = LOOP_STEPS // LOOP_LOG_EVERY
+        n_eval = n_panels + LOOP_VAL + 1
+        expect = {k: v * LOOP_STEPS + PER_EVAL_FORWARD[k] * n_eval
+                  for k, v in PER_TRAIN_STEP.items()}
+        print(f"loop HdGan.yaml 512^2 b=1 f32 kernel route, log_every "
+              f"{LOOP_LOG_EVERY}, stall_timeout 120, live panels: "
+              f"{len(losses)} steps, last losses {losses[-1]}; "
+              f"HdGan_losses.csv {loss_rows}; HdGan_val.csv {val_rows}; "
+              f"panel {panel.shape}; dashboard {len(dash)} chars; watchdog "
+              f"armed after the run {armed_after}; launches {counts} "
+              f"(expected {expect}: {LOOP_STEPS} steps, {n_panels} live "
+              f"panels, {LOOP_VAL} val slices, 1 val panel) [{card}]",
+              flush=True)
+        if len(losses) != LOOP_STEPS or not _finite(losses):
+            fail("loop: missing or non-finite losses")
+        if loss_rows != [["epoch", *keys], ["1", *means]]:
+            fail(f"loop: HdGan_losses.csv {loss_rows}, expected the header "
+                 f"{['epoch', *keys]} and epoch 1's means {means}")
+        if len(val_rows) != 2 or val_rows[0] != ["epoch", "PSNR", "SSIM"] \
+                or not all(math.isfinite(float(v)) for v in val_rows[1]):
+            fail(f"loop: HdGan_val.csv {val_rows}")
+        if panel.shape != (512, 3 * 512) \
+                or int(panel.max()) == int(panel.min()):
+            fail(f"loop: HdGan_latest_panel.png is {panel.shape}")
+        if "<svg" not in dash or "data:image/png;base64," not in dash:
+            fail("loop: dashboard.html lacks its charts or its panel")
+        if armed_after:
+            fail("loop: the watchdog is still armed after train()")
+        if counts != expect:
+            fail(f"loop launches {counts}, expected {expect}")
+        code, out, err, drill_s, drill_saved, wedged = _wedge_drill(
+            tmp, train_list)
+        relaunches = err.count("[supervise] attempt")
+        print(f"loop wedge drill (--supervise 1, stall_timeout "
+              f"{DRILL_STALL}, {DRILL_SLICES}-step epochs, the first "
+              f"attempt's second step timer tick held {DRILL_SLEEP} s): exit "
+              f"{code} in {drill_s:.1f} s, relaunches {relaunches}, saved "
+              f"{drill_saved}; stderr "
+              + " | ".join(ln for ln in err.splitlines()
+                           if ln.startswith(("[watchdog]", "[supervise]")))
+              + " | stdout "
+              + " | ".join(ln for ln in out.splitlines()
+                           if ln.startswith("resumed from")), flush=True)
+        if code != 0 or not wedged or "[watchdog] no heartbeat" not in err \
+                or "[supervise] attempt 1 exited 42 (stall-kill)" not in err \
+                or relaunches != 1 or out.count("resumed from") != 1 \
+                or "HdGan_hd1_e1.pt (epoch 1)" not in out \
+                or "HdGan_hd1_e2.pt" not in drill_saved:
+            fail(f"loop: the wedge drill did not end in one resumed "
+                 f"relaunch: exit {code}; stdout {out[-2000:]}; stderr "
+                 f"{err[-3000:]}")
+        _remat_runs(torch, tmp, train_list, card)
+    return counts
+
+
+def _conv3d_flops(torch, model, x):
+    """Multiply-adds × 2 of every 3-D conv in one forward of ``model`` on
+    ``x``: a conv's per output voxel and a transposed conv's per input
+    voxel, each over its kernel and both channel counts."""
+    from ctagan_tpu_torch.models.volumetric import (
+        Conv3dTorch,
+        ConvTranspose3dTorch,
+    )
+
+    total = [0]
+
+    def hook(mod, inp, out):
+        k = mod.weight[0, 0].numel() * mod.weight.shape[0] * \
+            mod.weight.shape[1]
+        vox = (inp[0] if isinstance(mod, ConvTranspose3dTorch) else out)
+        total[0] += 2 * k * vox[:, 0].numel()
+
+    hs = [m.register_forward_hook(hook) for m in model.modules()
+          if isinstance(m, (Conv3dTorch, ConvTranspose3dTorch))]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in hs:
+            h.remove()
+    return total[0]
+
+
+def check_p3d(torch, card):
+    """Phase 16, a main path: configs/P3d.yaml (the 3-D family, 512²,
+    patch_depth 8, bf16, base 32, 6 blocks, b=1) through ``python -m
+    ctagan_tpu_torch --mode train``'s ``train()``: one epoch on a seeded
+    corpus, validated on the centre slices; the f32 first step beside the
+    bf16 one; then ``--mode infer`` over a seeded series."""
+    import math
+
+    import numpy as np
+
+    from ctagan_tpu_torch.__main__ import infer
+    from ctagan_tpu_torch.data.fixtures import make_corpus
+    from ctagan_tpu_torch.models.volumetric import Generator3D
+    from ctagan_tpu_torch.parallel.serve import load_series_fullrange
+    from ctagan_tpu_torch.utils.config import load_config
+
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        train_list = make_corpus(tmp, n_patients=P3D_PATIENTS,
+                                 slices_per_patient=P3D_SLICES, size=512,
+                                 seed=0, lists=("train",))["train"]
+        val = _write_list(os.path.join(tmp, "val.txt"),
+                          _read_list(train_list)[:P3D_SLICES])
+        lists = {"train": train_list, "val": val, "test": val}
+        extra = ("n_epochs: 1\ndecay_epoch: 0\nval_every: 1\n"
+                 f"image_save: '{tmp}/img/'\n")
+        config = load_config(_smoke_config(tmp, lists, extra,
+                                           base="P3d.yaml"))
+        trainer, counts, moved, peak = _train_family(torch, config,
+                                                     P3D_PATIENTS)
+        losses = trainer.loss_history
+        p50 = trainer.timer.summary()["p50_ms"]
+        g, d = trainer.g_model, trainer.d_model
+        n_body = len(g.body)
+        x = torch.zeros((1, config.patch_depth, config.size, config.size, 1),
+                        device=dev)
+        flops_g = _conv3d_flops(torch, g, x)
+        flops_d = _conv3d_flops(torch, d, torch.cat([x, x], dim=-1))
+        del trainer, g, d
+        torch.cuda.empty_cache()
+        saved = [f for f in os.listdir(os.path.join(tmp, "model"))
+                 if f.startswith("P3d_p3d_e1_")]
+        with open(os.path.join(tmp, "model", "P3d_val.csv")) as f:
+            val_rows = f.read().split()
+        # the first step again in f32, from the same seeds
+        os.makedirs(os.path.join(tmp, "f32"))
+        f32, _, _, f32_peak = _train_family(torch, load_config(_smoke_config(
+            os.path.join(tmp, "f32"), lists,
+            extra + "compute_dtype: float32\n", base="P3d.yaml")), 1)
+        f32_losses = f32.loss_history
+        del f32
+        torch.cuda.empty_cache()
+        # --mode infer over a seeded series, the generator found in
+        # save_root by the lookup (the epoch's checkpoint)
+        series_root = os.path.join(tmp, "series")
+        make_corpus(series_root, n_patients=1, slices_per_patient=P3D_SERIES,
+                    size=512, seed=9, lists=("train",))
+        series = os.path.join(series_root, "patient0", "ST0", "SE0")
+        reset_counts()
+        times = {}
+        t0 = time.perf_counter()
+        out_dir = infer(config, dev, series, times)
+        torch.cuda.synchronize()
+        infer_s = time.perf_counter() - t0
+        infer_counts = launch_counts()
+        px = _se2_series(torch, out_dir, series)
+        state = torch.load(os.path.join(tmp, "model", saved[0]),
+                           map_location="cpu", weights_only=True)["state"]
+        g = Generator3D(1, 1, dtype=torch.bfloat16)
+        g.load_state_dict(state["g"], strict=True)
+        volume, paths = load_series_fullrange(series, size=config.size)
+        with torch.no_grad():
+            win = torch.from_numpy(volume[:config.patch_depth][None, ..., None]
+                                   ).to(dev)
+            direct = g.to(dev)(win)[0, :, :, :, 0].float().cpu().numpy()
+        del g
+        torch.cuda.empty_cache()
+    stride = config.patch_depth // 2  # infer_volume_3d's half overlap
+    worst = 0
+    for i in range(stride):  # the slices only the first window covers
+        want = ((direct[i].astype(np.float64) + 1.0) * 0.5 * 4095.0)
+        got = px[os.path.basename(paths[i])]
+        worst = max(worst, float(np.abs(got - want).max()))
+    step_flops = 4 * flops_g + 8 * flops_d
+    bound_ms = step_flops / PEAK_BF16 * 1e3
+    gap = max(abs(f32_losses[0][k] - v) / max(abs(v), 1e-12)
+              for k, v in losses[0].items())
+    print(f"p3d P3d.yaml 512^2 x {config.patch_depth} bf16 b=1, Generator3D "
+          f"base 32 x {n_body} blocks: {len(losses)} steps (one epoch), loss "
+          f"keys {list(losses[0])}, last losses {losses[-1]}, all finite "
+          f"{_finite(losses)}; largest parameter change "
+          + ", ".join(f"{k} {v:.3e}" for k, v in moved.items())
+          + f"; launches {counts}; val {val_rows}; saved {saved}; p50 step "
+          f"{p50:.1f} ms (steps 2-{len(losses)}); peak memory "
+          f"{peak / 2 ** 30:.3f} GiB; f32 first step {f32_losses[0]}, "
+          f"largest relative gap to bf16 {gap:.3e} (tol {P3D_F32_TOL:.0e}), "
+          f"f32 peak memory {f32_peak / 2 ** 30:.3f} GiB; forward FLOP G "
+          f"{flops_g / 1e12:.3f} T, D {flops_d / 1e12:.4f} T, step (4 G + "
+          f"8 D) {step_flops / 1e12:.3f} T = {bound_ms:.2f} ms at the bf16 "
+          f"peak [{card}]", flush=True)
+    print(f"p3d --mode infer over a {P3D_SERIES}-slice 512^2 series "
+          f"(windows of {config.patch_depth}, Hann-blended): {infer_s:.3f} s "
+          f"= {P3D_SERIES / infer_s:.2f} slices/s; "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in times.items())
+          + f"; launches {infer_counts}; first window's slices 0-"
+          f"{stride - 1} vs a direct forward of the saved G: max "
+          f"{worst:.1f} stored units (tol {INFER_PIXEL_TOL}) [{card}]",
+          flush=True)
+    if list(losses[0]) != P3D_LOSS_KEYS or not _finite(losses) \
+            or len(losses) != P3D_PATIENTS:
+        fail(f"p3d: losses {losses}")
+    if min(moved.values()) <= 0.0:
+        fail(f"p3d: a net was not updated {moved}")
+    if counts != counts_of() or infer_counts != counts_of():
+        fail(f"p3d: kernels launched {counts} / {infer_counts}")
+    if len(saved) != 1 or len(val_rows) != 2 or not all(
+            math.isfinite(float(v)) for v in val_rows[1].split(",")):
+        fail(f"p3d: the epoch saved {saved}, validated {val_rows}")
+    if gap > P3D_F32_TOL or not _finite(f32_losses):
+        fail(f"p3d: the f32 first step is {gap:.3e} from the bf16 one")
+    if worst > INFER_PIXEL_TOL:
+        fail(f"p3d: the SE2 series is {worst} stored units from a direct "
+             "forward of the saved G")
+    return counts
+
+
 def check_tensor_cores(lib_path):
     """K1's, K2's, K3's, K4's and K5's kernels (each instantiation, f32 and
     bf16 I/O) hold HGMMA (wgmma) instructions in the built library's SASS,
@@ -2425,7 +2892,9 @@ MAIN_PATHS = {"serving": check_serving,
               "stage2": check_stage2,
               "families": check_families,
               "infer": check_infer,
-              "figures": check_figures}
+              "figures": check_figures,
+              "loop": check_loop,
+              "p3d": check_p3d}
 
 
 def main():

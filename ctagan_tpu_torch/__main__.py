@@ -6,16 +6,21 @@ modes and flags::
         [--train-list F] [--val-list F] [--test-list F]
 
 - ``train``: the trainer of the config's ``name`` (``P2p``: pix2pix,
-  ``CycleGan``, ``RegGan``, ``HdGan``: HD stage 1, ``HdGan2``: HD stage 2;
-  ``train/trainers.py::build_trainer``; ``P3d`` raises naming its ROADMAP
-  item) from seeded weights on ``train_list`` (or from the newest
-  checkpoint in ``save_root``, the port's ``.pt`` or the JAX package's
-  ``.ckpt``, with ``resume: true`` or ``--resume``), printing the losses
-  every ``log_every`` steps, validating every ``val_every`` epochs, saving
-  a checkpoint after every epoch and a step-time summary at the end
-  (``--max-steps N`` stops after N steps). A fresh stage-2 run first loads
-  G and R from ``stage1_ckpt``, else from the newest ``*_hd1_e*`` in
-  ``save_root``; with none it warns and starts from seeded weights.
+  ``CycleGan``, ``RegGan``, ``HdGan``: HD stage 1, ``HdGan2``: HD stage 2,
+  ``P3d``: the 3-D family; ``train/trainers.py::build_trainer``) from
+  seeded weights on ``train_list`` (or from the newest checkpoint in
+  ``save_root``, the port's ``.pt`` or the JAX package's ``.ckpt``, with
+  ``resume: true`` or ``--resume``), printing the running-mean losses
+  every ``log_every`` steps, writing ``<save_root>/<name>_losses.csv``,
+  the live panel and ``dashboard.html``, validating every ``val_every``
+  epochs, saving a checkpoint after every epoch and a step-time summary
+  at the end (``--max-steps N`` caps each epoch at N steps, as JAX's
+  ``train.py``). A fresh stage-2 run first loads G and R from
+  ``stage1_ckpt``, else from the newest ``*_hd1_e*`` in ``save_root``;
+  with none it warns and starts from seeded weights. ``--supervise N``
+  runs the command (without ``--supervise``) in a child process and
+  relaunches it with ``--resume`` up to N times after a nonzero exit, such
+  as the stall watchdog's 42 (config ``stall_timeout``).
 - ``test``: the trainer's ``test()`` on ``test_list``: the generator from
   ``--generator-ckpt`` (a reference ``.pth``, a port ``.pt`` or a JAX
   ``.ckpt``), else ``generator_ckpt``, else the newest checkpoint of the
@@ -84,13 +89,17 @@ def _trainer(config: Config, device: torch.device):
     return trainer
 
 
-def _train(trainer, max_steps: Optional[int] = None):
+def _train(trainer, max_steps: Optional[int] = None,
+           max_steps_per_epoch: Optional[int] = None):
     config, device = trainer.config, trainer.device
     print(f"training {config.name} ({trainer.title}) at {config.size}^2 on "
           f"{device}, fused_body_grad {config.fused_body_grad}"
-          + (f", max {max_steps} steps" if max_steps is not None else ""),
+          + (f", max {max_steps} steps" if max_steps is not None else "")
+          + (f", max {max_steps_per_epoch} steps an epoch"
+             if max_steps_per_epoch is not None else ""),
           flush=True)
-    trainer.train(max_steps=max_steps)
+    trainer.train(max_steps=max_steps,
+                  max_steps_per_epoch=max_steps_per_epoch)
     s = trainer.timer.summary()
     if s:
         print(f"{trainer.steps_done} steps; over steps 2-{trainer.steps_done}"
@@ -116,9 +125,12 @@ def _test(trainer, write_dicom: bool = True):
 
 
 def train(config: Config, device: torch.device,
-          max_steps: Optional[int] = None):
-    """Run the config's trainer; returns the trainer."""
-    return _train(_trainer(config, device), max_steps)
+          max_steps: Optional[int] = None,
+          max_steps_per_epoch: Optional[int] = None):
+    """Run the config's trainer (``max_steps``: in all, ending the run;
+    ``max_steps_per_epoch``: in each epoch, the CLI's ``--max-steps``);
+    returns the trainer."""
+    return _train(_trainer(config, device), max_steps, max_steps_per_epoch)
 
 
 def test(config: Config, device: torch.device, write_dicom: bool = True):
@@ -128,10 +140,12 @@ def test(config: Config, device: torch.device, write_dicom: bool = True):
 
 
 def train_test(config: Config, device: torch.device,
-               max_steps: Optional[int] = None, write_dicom: bool = True):
+               max_steps_per_epoch: Optional[int] = None,
+               write_dicom: bool = True):
     """``train``, then ``test()`` on the same trainer (which reads the
     newest checkpoint the run saved); returns what :func:`test` does."""
-    return _test(train(config, device, max_steps), write_dicom)
+    return _test(train(config, device,
+                       max_steps_per_epoch=max_steps_per_epoch), write_dicom)
 
 
 def infer(config: Config, device: torch.device, series: str,
@@ -192,7 +206,7 @@ def main(argv=None) -> int:
                     help="cuda, cuda:N or cpu (default: cuda; without a "
                          "card, only an explicit cpu runs)")
     ap.add_argument("--max-steps", type=int, default=None,
-                    help="train: stop after this many steps")
+                    help="train: cap each epoch at this many steps")
     ap.add_argument("--no-write", action="store_true",
                     help="test: skip the SE2 DICOM writeback")
     ap.add_argument("--series", default=None,
@@ -209,7 +223,15 @@ def main(argv=None) -> int:
     ap.add_argument("--resume", action="store_true",
                     help="resume from the newest checkpoint (overrides "
                          "config)")
+    ap.add_argument("--supervise", type=int, default=0, metavar="N",
+                    help="run the command in a child process and relaunch "
+                         "it with --resume up to N times after a nonzero "
+                         "exit (a crash, or the stall_timeout watchdog's "
+                         "42)")
+    argv = sys.argv[1:] if argv is None else list(argv)
     opts = ap.parse_args(argv)
+    if opts.supervise > 0:
+        return _supervise(argv, opts.supervise)
     if opts.mode == "infer" and not opts.series:
         ap.error("--mode infer requires --series <SE0 dir>")
     config = load_config(opts.config)
@@ -221,7 +243,7 @@ def main(argv=None) -> int:
     config.generator_ckpt = opts.generator_ckpt or config.generator_ckpt
     device = _device(opts.device)
     if opts.mode == "train":
-        train(config, device, opts.max_steps)
+        train(config, device, max_steps_per_epoch=opts.max_steps)
     elif opts.mode == "test":
         test(config, device, write_dicom=not opts.no_write)
     elif opts.mode == "train_test":
@@ -238,6 +260,28 @@ def main(argv=None) -> int:
     else:
         _serve(config, device)
     return 0
+
+
+def supervised_argv(argv) -> list:
+    """The child's command: ``python -m ctagan_tpu_torch`` and ``argv``
+    without ``--supervise N`` / ``--supervise=N``."""
+    out, skip = [], False
+    for a in argv:
+        if skip:
+            skip = False
+        elif a == "--supervise":
+            skip = True
+        elif not a.startswith("--supervise="):
+            out.append(a)
+    return [sys.executable, "-m", "ctagan_tpu_torch", *out]
+
+
+def _supervise(argv, max_restarts: int) -> int:
+    """JAX's ``train.py --supervise``: the child until it exits 0,
+    ``--resume`` from the second attempt on."""
+    from ctagan_tpu_torch.utils.watchdog import supervise
+
+    return supervise(supervised_argv(argv), max_restarts=max_restarts)
 
 
 def _serve(config: Config, device: torch.device) -> None:

@@ -12,8 +12,13 @@ family state's trees; :func:`load_jax_state` fills a whole port family state
 (nets, EMAs, Adam moments, CycleGAN's replay pools) from a JAX family
 state read from a ``.ckpt`` (``utils/checkpoint.py::load_jax_checkpoint``).
 
+:func:`generator3d_state_dict` and :func:`discriminator3d_state_dict` map
+the 3-D family's trees (``models/volumetric.py``; JAX has no torch export
+of them, so the port's own ``state_dict()`` keys are the target).
+
 - Conv kernel (kh, kw, I, O)                        -> Conv2d (O, I, kh, kw)
 - ConvTranspose (transpose_kernel=True) (kh, kw, O, I) -> (I, O, kh, kw)
+- the same in 3-D, (kd, kh, kw, a, b) -> (b, a, kd, kh, kw)
 """
 from __future__ import annotations
 
@@ -30,9 +35,13 @@ def _array(a) -> np.ndarray:
 
 
 def _weight(sd, key, p) -> None:
+    """A flax kernel and bias -> ``key.weight`` / ``key.bias``: the two
+    channel axes swapped in front of the spatial ones, which keep their
+    order (2-D and 3-D, plain and transposed convs alike)."""
     k = _array(p["kernel"])
-    sd[f"{key}.weight"] = torch.from_numpy(
-        np.ascontiguousarray(k.transpose(3, 2, 0, 1)))
+    nd = k.ndim - 2
+    sd[f"{key}.weight"] = torch.from_numpy(np.ascontiguousarray(
+        k.transpose(nd + 1, nd, *range(nd))))
     sd[f"{key}.bias"] = torch.from_numpy(_array(p["bias"]).copy())
 
 
@@ -56,6 +65,56 @@ def generator_state_dict(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     _weight(sd, "model_tail.3", params["ConvTransposeTorch_1"]["ConvTranspose_0"])
     _weight(sd, "model_tail.7", params["ConvTorch_3"]["Conv_0"])
     return sd
+
+
+def _params(tree: Dict[str, Any]) -> Dict[str, Any]:
+    return tree["params"] if "params" in tree else tree
+
+
+def is_3d_tree(tree: Dict[str, Any]) -> bool:
+    """Whether a JAX G or D tree is the 3-D family's."""
+    return "Conv3d_0" in _params(tree)
+
+
+def generator3d_state_dict(tree: Dict[str, Any]
+                           ) -> Dict[str, torch.Tensor]:
+    """models.volumetric.Generator3D params -> the port's ``Generator3D``
+    (``head``, ``down.{0,1}``, ``body.{i}.conv{1,2}``, ``up.{0,1}``,
+    ``tail``)."""
+    params = _params(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    _weight(sd, "head", params["Conv3d_0"]["Conv_0"])
+    for i in (0, 1):
+        _weight(sd, f"down.{i}", params[f"Conv3d_{i + 1}"]["Conv_0"])
+    blocks = sorted(int(k.split("_")[1]) for k in params
+                    if k.startswith("ResidualBlock3D_"))
+    for b in blocks:
+        blk = params[f"ResidualBlock3D_{b}"]
+        for j in (0, 1):
+            _weight(sd, f"body.{b}.conv{j + 1}", blk[f"Conv3d_{j}"]["Conv_0"])
+    for i in (0, 1):
+        _weight(sd, f"up.{i}", params[f"ConvTranspose_{i}"])
+    _weight(sd, "tail", params["Conv3d_3"]["Conv_0"])
+    return sd
+
+
+def discriminator3d_state_dict(tree: Dict[str, Any]
+                               ) -> Dict[str, torch.Tensor]:
+    """models.volumetric.Discriminator3D params -> the port's
+    ``Discriminator3D`` (``convs.{0..4}``)."""
+    params = _params(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(5):
+        _weight(sd, f"convs.{i}", params[f"Conv3d_{i}"]["Conv_0"])
+    return sd
+
+
+def jax_generator_state_dict(tree: Dict[str, Any]
+                             ) -> Dict[str, torch.Tensor]:
+    """A JAX G tree, 2-D or 3-D (told apart by its keys), as the port's
+    state dict."""
+    return (generator3d_state_dict(tree) if is_3d_tree(tree)
+            else generator_state_dict(tree))
 
 
 def quantized_generator_params(tree: Any) -> Any:
@@ -154,6 +213,8 @@ def _d_state_dict(d_model, tree):
 
     if isinstance(d_model, MultiScaleDiscriminator):
         return multiscale_discriminator_state_dict(tree)
+    if is_3d_tree(tree):
+        return discriminator3d_state_dict(tree)
     return discriminator_state_dict(tree)
 
 
@@ -165,9 +226,10 @@ def _load(net, sd, ema=None) -> None:
 
 def load_p2p_state(state, g_params, d_params) -> None:
     """``g_params``/``d_params`` into a ``P2pState`` (D on the input stack
-    plus the output, 2 channels at ``input_nc`` 1)."""
-    _load(state.g_model, generator_state_dict(g_params), state.g_ema)
-    _load(state.d_model, discriminator_state_dict(d_params))
+    plus the output, 2 channels at ``input_nc`` 1), the pix2pix family's or
+    the 3-D P3d family's."""
+    _load(state.g_model, jax_generator_state_dict(g_params), state.g_ema)
+    _load(state.d_model, _d_state_dict(state.d_model, d_params))
 
 
 def load_reg_state(state, g_params, r_params, d_params) -> None:
@@ -231,7 +293,7 @@ def _load_ema(ema, tree, fallback_sd) -> None:
     if ema is None:
         return
     ema.load_state_dict(fallback_sd if tree is None
-                        else generator_state_dict(tree), strict=True)
+                        else jax_generator_state_dict(tree), strict=True)
 
 
 def _load_pool(buf, tree) -> None:
@@ -241,11 +303,12 @@ def _load_pool(buf, tree) -> None:
 
 
 def load_jax_state(state, jax_state: Dict[str, Any]) -> None:
-    """A JAX ``P2pState``, ``RegState`` (RegGAN, HD stage 1 and 2) or
-    ``CycState``, as nested dicts by field name, into the port state of the
-    same family: every net (``strict=True``), the EMAs, the Adam moments and
-    counts, and CycleGAN's two replay pools. The port state's
-    ``torch.Generator`` is left as it is."""
+    """A JAX ``P2pState`` (pix2pix, and P3d's 3-D nets), ``RegState``
+    (RegGAN, HD stage 1 and 2) or ``CycState``, as nested dicts by field
+    name, into the port state of the same family: every net
+    (``strict=True``), the EMAs, the Adam moments and counts, and
+    CycleGAN's two replay pools. The port state's ``torch.Generator`` is
+    left as it is."""
     st = jax_state
     if hasattr(state, "g_a2b"):  # CycState
         load_cyc_state(state, st["g_a2b_params"], st["g_b2a_params"],
@@ -271,7 +334,7 @@ def load_jax_state(state, jax_state: Dict[str, Any]) -> None:
         load_p2p_state(state, st["g_params"], st["d_params"])
     _load_ema(state.g_ema, st.get("g_ema"), state.g_model.state_dict())
     _load_adam(state.g_opt, (state.g_model,), st["g_opt"],
-               (generator_state_dict,))
+               (jax_generator_state_dict,))
     _load_adam(state.d_opt, (state.d_model,), st["d_opt"], (d_sd,))
 
 

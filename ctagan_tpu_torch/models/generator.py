@@ -22,6 +22,15 @@ residual body through :class:`~ctagan_tpu_torch.ops.fused_resblock_grad.
 FusedChainFunction`: K1 launches forward, K4 and K5 launches backward.
 ``'auto'`` turns it on for a CUDA tensor (JAX: on a TPU); ``True`` also runs
 it on a CPU tensor, through the kernels' plain versions.
+
+``remat`` (JAX's ``remat``, config ``remat``): on the layer route, while
+grad is enabled, each ``ResidualBlock`` runs under
+``torch.utils.checkpoint`` (``use_reentrant=False``), so its activations
+are recomputed in the backward instead of kept. On the kernel route
+(``fused_body_grad``) it does nothing, exactly as in JAX, whose fused-grad
+body never builds the rematerialized block: ``FusedChainFunction`` already
+saves only what its backward needs (each block's input, its two raw conv
+outputs and their norm statistics).
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ from typing import Optional, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ctagan_tpu_torch.models.layers import (
     ConvTorch,
@@ -56,7 +66,8 @@ class Generator(nn.Module):
                  n_residual_blocks: int = 9, base_features: int = 64,
                  dtype: Optional[torch.dtype] = None,
                  pad_mode: str = "reflect", fused_body: bool = True,
-                 fused_body_grad: Union[bool, str] = False):
+                 fused_body_grad: Union[bool, str] = False,
+                 remat: bool = False):
         super().__init__()
         if pad_mode not in ("reflect", "zero"):
             raise ValueError("pad_mode must be 'reflect' or 'zero'")
@@ -65,6 +76,7 @@ class Generator(nn.Module):
         f = base_features
         self.dtype, self.pad_mode, self.fused_body = dtype, pad_mode, fused_body
         self.fused_body_grad = fused_body_grad
+        self.remat = remat
         zero = pad_mode == "zero"
 
         def pad(p):  # zero mode: the pad folds into the conv instead
@@ -120,7 +132,13 @@ class Generator(nn.Module):
         return self._forward_layers(x)
 
     def _forward_layers(self, x):
-        return self.model_tail(self.model_body(self.model_head(x)))
+        h = self.model_head(x)
+        if self.remat and torch.is_grad_enabled():
+            for blk in self.model_body:
+                h = checkpoint(blk, h, use_reentrant=False)
+        else:
+            h = self.model_body(h)
+        return self.model_tail(h)
 
     def _forward_body_grad(self, x):
         # plain head/downs and ups/tail, as JAX keeps them in XLA on the

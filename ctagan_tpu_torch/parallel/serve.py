@@ -9,8 +9,11 @@ slice writeback. The generator is the trainer's ``generator_ckpt``, else the
 newest checkpoint of its prefix in ``save_root`` (a port ``.pt`` or a JAX
 ``.ckpt``), run on the trainer's eval route: the serving route (K3, K1, K2)
 with ``fused_body``, else the training model's (on the card the body through
-K1), and the EMA with ``ema_decay`` > 0. JAX's 3-D (``P3d``) branch waits
-for ROADMAP M9.
+K1), and the EMA with ``ema_decay`` > 0. The 3-D family (``P3d``) runs
+``Generator3D`` over overlapping windows of ``patch_depth`` slices blended
+along depth (``parallel/volume.py::infer_volume_3d``); JAX's exact
+depth-sharded branch (``infer_depth_sharded: true``) waits for ROADMAP M12
+and raises.
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ from ctagan_tpu_torch.data.native import (
     dual_window_native,
     resize_nearest_native,
 )
-from ctagan_tpu_torch.parallel.volume import infer_volume
+from ctagan_tpu_torch.parallel.volume import infer_volume, infer_volume_3d
 
 
 def load_series_fullrange(series_dir: str, size: Optional[int] = None
@@ -75,20 +78,25 @@ def infer_series(trainer, series_dir: str, out_root: str,
     import torch
 
     cfg = trainer.config
-    if getattr(trainer, "family", "") == "p3d":
+    three_d = getattr(trainer, "family", "") == "p3d"
+    if three_d and cfg.infer_depth_sharded:
         raise NotImplementedError(
-            "infer_series: the 3-D family (P3d, infer_volume_3d over "
-            "Generator3D) is not ported yet (ROADMAP M9)")
+            "infer_series: infer_depth_sharded (the depth axis halo-sharded "
+            "over a mesh) is not ported yet (ROADMAP M12)")
     trainer.load_inference_generator()
     t0 = time.perf_counter()
     volume, paths = load_series_fullrange(series_dir, size=cfg.size)
-    if cfg.context_slices > 1:
+    if cfg.context_slices > 1 and not three_d:
         volume = context_stack(volume, cfg.context_slices)
     t1 = time.perf_counter()
     model = trainer._eval_model()
-    fused = cfg.fused_body
-    fake = infer_volume(lambda x: model(x, fused_body=fused), volume,
-                        device=trainer.device)
+    if three_d:
+        fake = infer_volume_3d(lambda x: model(x.to(trainer.device)),
+                               volume, depth=cfg.patch_depth)
+    else:
+        fused = cfg.fused_body
+        fake = infer_volume(lambda x: model(x, fused_body=fused), volume,
+                            device=trainer.device)
     if trainer.device.type == "cuda":
         torch.cuda.synchronize(trainer.device)
     t2 = time.perf_counter()

@@ -8,8 +8,8 @@ than the model's resolution.
   one device). The tail batch is padded by repeating the last slice, as
   JAX pads it, so every forward has one shape.
 - :func:`infer_volume_3d`: overlapping depth windows through any 3-D
-  callable, blended along depth by a Hann window. The 3-D generator itself
-  waits for ROADMAP M9.
+  callable (the P3d family's ``Generator3D``), blended along depth by a
+  Hann window.
 - :func:`sliding_window`: overlapping tiles of one (H, W, C) image, blended
   by a 2-D Hann window.
 

@@ -16,7 +16,10 @@ feature matching against D's features of the real target.
 
 :func:`p2p_train_step` is pix2pix: ``P2P_lamda``·L1 + ``Adv_lamda``·LSGAN
 of a conditional D on [A, fake], then D on a fresh no-grad forward of the
-updated G. :func:`cyc_train_step` is CycleGAN: one Adam over both
+updated G. :func:`p3d_train_step` is the 3-D family (P3d): the pix2pix
+recipe on NDHWC depth windows, with paired random H/W flips for
+augmentation, D's predictions unscaled and D updated at G's lr.
+:func:`cyc_train_step` is CycleGAN: one Adam over both
 generators (the reference's ``itertools.chain``), two LSGAN and two
 ``Cyc_lamda``·L1 cycle terms with both Ds frozen, then each D on the real
 images and the pre-update fakes through its replay pool.
@@ -200,6 +203,72 @@ def p2p_train_step(state: P2pState, cfg: Dict,
             fake2 = g_model(mb["a"])
         pf = d_model(torch.cat([mb["a"], fake2], dim=-1)) * adv_w
         pr = d_model(torch.cat([mb["a"], mb["b"]], dim=-1)) * adv_w
+        return mse(pf, 0.0) + mse(pr, 1.0), {}
+
+    d_params = list(d_model.parameters())
+    d_loss_v, _, d_grads = _value_and_grad(d_loss, d_params, ab, n_accum)
+    _apply(state.d_opt, d_params, d_grads, lr)
+    _ema_update(state.g_ema, g_model, cfg.get("ema_decay", 0.999),
+                _count(state.g_opt))
+    return {"loss_G": g_loss_v, **g_aux, "loss_D_B": d_loss_v}
+
+
+# ===========================================================================
+# 3-D volumetric pix2pix (P3d)
+# ===========================================================================
+
+def init_p3d_state(g_model, d_model, seed: int = 0,
+                   ema: bool = False) -> P2pState:
+    """A ``P2pState`` over the 3-D nets: their Adams, the flip generator
+    seeded from ``seed`` and with ``ema`` G's EMA."""
+    return init_p2p_state(g_model, d_model, seed, ema=ema)
+
+
+def p3d_flips(gen: torch.Generator) -> Tuple[bool, bool]:
+    """The step's (flip H, flip W) draws, each with probability 0.5."""
+    fh, fw = torch.randint(0, 2, (2,), generator=gen).tolist()
+    return bool(fh), bool(fw)
+
+
+def p3d_train_step(state: P2pState, cfg: Dict,
+                   batch: Dict[str, torch.Tensor], lr: float,
+                   flips: Optional[Tuple[bool, bool]] = None
+                   ) -> Dict[str, torch.Tensor]:
+    """One P3d step on ``batch`` {A, B} ((N, D, H, W, 1), [−1, 1]): A and B
+    flipped together along H and W by ``flips`` (default: drawn from the
+    state's generator; JAX draws them from its key), then G on
+    ``P2P_lamda``·L1 + ``Adv_lamda``·LSGAN of the conditional D on [A,
+    fake], then D on ``mse(D[A, G'(A)], 0) + mse(D[A, B], 1)`` (neither
+    scaled nor halved) with G' the updated G, re-forwarded without grad;
+    both at ``lr``. ``grad_accum`` K > 1 averages over K microbatches, as
+    JAX's ``_grad_accum_scan``."""
+    g_model, d_model = state.g_model, state.d_model
+    fh, fw = p3d_flips(state.gen) if flips is None else flips
+    a, b = batch["A"], batch["B"]
+    dims = [d for d, f in ((2, fh), (3, fw)) if f]
+    if dims:
+        a, b = torch.flip(a, dims), torch.flip(b, dims)
+    n_accum = int(cfg.get("grad_accum", 1))
+    adv_w, l1_w = cfg["Adv_lamda"], cfg["P2P_lamda"]
+    g_params = list(g_model.parameters())
+
+    def g_loss(mb):
+        fake = g_model(mb["a"])
+        loss_l1 = l1(fake, mb["b"]) * l1_w
+        pred = d_model(torch.cat([mb["a"], fake.to(mb["a"].dtype)], dim=-1))
+        loss_adv = mse(pred, 1.0) * adv_w
+        return loss_l1 + loss_adv, {"loss_L1": loss_l1,
+                                    "loss_GAN_A2B": loss_adv}
+
+    ab = {"a": a, "b": b}
+    g_loss_v, g_aux, g_grads = _value_and_grad(g_loss, g_params, ab, n_accum)
+    _apply(state.g_opt, g_params, g_grads, lr)
+
+    def d_loss(mb):
+        with torch.no_grad():
+            fake2 = g_model(mb["a"]).to(mb["a"].dtype)
+        pf = d_model(torch.cat([mb["a"], fake2], dim=-1))
+        pr = d_model(torch.cat([mb["a"], mb["b"]], dim=-1))
         return mse(pf, 0.0) + mse(pr, 1.0), {}
 
     d_params = list(d_model.parameters())

@@ -1,23 +1,29 @@
 """The trainers of the port (``ctagan_tpu/train/trainers.py``): pix2pix
-(``P2pTrainer``), CycleGAN (``CycTrainer``), RegGAN (``RegTrainer``) and HD
+(``P2pTrainer``), CycleGAN (``CycTrainer``), RegGAN (``RegTrainer``), HD
 stage 1 and 2 (``HdTrainerStage1`` and ``HdTrainerStage2``, on RegGAN's
-step), on ``TrainerBase``, and :func:`build_trainer`, which picks one by the
-config's ``name`` as the JAX package does.
+step) and the 3-D family (``P3dTrainer``), on ``TrainerBase``, and
+:func:`build_trainer`, which picks one by the config's ``name`` as the JAX
+package does.
 
 The P2p, Cyc and Reg families read ``PairedSliceDataset`` (the full-range
 pair, with ``unaligned`` a fresh B per visit, with ``context_slices`` the
 2.5-D stack for P2p); the HD family redraws the oversampled
 ``DualWindowDataset`` every epoch. Both feed raw uint16 pixels and map them
-on the device (``device_windowing``). The learning-rate schedule keeps the
-reference's accelerating decay (the decrement is recomputed from the
+on the device (``device_windowing``). P3d reads ``VolumePatchDataset``'s
+full-range depth windows (``data/volumes.py``). The learning-rate schedule
+keeps the reference's accelerating decay (the decrement is recomputed from the
 already-decayed lr) and the HD family's frozen D lr. After every epoch the
 loop validates (masked PSNR and SSIM, every ``val_every`` epochs) and saves
 a checkpoint, stamped with the metrics when it validated; it also saves
 every ``checkpoint_every_iters`` steps and, on an exception, before
 re-raising. ``resume`` starts from the newest checkpoint, and the collapse
 guard restores the best stamped one when validation falls
-``collapse_drop_db`` below it. ``test()`` scores the test list with the
-eight masked metrics and writes the synthetic SE2 series
+``collapse_drop_db`` below it. As in JAX, the loop writes
+``<save_root>/<name>_losses.csv`` (``utils/logging.py``),
+``<name>_val.csv``, ``<name>_latest_panel.png`` (with ``live_panels``, at
+each log point) and ``dashboard.html`` (``utils/dashboard.py``), and with
+``stall_timeout`` > 0 arms the stall watchdog (``utils/watchdog.py``).
+``test()`` scores the test list with the eight masked metrics and writes the synthetic SE2 series
 (``train/evaluation.py``), with LPIPSw and LPIPS when ``lpips_weights``
 names a weights file (``ops/lpips.py``). ``make_figures`` writes the
 qualitative PNG panels (``utils/figures.py``). With ``ema_decay`` > 0,
@@ -35,8 +41,8 @@ has no torch counterpart.
 Validation and test run the generator's serving route (K3, K1, K2) with
 ``fused_body``, else the training model's route (on CUDA with
 ``fused_body_grad: auto``, the body through K1), on the same parameters.
-Not ported yet (ROADMAP M6): the watchdog, ``--supervise``, live panels,
-the dashboard and JAX's orbax checkpoints.
+JAX's orbax checkpoints are not read yet (they raise). A ``mesh`` axis
+above 1 raises naming ROADMAP M12.
 """
 from __future__ import annotations
 
@@ -55,13 +61,15 @@ from ctagan_tpu_torch.data.datasets import (
     PairedSliceDataset,
 )
 from ctagan_tpu_torch.data.dicom import read_dicom
-from ctagan_tpu_torch.data.loader import PrefetchLoader
+from ctagan_tpu_torch.data.loader import PrefetchLoader, _collate
+from ctagan_tpu_torch.data.volumes import VolumePatchDataset
 from ctagan_tpu_torch.models import (
     Discriminator,
     Generator,
     MultiScaleDiscriminator,
     RegNet,
 )
+from ctagan_tpu_torch.models.volumetric import Discriminator3D, Generator3D
 from ctagan_tpu_torch.ops.metrics import masked_psnr, ssim
 from ctagan_tpu_torch.ops.windowing import (
     dual_window_from_stored,
@@ -71,6 +79,7 @@ from ctagan_tpu_torch.train import steps
 from ctagan_tpu_torch.models.convert import (
     generator_state_dict,
     jax_generator_params,
+    jax_generator_state_dict,
     load_jax_state,
     regnet_state_dict,
 )
@@ -92,6 +101,13 @@ from ctagan_tpu_torch.utils.checkpoint import (
     save_checkpoint,
 )
 from ctagan_tpu_torch.utils.config import Config
+from ctagan_tpu_torch.utils.dashboard import append_val_csv, write_dashboard
+from ctagan_tpu_torch.utils.figures import (
+    save_qualitative_panel,
+    write_png_gray,
+)
+from ctagan_tpu_torch.utils.logging import TrainLogger
+from ctagan_tpu_torch.utils.watchdog import Watchdog
 
 
 def _dtype(cfg: Config) -> Optional[torch.dtype]:
@@ -104,6 +120,12 @@ def _fused_body_grad(cfg: Config):
     if isinstance(v, bool) or v == "auto":
         return v
     return v == "on"
+
+
+def panel_uint8(t: torch.Tensor) -> torch.Tensor:
+    """A [-1, 1] image as the live panel's uint8, by JAX's formula:
+    clip((t + 1) · 127.5, 0, 255) in f32, truncated."""
+    return torch.clamp((t.float() + 1.0) * 127.5, 0, 255).to(torch.uint8)
 
 
 class StepTimer:
@@ -129,6 +151,7 @@ class StepTimer:
         if not arr.size:
             return {}
         return {"steps": int(arr.size),
+                "steps_per_sec": float(1.0 / np.median(arr)),
                 "p50_ms": float(np.percentile(arr, 50) * 1e3),
                 "p90_ms": float(np.percentile(arr, 90) * 1e3),
                 "mean_ms": float(arr.mean() * 1e3)}
@@ -143,10 +166,11 @@ class TrainerBase:
         if config.context_slices > 1 and self.family != "p2p":
             raise ValueError(
                 "context_slices > 1 is supported by the P2p family only")
-        if "pp" in (config.extras.get("mesh") or ()):
+        if any(v > 1 for v in (config.mesh or {}).values()):
             raise NotImplementedError(
-                "mesh: {pp: ...} (pipeline-parallel training) is not ported "
-                "yet (ROADMAP M12)")
+                f"mesh: {config.mesh} (the parallel plans: dp/fsdp/tp/sp/"
+                "depth/pp) is not ported yet (ROADMAP M12); the port trains "
+                "on one card")
         self.config = config
         self.device = torch.device(device)
         self.quiet = quiet
@@ -173,7 +197,7 @@ class TrainerBase:
         return Generator(
             cfg.input_nc * cfg.context_slices, cfg.output_nc,
             dtype=_dtype(cfg), pad_mode=cfg.pad_mode, fused_body=False,
-            fused_body_grad=_fused_body_grad(cfg),
+            fused_body_grad=_fused_body_grad(cfg), remat=cfg.remat,
         ).reset_parameters(seed).to(self.device)
 
     def _build_models(self):
@@ -253,11 +277,15 @@ class TrainerBase:
                                   context_slices=cfg.context_slices,
                                   raw_feed=cfg.device_windowing)
 
+    # the train loader's threads (None: ``n_cpu``)
+    _loader_threads: Optional[int] = None
+
     def _train_loader(self) -> PrefetchLoader:
         cfg = self.config
         ds = self._train_dataset()
         loader = PrefetchLoader(ds, batch_size=cfg.batchSize, shuffle=True,
-                                drop_last=True, num_threads=cfg.n_cpu,
+                                drop_last=True,
+                                num_threads=self._loader_threads or cfg.n_cpu,
                                 rng=self._data_rng)
         if len(loader) == 0:
             raise ValueError(
@@ -409,23 +437,48 @@ class TrainerBase:
         return True
 
     # -- loop ---------------------------------------------------------------
-    def train(self, max_steps: Optional[int] = None) -> "TrainerBase":
-        """Epochs from ``start_epoch + 1``. ``max_steps`` stops the run
-        after that many steps; an epoch it cuts short ends without its
+    _watchdog: Optional[Watchdog] = None  # armed by train() (stall_timeout)
+
+    def train(self, max_steps: Optional[int] = None,
+              max_steps_per_epoch: Optional[int] = None) -> "TrainerBase":
+        """Epochs from ``start_epoch + 1``, as JAX's ``train()``: the
+        running-mean loss line and ``<save_root>/<name>_losses.csv`` rows
+        (:class:`TrainLogger`), the live panel and ``dashboard.html`` at
+        each log point with ``live_panels``, and with ``stall_timeout`` > 0
+        the stall watchdog (exit 42; paused around the first step and
+        validation, one beat a step, stopped on the way out).
+        ``max_steps_per_epoch`` caps each epoch's steps (JAX's ``--max-steps``;
+        a cut epoch still validates and saves). ``max_steps`` stops the run
+        after that many steps in all; an epoch it cuts ends without its
         validation and checkpoint. On an exception (or an interrupt) an
         emergency checkpoint is saved and the exception re-raised."""
+        cfg = self.config
+        logger = TrainLogger(cfg.name, cfg.total_epochs, 1,
+                             log_dir=cfg.save_root or None,
+                             log_every=cfg.log_every, quiet=self.quiet,
+                             start_epoch=self.start_epoch)
+        self._watchdog = None
+        if cfg.stall_timeout and cfg.stall_timeout > 0:
+            self._watchdog = Watchdog(cfg.stall_timeout).start()
         try:
-            self._train_epochs(max_steps)
+            self._train_epochs(logger, max_steps, max_steps_per_epoch)
         except (KeyboardInterrupt, Exception):
             self._save(self._current_epoch)
             if not self.quiet:
                 print(f"\nemergency checkpoint saved at epoch "
                       f"{self._current_epoch}", flush=True)
             raise
+        finally:
+            if self._watchdog is not None:
+                self._watchdog.stop()
+                self._watchdog = None
         return self
 
-    def _train_epochs(self, max_steps: Optional[int]) -> None:
+    def _train_epochs(self, logger: TrainLogger, max_steps: Optional[int],
+                      max_steps_per_epoch: Optional[int]) -> None:
         cfg = self.config
+        wd = self._watchdog
+        first_step = True
         for epoch in range(self.start_epoch + 1, cfg.total_epochs + 1):
             if max_steps is not None and self.steps_done >= max_steps:
                 return
@@ -434,32 +487,127 @@ class TrainerBase:
                 self.update_learning_rate()
             loader = self._train_loader()  # per-epoch oversampling redraw
             n_batches = len(loader)
+            logger.set_epoch_size(n_batches)
+            pending: List[Dict[str, float]] = []
             for i, batch in enumerate(loader):
                 if max_steps is not None and self.steps_done >= max_steps:
                     return
-                losses = self._step(self._device_batch(batch), self.lr,
-                                    self.lr_d)
+                if max_steps_per_epoch is not None and i >= max_steps_per_epoch:
+                    for lo in pending:
+                        logger.log(lo)
+                    pending = []
+                    logger.epoch += 1
+                    logger.batch = 1
+                    break
+                db = self._device_batch(batch)
+                if first_step and wd is not None:
+                    wd.pause()  # the first step builds the kernels (nvcc)
+                try:
+                    losses = self._step(db, self.lr, self.lr_d)
+                finally:
+                    if first_step and wd is not None:
+                        wd.resume()
+                first_step = False
                 self.steps_done += 1
-                self.timer.tick()
                 losses = {k: float(v) for k, v in losses.items()}
                 self.loss_history.append(losses)
-                if not self.quiet and ((i + 1) % cfg.log_every == 0
-                                       or i + 1 == n_batches):
-                    shown = " | ".join(f"{k}: {v:.4f}"
-                                       for k, v in losses.items())
-                    print(f"Epoch {epoch:03d}/{cfg.total_epochs:03d} "
-                          f"[{i + 1:04d}/{n_batches:04d}] -- {shown}",
-                          flush=True)
+                pending.append(losses)
+                if len(pending) >= cfg.log_every or i + 1 == n_batches:
+                    for lo in pending:
+                        logger.log(lo)
+                    pending = []
+                    if cfg.live_panels:
+                        self._refresh_live_panel(db)
                 if (i + 1) % cfg.checkpoint_every_iters == 0:
                     self._save(epoch)
+                self.timer.tick()
+                if wd is not None:
+                    wd.beat()
+            s = self.timer.summary()
+            if not self.quiet and s:
+                print(f"\n[epoch {epoch}] {s['steps_per_sec']:.2f} steps/s "
+                      f"(p50 {s['p50_ms']:.1f} ms, p90 {s['p90_ms']:.1f} ms)",
+                      flush=True)
             if epoch % cfg.val_every == 0:
-                psnr_v, ssim_v = self.validate()
+                if wd is not None:
+                    wd.pause()
+                try:
+                    psnr_v, ssim_v = self.validate()
+                finally:
+                    if wd is not None:
+                        wd.resume()
                 if not self.quiet:
                     print(f"PSNR: {psnr_v}\nSSIM: {ssim_v}", flush=True)
+                self._log_val_dashboard(epoch, psnr_v, ssim_v)
                 self._save(epoch, psnr_v, ssim_v)
                 self._collapse_guard(epoch, psnr_v, ssim_v)
             else:
                 self._save(epoch)
+
+    @torch.no_grad()
+    def _panel_images(self, a: torch.Tensor, b: torch.Tensor):
+        """input (its centre channel) | fake | target of the first sample,
+        G on the eval route; 3-D batches by their centre depth slice."""
+        fake = self._eval_model()(a[:1], fused_body=self.config.fused_body)
+        a, b, fake = (self._eval_slices(t[:1, ..., c:c + 1])[0]
+                      for t, c in ((a, a.shape[-1] // 2), (b, 0),
+                                   (fake, 0)))
+        return a, fake, b
+
+    def _refresh_live_panel(self, db: Dict[str, torch.Tensor]) -> None:
+        """The live batch's first sample through the eval G (the EMA with
+        ``ema_decay``), input | fake | target packed to uint8 as JAX packs
+        it (:func:`panel_uint8`), into ``<name>_latest_panel.png`` and
+        ``dashboard.html``. 3-D batches have no panel, as in JAX. Writing
+        the panel and the dashboard is best-effort (an error prints
+        "skipped" and training goes on); the forward is not."""
+        cfg = self.config
+        if not cfg.save_root:
+            return
+        if self.dual_window and "A2" in db:
+            a, b = db["A2"], db["B2"]
+        elif "A" in db and "B" in db:
+            a, b = db["A"], db["B"]
+        else:
+            return
+        if a.dim() != 4:
+            return
+        panel = np.hstack([panel_uint8(t).cpu().numpy()
+                           for t in self._panel_images(a, b)])
+        try:
+            write_png_gray(os.path.join(cfg.save_root,
+                                        f"{cfg.name}_latest_panel.png"),
+                           panel)
+            write_dashboard(cfg.save_root, cfg.name)
+        except Exception as e:  # observability only: never fatal
+            if not self.quiet:
+                print(f"\n[live panel] skipped: {e}", file=sys.stderr)
+
+    def _log_val_dashboard(self, epoch: int, psnr_v: float,
+                           ssim_v: float) -> None:
+        """After a validation: a row of ``<name>_val.csv``, the panel of the
+        first val slice (input | synthesized | target, its centre depth
+        slice for a 3-D window) and ``dashboard.html``; the writing
+        best-effort as in :meth:`_refresh_live_panel`."""
+        cfg = self.config
+        if not cfg.save_root:
+            return
+        imgs = []
+        if len(self.val_dataset):
+            a, b = self._val_pairs(_collate([self.val_dataset[0]]))
+            imgs = [t.float().cpu().numpy() for t in self._panel_images(
+                self._eval_input(self._eval_put(a)),
+                self._eval_input(self._eval_put(b)))]
+        try:
+            append_val_csv(cfg.save_root, cfg.name, epoch, float(psnr_v),
+                           float(ssim_v))
+            if imgs:
+                save_qualitative_panel(cfg.save_root,
+                                       f"{cfg.name}_latest_panel", imgs)
+            write_dashboard(cfg.save_root, cfg.name)
+        except Exception as e:  # observability only: never fatal
+            if not self.quiet:
+                print(f"\n[dashboard] skipped: {e}", file=sys.stderr)
 
     # -- evaluation -----------------------------------------------------------
     # the eval datasets are built at first use: a run that never validates
@@ -488,12 +636,19 @@ class TrainerBase:
         are."""
         return x if x.is_floating_point() else fullrange_from_stored(x)
 
+    @staticmethod
+    def _eval_slices(x: torch.Tensor) -> torch.Tensor:
+        """The (N, H, W) slices val and test score: each 2-D sample's first
+        channel (the 3-D family: the centre depth slice)."""
+        return x[..., 0]
+
     def _eval_pair(self, a, b):
         """G's (N, H, W) f32 fake and the (N, H, W) real, by the eval route:
         the serving route with ``fused_body``, else the training model's."""
         a, b = self._eval_input(a), self._eval_input(b)
         fake = self._eval_model()(a, fused_body=self.config.fused_body)
-        return fake[..., 0].float(), b[..., 0].float()
+        return (self._eval_slices(fake).float(),
+                self._eval_slices(b).float())
 
     @torch.no_grad()
     def _val_step(self, a, b):
@@ -565,13 +720,14 @@ class TrainerBase:
         rows: List[Dict[str, float]] = []
         with ThreadPoolExecutor(max(1, cfg.n_cpu)) as pool, \
                 ThreadPoolExecutor(1) as writer:
-            windows = {p: pool.submit(_se1_window, p)
-                       for p in self.test_dataset.files_a}
+            windows = {p: pool.submit(_se1_window, p) for p in
+                       getattr(self.test_dataset, "files_a", ())}
             written = []
             for batch in loader:
                 a, b = self._val_pairs(batch)
                 paths = batch["A_path"]
-                wcww = [windows[p].result() for p in paths]
+                wcww = [windows[p].result() if p in windows
+                        else _se1_window(p) for p in paths]
                 wc, ww = (torch.tensor([w[i] for w in wcww],
                                        dtype=torch.float32,
                                        device=self.device) for i in (0, 1))
@@ -656,7 +812,7 @@ def generator_weights(path: str) -> Dict[str, torch.Tensor]:
     CycleGAN's ``g_a2b_params``)."""
     obj = load_checkpoint(path)
     if is_jax_checkpoint(path):
-        return generator_state_dict(jax_generator_params(obj["state"]))
+        return jax_generator_state_dict(jax_generator_params(obj["state"]))
     if isinstance(obj, dict) and "state" in obj and "epoch" in obj:
         state = obj["state"]
         return state["g" if "g" in state else "g_a2b"]
@@ -836,21 +992,72 @@ class HdTrainerStage2(HdTrainerStage1):
         return self
 
 
+class P3dTrainer(TrainerBase):
+    """The 3-D family: pix2pix on paired depth windows (``patch_depth``
+    slices) with ``Generator3D`` and a conditional ``Discriminator3D``;
+    validation and test score each window's centre slice. ``test()`` writes
+    no DICOM unless asked (series go through ``--mode infer``)."""
+
+    family = "p3d"
+    title = "3-D pix2pix"
+    _NETS = (("g", "g_model"), ("d", "d_model"))
+    _OPTS = ("g_opt", "d_opt")
+    # one loader thread: the windows' random starts are drawn in the
+    # loader's order, so the seed fixes them
+    _loader_threads = 1
+
+    def _generator(self, seed: int) -> Generator3D:
+        cfg = self.config
+        ds = {1: (1, 1), 2: (1, 2), 4: (2, 2)}[cfg.depth_downsample]
+        return Generator3D(cfg.input_nc, cfg.output_nc, depth_strides=ds,
+                           dtype=_dtype(cfg)).reset_parameters(seed).to(
+                               self.device)
+
+    def _build_models(self):
+        cfg = self.config
+        # D from seed + 1
+        self.d_model = Discriminator3D(cfg.input_nc * 2, dtype=_dtype(cfg)
+                                       ).reset_parameters(cfg.seed + 1).to(
+                                           self.device)
+
+    def _init_state(self):
+        return steps.init_p3d_state(self.g_model, self.d_model,
+                                    self.config.seed, ema=self._ema_on)
+
+    def _step(self, batch, lr, lr_d):
+        return steps.p3d_train_step(
+            self.state, self._step_cfg("P2P_lamda", "Adv_lamda"), batch, lr)
+
+    @staticmethod
+    def _eval_slices(x: torch.Tensor) -> torch.Tensor:
+        return x[:, x.shape[1] // 2, :, :, 0]  # the centre depth slice
+
+    def _train_dataset(self):
+        cfg = self.config
+        return VolumePatchDataset(cfg.train_list, depth=cfg.patch_depth,
+                                  size=cfg.size, train=True,
+                                  rng=self._data_rng)
+
+    def _eval_dataset(self, list_file: str):
+        cfg = self.config
+        return VolumePatchDataset(list_file, depth=cfg.patch_depth,
+                                  size=cfg.size, train=False)
+
+    def test(self, write_dicom: bool = False) -> Dict[str, float]:
+        """Patch-window evaluation on the centre slices, as JAX's; series
+        go through ``--mode infer`` (depth-blended)."""
+        return super().test(write_dicom=write_dicom)
+
+
 TRAINERS = {"P2p": P2pTrainer, "CycleGan": CycTrainer, "RegGan": RegTrainer,
-            "HdGan": HdTrainerStage1, "HdGan2": HdTrainerStage2}
-# the JAX package's other trainer families, by config name
-_NOT_PORTED = {"P3d": "M9 (the 3-D family)"}
+            "HdGan": HdTrainerStage1, "HdGan2": HdTrainerStage2,
+            "P3d": P3dTrainer}
 
 
 def build_trainer(config: Config, device: torch.device,
                   quiet: bool = False) -> TrainerBase:
     """The trainer of ``config.name``, as the JAX package dispatches."""
     name = config.name
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"trainer {name!r} is not ported yet (ROADMAP "
-            f"{_NOT_PORTED[name]}); the port trains {sorted(TRAINERS)}")
     if name not in TRAINERS:
-        raise KeyError(f"unknown trainer '{name}' (have "
-                       f"{sorted([*TRAINERS, *_NOT_PORTED])})")
+        raise KeyError(f"unknown trainer '{name}' (have {sorted(TRAINERS)})")
     return TRAINERS[name](config, device, quiet=quiet)

@@ -1,14 +1,20 @@
 """The port's config: the fields the serving path and the trainers
-(pix2pix, CycleGAN, RegGAN, HD stage 1 and stage 2) read, from the same
-``configs/*.yaml`` files as ``ctagan_tpu/utils/config.py``, with the same
-defaults.
+(pix2pix, CycleGAN, RegGAN, HD stage 1 and stage 2, the 3-D P3d) read, from
+the same ``configs/*.yaml`` files as ``ctagan_tpu/utils/config.py``, with
+the same defaults and validation.
 
 The repo's configs are flat ``key: value`` YAML. This reader parses that
 subset without PyYAML (scalars: quoted or bare strings, ints, floats,
-booleans, null; ``#`` comments) and rejects any line it cannot parse, such
-as nested mappings, lists or flow collections. Keys that are not fields land
-in ``extras``, as in the JAX package (``serve_port``, ``serve_quantize``,
+booleans, null; ``#`` comments), plus one-level maps of ints in both forms
+PyYAML reads (``mesh: {dp: 2}``, and ``mesh:`` followed by indented ``dp:
+2`` lines), and rejects any line it cannot parse, such as deeper maps,
+lists or other flow collections. Keys that are not fields land in
+``extras``, as in the JAX package (``serve_port``, ``serve_quantize``,
 ``max_batch`` and stage 2's ``num_d`` and ``pyramid`` are read from there).
+
+``mesh`` (the parallel plans) is validated as in JAX; an axis above 1
+raises naming ROADMAP M12 when a trainer is built (the port runs on one
+card), as ``infer_depth_sharded: true`` does in ``infer_series``.
 
 The keys of the JAX package's TPU workarounds are accepted and ignored:
 ``checkpoint_backend`` (validated as in JAX, but it picks a JAX serialiser;
@@ -24,6 +30,7 @@ from dataclasses import dataclass, field
 from typing import Any, Dict
 
 _LINE = re.compile(r"^([A-Za-z_][A-Za-z0-9_]*)\s*:\s*(.*)$")
+_CHILD = re.compile(r"^(\s+)([A-Za-z_][A-Za-z0-9_]*)\s*:\s*(.*)$")
 _INT = re.compile(r"^[-+]?[0-9]+$")
 # YAML 1.1 floats as PyYAML reads them: a dot is required ("1e-4" is a
 # string there, so it is one here too)
@@ -80,6 +87,9 @@ class Config:
     d_refwd: bool = True  # D's update re-forwards the updated G
     aligned_aug: bool = False  # A and B share one affine draw
     log_every: int = 50
+    live_panels: bool = True  # the live batch's panel at each log point
+    stall_timeout: float = 0.0  # > 0: the stall watchdog (exit 42) armed
+    remat: bool = False  # the layer route recomputes each residual block
     # --- validation, checkpoints, test() ---
     val_every: int = 5  # epochs between validations
     eval_batch: int = 1  # slices per val/test forward
@@ -96,6 +106,12 @@ class Config:
     reg_downsample: int = 1  # > 1: R runs at 1/ds resolution
     grad_accum: int = 1  # > 1: losses and grads averaged over K microbatches
     ema_decay: float = 0.0  # > 0: an EMA of G, read by val/test
+    # --- the 3-D family (P3d) ---
+    patch_depth: int = 8  # slices per depth window
+    depth_downsample: int = 1  # the body's depth reduction: 1, 2 or 4
+    infer_depth_sharded: bool = False  # not ported (ROADMAP M12): raises
+    # the parallel plan, e.g. {dp: 2}; any axis > 1 raises (ROADMAP M12)
+    mesh: Dict[str, int] = field(default_factory=dict)
     extras: Dict[str, Any] = field(default_factory=dict)
 
     @property
@@ -148,7 +164,31 @@ class Config:
             raise ValueError("collapse_drop_db must be > 0")
         if not (0 < self.collapse_lrd_backoff <= 1):
             raise ValueError("collapse_lrd_backoff must be in (0, 1]")
+        if self.mesh:
+            if not isinstance(self.mesh, dict):
+                raise ValueError("mesh must be a dict of axis extents")
+            unknown = set(self.mesh) - set(MESH_AXES)
+            if unknown:
+                raise ValueError(f"unknown mesh axes {sorted(unknown)} "
+                                 "(have dp/fsdp/tp/sp/depth/pp)")
+            for k, v in self.mesh.items():
+                if not isinstance(v, int) or isinstance(v, bool) or v < 1:
+                    raise ValueError(
+                        f"mesh.{k} must be an int >= 1, got {v!r}")
+            if sum(int(self.mesh.get(k, 1)) > 1 for k in MESH_AXES[1:]) > 1:
+                raise ValueError(
+                    "at most one of mesh.fsdp/tp/sp/depth/pp may exceed 1 "
+                    "(dp composes with any single one)")
+        if self.depth_downsample not in (1, 2, 4):
+            raise ValueError("depth_downsample must be 1, 2 or 4")
+        if self.patch_depth % self.depth_downsample != 0:
+            raise ValueError(
+                "patch_depth must be divisible by depth_downsample")
         return self
+
+
+# the parallel plan's axes: dp, then the model axes (at most one above 1)
+MESH_AXES = ("dp", "fsdp", "tp", "sp", "depth", "pp")
 
 
 def _strip_comment(v: str) -> str:
@@ -184,24 +224,71 @@ def _scalar(v: str) -> Any:
     return v
 
 
+def _int_map_entry(key: str, v: str, into: Dict[str, Any]) -> None:
+    if not _INT.match(v):
+        raise ValueError(f"a map value must be an int, got {key}: {v!r}")
+    into[key] = int(v)
+
+
+def _flow_int_map(v: str) -> Dict[str, int]:
+    """``{a: 1, b: 2}`` -> {"a": 1, "b": 2}; anything deeper raises."""
+    inner = v[1:-1].strip()
+    out: Dict[str, int] = {}
+    if not inner:
+        return out
+    for item in inner.split(","):
+        m = _LINE.match(item.strip())
+        if m is None:
+            raise ValueError(f"cannot parse map entry {item.strip()!r}")
+        _int_map_entry(m.group(1), m.group(2).strip(), out)
+    return out
+
+
 def parse_flat_yaml(text: str) -> Dict[str, Any]:
-    """Parse flat ``key: value`` YAML; raise ValueError on anything else."""
+    """Parse flat ``key: value`` YAML and one-level maps of ints; raise
+    ValueError on anything else."""
     out: Dict[str, Any] = {}
+    block = None  # [key, indent of its lines, line number] of a ``key:``
+
+    def close_block():
+        if block is not None and block[0] not in out:
+            raise ValueError(f"line {block[2]}: key {block[0]!r}: no value")
+
     for lineno, line in enumerate(text.splitlines(), 1):
         stripped = line.strip()
         if not stripped or stripped.startswith("#") or stripped == "---":
             continue
+        child = _CHILD.match(line)
+        if child is not None:
+            indent = len(child.group(1))
+            if block is None or block[1] not in (None, indent):
+                raise ValueError(f"line {lineno}: cannot parse {line!r}")
+            block[1] = indent
+            try:
+                _int_map_entry(child.group(2),
+                               _strip_comment(child.group(3).strip()),
+                               out.setdefault(block[0], {}))
+            except ValueError as e:
+                raise ValueError(
+                    f"line {lineno}: key {block[0]!r}: {e}") from None
+            continue
+        close_block()
+        block = None
         m = _LINE.match(line)
         if m is None:
             raise ValueError(f"line {lineno}: cannot parse {line!r}")
         key = m.group(1)
         try:
             value = _strip_comment(m.group(2).strip())
-            if not value:  # an empty value opens a nested block in YAML
-                raise ValueError("no scalar value")
-            out[key] = _scalar(value)
+            if not value:  # opens a block of ``sub: int`` lines
+                block = [key, None, lineno]
+            elif value[:1] == "{" and value[-1:] == "}":
+                out[key] = _flow_int_map(value)
+            else:
+                out[key] = _scalar(value)
         except ValueError as e:
             raise ValueError(f"line {lineno}: key {key!r}: {e}") from None
+    close_block()
     return out
 
 

@@ -124,12 +124,26 @@ def test_config_reader_matches_jax(path):
 
 
 @pytest.mark.parametrize("text", [
-    "mesh:\n  dp: 2", "a: [1, 2]", "a: {b: 1}", "  indented: 1",
+    "a: {b: {c: 1}}", "a: [1, 2]", "a: {b: [1, 2]}", "  indented: 1",
     "a: 'unterminated", "not a key value", "a: - 1",
 ])
 def test_config_reader_rejects_what_it_cannot_parse(text):
     with pytest.raises(ValueError):
         parse_flat_yaml(text)
+
+
+@pytest.mark.parametrize("text", [
+    "mesh:\n  dp: 2", "a: {b: 1}", "mesh: {dp: 2, tp: 1}  # plan",
+    "mesh:\n  dp: 1\n  pp: 1\nsize: 64",
+])
+def test_config_reader_reads_one_level_int_maps_as_jax(tmp_path, text):
+    """One-level maps of ints, flow and block, read as JAX's PyYAML
+    ``load_config`` reads them: ``mesh`` a field, other keys in extras."""
+    path = tmp_path / "c.yaml"
+    path.write_text(text + "\n")
+    ref, cfg = jax_load_config(str(path)), load_config(str(path))
+    assert cfg.mesh == ref.mesh and cfg.size == ref.size
+    assert cfg.extras == ref.extras
 
 
 def test_config_reader_scalars():

@@ -207,8 +207,11 @@ def test_infer_volume_3d_matches_jax(n, depth):
 
 
 def test_infer_series_refuses_the_3d_family(tmp_path):
-    stub = SimpleNamespace(family="p3d", config=load_config({}))
-    with pytest.raises(NotImplementedError, match="M9"):
+    """The 3-D family infers since M9 (tests/test_torch_port_p3d.py); its
+    exact depth-sharded branch is still refused, naming M12."""
+    stub = SimpleNamespace(family="p3d", config=load_config(
+        {"infer_depth_sharded": True}))
+    with pytest.raises(NotImplementedError, match="M12"):
         serve.infer_series(stub, str(tmp_path), str(tmp_path))
 
 

@@ -375,8 +375,9 @@ def test_p2p_train_then_test_entry_point_on_cpu(tmp_path):
     ``P2p_p2p_e1_*.pt``; ``--mode test`` scores it and writes the SE2
     series."""
     lst = _corpus(tmp_path, n_patients=1, slices=2)
+    # one epoch: --max-steps caps each epoch, as JAX's train.py
     path = _yaml(tmp_path / "P2p.yaml", _p2p_cfg(tmp_path, lst, log_every=1,
-                                                 n_cpu=2))
+                                                 n_cpu=2, decay_epoch=0))
     code = ("import sys\n"
             "for m in ('jax', 'flax', 'yaml', 'ctagan_tpu'):\n"
             "    sys.modules[m] = None\n"
@@ -400,7 +401,12 @@ def test_p2p_train_then_test_entry_point_on_cpu(tmp_path):
     epoch = [ln for ln in out.splitlines() if ln.startswith("Epoch")]
     assert len(epoch) == 2 and "loss_L1" in epoch[0]
     saved = os.listdir(tmp_path / "model")
-    assert len(saved) == 1 and saved[0].startswith("P2p_p2p_e1_")
+    pts = [f for f in saved if f.endswith(".pt")]
+    assert len(pts) == 1 and pts[0].startswith("P2p_p2p_e1_")
+    # JAX's loop writes its loss and val curves, panel and dashboard there
+    for f in ("P2p_losses.csv", "P2p_val.csv", "P2p_latest_panel.png",
+              "dashboard.html"):
+        assert f in saved, f
     out = run("--mode", "test")
     assert "test: 2 slices" in out
     for key in ("MAEw", "PSNRw", "SSIMw", "UQIw", "MAE:", "PSNR:", "SSIM:",

@@ -78,6 +78,7 @@ from ctagan_tpu_torch.train.trainers import (
     HdTrainerStage1,
     HdTrainerStage2,
     P2pTrainer,
+    P3dTrainer,
     RegTrainer,
     build_trainer,
 )
@@ -435,14 +436,11 @@ def test_stage2_adam_first_moments_match_jax(stage2_step, net):
 @pytest.mark.parametrize("name,want", [
     ("HdGan", HdTrainerStage1), ("HdGan_fast", HdTrainerStage1),
     ("HdGan2", HdTrainerStage2), ("P2p", P2pTrainer),
-    ("CycleGan", CycTrainer), ("RegGan", RegTrainer), ("P3d", "M9")])
+    ("CycleGan", CycTrainer), ("RegGan", RegTrainer),
+    pytest.param("P3d", P3dTrainer, id="P3d-M9")])
 def test_build_trainer_dispatches_by_config_name(name, want, tmp_path):
     config = load_config(os.path.join(REPO, "configs", f"{name}.yaml"))
     config.save_root = str(tmp_path)  # nothing to resume from
-    if isinstance(want, str):
-        with pytest.raises(NotImplementedError, match=want):
-            build_trainer(config, torch.device("cpu"), quiet=True)
-        return
     t = build_trainer(config, torch.device("cpu"), quiet=True)
     assert type(t) is want
     assert t.ckpt_prefix == f"{config.name}_{want.family}"
@@ -563,7 +561,8 @@ def _yaml(path, cfg):
 def test_entry_point_dispatches_by_name(stage1_ckpt, tmp_path, capsys):
     """The repaired fault: ``HdGan2`` trained HD stage 1, and the JAX
     package's other families quietly trained HD stage 1 too. Each name now
-    builds its own family's trainer; P3d alone raises."""
+    builds its own family's trainer (P3d too, since M9). ``--max-steps 0``
+    caps each epoch at no step, as JAX's; the configs have one epoch."""
     s1 = stage1_ckpt
     cfg = load_config(_cfg(s1["lists"], s1["root"], "HdGan2"))
     t = port_train(cfg, torch.device("cpu"), max_steps=0)
@@ -571,15 +570,11 @@ def test_entry_point_dispatches_by_name(stage1_ckpt, tmp_path, capsys):
     assert _same(t.g_model, s1["g"]) and _same(t.r_model, s1["r"])
     assert "(HD stage 2)" in capsys.readouterr().out
     for name, title in (("RegGan", "RegGAN"), ("CycleGan", "CycleGAN"),
-                        ("P2p", "pix2pix"), ("P3d", "M9")):
+                        ("P2p", "pix2pix"), ("P3d", "3-D pix2pix")):
         path = _yaml(tmp_path / f"{name}.yaml",
-                     _cfg(s1["lists"], tmp_path, name))
+                     _cfg(s1["lists"], tmp_path, name, decay_epoch=0))
         args = ["--config", path, "--mode", "train", "--device", "cpu",
                 "--max-steps", "0"]
-        if name == "P3d":
-            with pytest.raises(NotImplementedError, match=title):
-                main(args)
-            continue
         assert main(args) == 0
         assert f"training {name} ({title})" in capsys.readouterr().out
     # a fresh stage-2 run with no stage-1 checkpoint warns and goes on
@@ -599,7 +594,7 @@ def test_stage2_train_then_test_entry_point_on_cpu(stage1_ckpt, tmp_path):
     os.makedirs(root / "model")
     os.link(s1["path"], root / "model" / os.path.basename(s1["path"]))
     path = _yaml(root / "HdGan2.yaml", _cfg(s1["lists"], root, "HdGan2",
-                                            log_every=1))
+                                            log_every=1, decay_epoch=0))
     code = ("import sys\n"
             "for m in ('jax', 'flax', 'yaml', 'ctagan_tpu'):\n"
             "    sys.modules[m] = None\n"
@@ -618,8 +613,13 @@ def test_stage2_train_then_test_entry_point_on_cpu(stage1_ckpt, tmp_path):
     assert f"bootstrapped G and R from {linked}" in res.stdout
     epoch = [ln for ln in res.stdout.splitlines() if ln.startswith("Epoch")]
     assert len(epoch) == 1 and "SR_loss2" in epoch[0]
-    assert sorted(os.listdir(root / "model")) == sorted(
+    saved = os.listdir(root / "model")
+    assert sorted(f for f in saved if f.endswith(".pt")) == sorted(
         [os.path.basename(s1["path"]), "HdGan2_hd2_e1.pt"])
+    # JAX's loop writes its loss curve, live panel and dashboard there too
+    for f in ("HdGan2_losses.csv", "HdGan2_latest_panel.png",
+              "dashboard.html"):
+        assert f in saved, f
     res = subprocess.run(
         [sys.executable, "-c", code, "--config", path, "--mode", "test",
          "--device", "cpu"],

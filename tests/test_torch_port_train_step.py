@@ -160,8 +160,10 @@ def _config(tmp_path, size):
     with open(os.path.join(REPO, "configs", "HdGan.yaml")) as f:
         text = f.read()
     path = tmp_path / "HdGan_cpu.yaml"
+    # one epoch: --max-steps caps each epoch, as JAX's train.py
     path.write_text(text + f"\ntrain_list: '{lists['train']}'\n"
-                    f"size: {size}\nlog_every: 1\n")
+                    f"size: {size}\nlog_every: 1\nn_epochs: 1\n"
+                    "decay_epoch: 0\n")
     return str(path)
 
 
