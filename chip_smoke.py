@@ -168,9 +168,26 @@ card, ``nvcc`` and no network, and imports nothing of JAX. Phases:
    the first step again in f32 from the same seeds within 2e-2 of the bf16
    one; ``--mode infer`` over a seeded 40-slice series: every SE2 file
    named, sized and re-UIDed as its source, the slices only the first
-   window covers within 1 stored unit of a direct forward of the saved G.
+   window covers within 1 stored unit of a direct forward of the saved G;
+17. ``corpus``, a main path: the offline corpus stage. (a)
+   ``ops/registration3d.py::demons_register`` (plain PyTorch: JAX computes
+   it outside Pallas) on a seeded 16 × 128 × 128 pair, default levels and
+   iterations, on the card and on the CPU: φ within 1e-3 voxel, a repeat
+   on the card bit-equal; (b) ``data/registration.py::align_patient`` with
+   no device and ``method="auto"`` on a seeded 512² × 128-slice patient
+   (JAX's e2e fixture at that size: SE1 is SE0 under a sine field of 2 and
+   1.5 voxels plus 80 HU): ``"demons"``, its registrar on the card, SE0
+   unchanged, SE1's last slice the unwarped one, the interior error cut
+   4× or more; the seconds of the load, the phase correlation, each
+   pyramid level, the warp and the writeback, the peak device memory, the
+   mean end-point error over the anatomy; no kernel launched; (c)
+   ``python -m ctagan_tpu_torch.data.corpus`` in a fresh interpreter
+   without JAX on that tree plus three seeded 6-slice patients, then
+   ``--stats`` and ``--equip-split`` on its lists: every listed path and
+   its SE1 partner exist, no patient in two lists, ``--stats``' slices
+   the listed count.
 
-The launch counts of the ten main paths (each counted from zero) are the
+The launch counts of the eleven main paths (each counted from zero) are the
 ``launches`` of the kernels line. ``--phases a,b`` runs a subset and stops
 before the result lines; ``--cases K2,K3`` keeps only the kernel phase's
 cases and timing lines of those kernels (and stops there too). Any failure
@@ -344,9 +361,21 @@ REMAT_D_TOL = 1e-4
 # first window covers within INFER_PIXEL_TOL of a direct forward of it
 P3D_PATIENTS, P3D_SLICES, P3D_SERIES, P3D_F32_TOL = 4, 12, 40, 2e-2
 P3D_LOSS_KEYS = ["loss_G", "loss_L1", "loss_GAN_A2B", "loss_D_B"]
+# the corpus phase: (a) demons_register on the card and on the CPU on a
+# CORPUS_A_SHAPE pair, default levels and iterations, φ within
+# CORPUS_PHI_TOL voxel (the port's f32 φ lies 1.2e-5 voxel from its float64
+# run on this pair, on a CPU: tests/demons_fixture_study.py --f64), a repeat
+# bit-equal; (b) align_patient on a seeded
+# CORPUS_SLICES-slice patient at CORPUS_SIZE², JAX's e2e bar (the interior
+# error cut by CORPUS_CUT or more, the last slice within 1 stored unit of
+# the unwarped one); (c) the corpus CLI on that tree plus CORPUS_EXTRA
+# seeded patients of CORPUS_EXTRA_SLICES slices
+CORPUS_A_SHAPE, CORPUS_PHI_TOL = (16, 128, 128), 1e-3
+CORPUS_SLICES, CORPUS_SIZE, CORPUS_CUT = 128, 512, 4.0
+CORPUS_EXTRA, CORPUS_EXTRA_SLICES = 3, 6
 ALL_PHASES = ("kernels", "generator", "int8", "grad", "serving",
               "int8_serving", "training", "test", "stage2", "families",
-              "infer", "export", "figures", "loop", "p3d")
+              "infer", "export", "figures", "loop", "p3d", "corpus")
 
 
 def fail(msg):
@@ -2827,6 +2856,269 @@ def check_p3d(torch, card):
     return counts
 
 
+def _demons_pair(torch, D, size, seed, dev="cuda", design="vessels"):
+    """JAX's e2e registration fixture (``tests/test_registration3d.py``:
+    smooth blobs, radii 3-8 voxels, z extents 2-4 slices, 20 per 64² × 8,
+    stored values 1500·A + 200) grown to (D, size, size), made on ``dev``.
+    With k = size/64, the organs are JAX's blobs with radii × k, so they
+    fill the field of view, and (``design`` "scaled" and "vessels") their z
+    extents × k too, 20 per 8k slices: z-thin blobs make every window
+    z-dominated, the aperture case JAX's fixture avoids ("radii": z extents
+    as JAX's, 20 per 8 slices). "vessels" adds fine structures, JAX's blobs
+    at JAX's size, 20 per 8 slices per 64 columns. The moving volume is
+    that anatomy under JAX's sine field (2 and 1.5 voxels in y and x, one
+    wavelength over the width) plus an 80 HU contrast offset. Returns the
+    two (D, size, size) f32 tensors of stored values, the anatomy A and the
+    field's (dy, dx) as a function of the sample point."""
+    import math
+
+    import numpy as np
+
+    dev = torch.device(dev)
+    k = size / 64
+    rng = np.random.default_rng(seed)
+
+    def draw(n, scale, zscale):
+        return [(rng.uniform(0, D), rng.uniform(size * 0.15, size * 0.85),
+                 rng.uniform(size * 0.15, size * 0.85),
+                 rng.uniform(3, 8) * scale, rng.uniform(0.3, 1.0),
+                 rng.uniform(2.0, 4.0) * zscale) for _ in range(n)]
+
+    if design == "radii":
+        organs = draw(20 * D // 8, k, 1.0)
+    else:
+        organs = draw(round(20 * D / (8 * k)), k, k)
+    vessels = draw(round(20 * D / 8 * k), 1.0, 1.0) \
+        if design == "vessels" else []
+    z = torch.arange(D, dtype=torch.float32, device=dev).view(D, 1, 1)
+    y = torch.arange(size, dtype=torch.float32, device=dev).view(1, size, 1)
+    x = torch.arange(size, dtype=torch.float32, device=dev).view(1, 1, size)
+
+    def field(yy, xx):
+        w = 2 * math.pi / size
+        return (2.0 * torch.sin(w * yy) * torch.cos(w * xx),
+                1.5 * torch.cos(w * yy) * torch.sin(w * xx))
+
+    def blob(zz, yy, xx, cz, cy, cx, r, a, rz):
+        return a * torch.exp(-(((zz - cz) / rz) ** 2 + ((yy - cy) / r) ** 2
+                               + ((xx - cx) / r) ** 2) / 2)
+
+    def anatomy(yy, xx):
+        yy, xx = yy.expand(1, size, size), xx.expand(1, size, size)
+        out = torch.zeros((D, size, size), device=dev)
+        for b in organs:
+            out += blob(z, yy, xx, *b)
+        for b in vessels:  # within 4σ (+3 voxels of the field's reach)
+            cz, cy, cx, r, _, rz = b
+            z0, z1 = max(0, int(cz - 4 * rz)), min(D, int(cz + 4 * rz) + 1)
+            y0 = max(0, int(cy - 4 * r - 3))
+            y1 = min(size, int(cy + 4 * r) + 4)
+            x0 = max(0, int(cx - 4 * r - 3))
+            x1 = min(size, int(cx + 4 * r) + 4)
+            out[z0:z1, y0:y1, x0:x1] += blob(
+                z[z0:z1], yy[:, y0:y1, x0:x1], xx[:, y0:y1, x0:x1], *b)
+        return out
+
+    dy, dx = field(y, x)
+    a0 = anatomy(y, x)
+    fixed = a0 * 1500 + 200
+    moving = anatomy(y + dy, x + dx) * 1500 + 200 + 80
+    return fixed, moving, a0, field
+
+
+def _write_series(dicom, root, pat, se, stored, pid):
+    d = os.path.join(root, pat, "ST0", se)
+    os.makedirs(d, exist_ok=True)
+    for s in range(stored.shape[0]):
+        dicom.write_dicom(dicom.make_ct_slice(
+            stored[s], series_description="C-" if se == "SE0" else "C+",
+            patient_id=pid, accession="A" + pid, slice_location=float(s),
+            series_uid=f"1.2.{pid}.{se[-1]}"), os.path.join(d, f"IM{s}"))
+
+
+def _corpus_cli(args, cwd):
+    """``python -m ctagan_tpu_torch.data.corpus`` in a fresh interpreter
+    that cannot import JAX or the JAX package; its standard output."""
+    code = ("import sys\n"
+            "for m in ('jax', 'flax', 'ctagan_tpu'):\n"
+            "    sys.modules[m] = None\n"
+            "import runpy\n"
+            "sys.argv = ['corpus'] + sys.argv[1:]\n"
+            "runpy.run_module('ctagan_tpu_torch.data.corpus', "
+            "run_name='__main__')\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH", "")) if p))
+    res = subprocess.run([sys.executable, "-c", code] + args, cwd=cwd,
+                         env=env, capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        fail(f"corpus CLI {args}: {res.stderr[-2000:]}")
+    return res.stdout
+
+
+def check_corpus(torch, card):
+    """Phase 17, a main path: the offline corpus stage. (a)
+    ``demons_register`` on the card against the CPU; (b) ``align_patient``
+    on a 512² × 128-slice patient, its registrar reaching the card by
+    itself; (c) the corpus CLI on the registered tree and three more
+    patients, then ``--stats`` and ``--equip-split`` on its lists."""
+    import numpy as np
+
+    from ctagan_tpu_torch.data import dicom, registration
+    from ctagan_tpu_torch.data.fixtures import make_corpus
+    from ctagan_tpu_torch.data.registration import _load_series
+    from ctagan_tpu_torch.ops import registration3d as reg3d
+
+    # (a) the card against the CPU
+    fixed, moving, _, _ = _demons_pair(torch, *CORPUS_A_SHAPE[:2], seed=1)
+    fixed, moving = fixed.cpu().numpy(), moving.cpu().numpy()
+    t0 = time.perf_counter()
+    phi_cpu = reg3d.demons_register(fixed, moving, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    card_s = []
+    phis = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        phis.append(reg3d.demons_register(fixed, moving))
+        torch.cuda.synchronize()
+        card_s.append(time.perf_counter() - t0)
+    err = float((phis[0].cpu() - phi_cpu).abs().max())
+    same = torch.equal(phis[0], phis[1])
+    print(f"corpus (a) demons_register {'x'.join(map(str, CORPUS_A_SHAPE))}, "
+          f"levels 3, iterations 30/40/60: card {card_s[0]:.3f} s (repeat "
+          f"{card_s[1]:.3f} s), CPU {cpu_s:.3f} s; max |φ card − φ CPU| "
+          f"{err:.3e} voxel (tol {CORPUS_PHI_TOL:.0e}), |φ| max "
+          f"{float(phi_cpu.abs().max()):.3f}; repeat bit-equal {same} "
+          f"[{card}]", flush=True)
+    if phis[0].device.type != "cuda" or err > CORPUS_PHI_TOL or not same:
+        fail(f"corpus (a): φ on {phis[0].device} {err:.3e} voxel from the "
+             f"CPU's, repeat bit-equal {same}")
+    del phis, phi_cpu
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (b) align_patient at full size
+        root, pid = os.path.join(tmp, "tree"), "REG0"
+        t0 = time.perf_counter()
+        fixed, moving, anatomy, field = _demons_pair(
+            torch, CORPUS_SLICES, CORPUS_SIZE, seed=0)
+        stored = {se: v.clamp(0, 4095).to(torch.int32).cpu().numpy()
+                  .astype(np.uint16) for se, v in (("SE0", fixed),
+                                                   ("SE1", moving))}
+        for se, v in stored.items():
+            _write_series(dicom, root, "pat0", se, v, pid)
+        make_s = time.perf_counter() - t0
+        # spies keep the rigid pre-shift and the field align_patient's
+        # registrar found
+        seen = {}
+        demons = reg3d.demons_register
+        shift_of = registration.phase_correlation_shift
+
+        def demons_spy(f, m, **kw):
+            seen["phi"] = demons(f, m, **kw)
+            return seen["phi"]
+
+        def shift_spy(f, m):
+            seen["shift"] = shift_of(f, m)
+            return seen["shift"]
+
+        times = {}
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # the fixture's tensors
+        reg3d.demons_register = demons_spy
+        registration.phase_correlation_shift = shift_spy
+        try:
+            t0 = time.perf_counter()
+            used = registration.align_patient(root, "pat0", times=times)
+            align_s = time.perf_counter() - t0
+        finally:
+            reg3d.demons_register = demons
+            registration.phase_correlation_shift = shift_of
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() - held
+        base = os.path.join(root, "pat0", "ST0")
+        se0, _ = _load_series(os.path.join(base, "SE0"))
+        se1, _ = _load_series(os.path.join(base, "SE1"))
+        target = (fixed.cpu().numpy() + 80.0 - 1024.0)[:-1, 4:-4, 4:-4]
+        before = float(np.abs(stored["SE1"][:-1, 4:-4, 4:-4] - 1024.0
+                              - target).mean())
+        after = float(np.abs(se1[:-1, 4:-4, 4:-4] - target).mean())
+        last = float(np.abs(se1[-1] - (stored["SE1"][-1] - 1024.0)).max())
+        se0_same = np.array_equal(se0, stored["SE0"].astype(np.float32)
+                                  - 1024.0)
+        # the residual r = φ(x) − s + u(x + φ(x) − s) over the anatomy: the
+        # registrar aligned the moving volume rolled by the pre-shift s, and
+        # u is the sine field that made the moving volume (no z component)
+        phi, shift = seen["phi"], [float(v) for v in seen["shift"]]
+        d, h, w = phi.shape[:3]
+        ry = phi[..., 1] - shift[1]
+        rx = phi[..., 2] - shift[2]
+        uy, ux = field(torch.arange(h, device=phi.device).view(1, h, 1) + ry,
+                       torch.arange(w, device=phi.device).view(1, 1, w) + rx)
+        epe = torch.sqrt((phi[..., 0] - shift[0]) ** 2 + (ry + uy) ** 2
+                         + (rx + ux) ** 2)[anatomy > 0.1]
+        epe_mean = float(epe.mean())
+        phi_dev = phi.device.type
+        del fixed, moving, anatomy, phi, ry, rx, uy, ux, epe, seen
+        torch.cuda.empty_cache()
+        print(f"corpus (b) align_patient on a {CORPUS_SLICES}-slice "
+              f"{CORPUS_SIZE}^2 patient (made and written in {make_s:.3f} "
+              f"s): {used!r} in {align_s:.3f} s, the registrar's φ on "
+              f"{phi_dev}; "
+              + ", ".join(f"{k} {v:.3f} s" for k, v in times.items())
+              + f"; the call's peak device memory {peak / 2 ** 30:.3f} GiB; "
+              f"interior |error| {before:.3f} -> {after:.3f} HU = "
+              f"{before / after:.2f}x "
+              f"(bar {CORPUS_CUT:.0f}x); mean EPE over the anatomy "
+              f"{epe_mean:.3f} voxel (rigid pre-shift {shift}); SE0 "
+              f"unchanged {se0_same}; last slice {last:.1f} stored units "
+              f"from the unwarped one; launches {counts} [{card}]",
+              flush=True)
+        if used != "demons" or phi_dev != "cuda":
+            fail(f"corpus (b): align_patient used {used!r}, φ on {phi_dev}")
+        if not se0_same or last > 1.0 or before < CORPUS_CUT * after:
+            fail(f"corpus (b): SE0 unchanged {se0_same}, last slice {last}, "
+                 f"error {before:.3f} -> {after:.3f}")
+        if counts != counts_of():
+            fail(f"corpus: kernels launched {counts}")
+
+        # (c) the corpus CLI, in a fresh interpreter
+        make_corpus(root, n_patients=CORPUS_EXTRA,
+                    slices_per_patient=CORPUS_EXTRA_SLICES,
+                    size=CORPUS_SIZE, seed=5, lists=("extra",))
+        out = os.path.join(tmp, "lists")
+        t0 = time.perf_counter()
+        built = _corpus_cli([root, "--out", out], tmp)
+        lists = {n: _read_list(os.path.join(out, f"{n}.txt"))
+                 for n in ("train", "val", "test")}
+        stats = {n: _corpus_cli([os.path.join(out, f"{n}.txt"), "--stats"],
+                                tmp) for n, ps in lists.items() if ps}
+        equip = _corpus_cli([os.path.join(out, "test.txt"),
+                             "--equip-split", "--out", out], tmp)
+        cli_s = time.perf_counter() - t0
+        patients = {n: {p.split(os.sep)[-4] for p in ps}
+                    for n, ps in lists.items()}
+        listed = sum(len(ps) for ps in lists.values())
+        stat_slices = sum(int(re.search(r"slices (\d+)", v).group(1))
+                          for v in stats.values())
+        want = CORPUS_SLICES + CORPUS_EXTRA * CORPUS_EXTRA_SLICES
+        print(f"corpus (c) python -m ctagan_tpu_torch.data.corpus on "
+              f"{CORPUS_EXTRA + 1} patients, then --stats and --equip-split "
+              f"({cli_s:.3f} s, {2 + len(stats)} interpreters): "
+              f"{built.strip()}; "
+              + "; ".join(f"{n} {v.strip()}" for n, v in stats.items())
+              + f"; equip split {equip.strip()} [{card}]", flush=True)
+        paired = all(os.path.exists(p) and os.path.exists(
+            p.replace(os.sep + "SE0" + os.sep, os.sep + "SE1" + os.sep))
+            for ps in lists.values() for p in ps)
+        disjoint = sum(len(v) for v in patients.values()) == len(
+            set().union(*patients.values()))
+        if not (paired and disjoint) or listed != want \
+                or stat_slices != listed:
+            fail(f"corpus (c): paired {paired}, disjoint {disjoint}, "
+                 f"{listed} listed, {stat_slices} by --stats, {want} made")
+    return counts
+
+
 def check_tensor_cores(lib_path):
     """K1's, K2's, K3's, K4's and K5's kernels (each instantiation, f32 and
     bf16 I/O) hold HGMMA (wgmma) instructions in the built library's SASS,
@@ -2894,7 +3186,8 @@ MAIN_PATHS = {"serving": check_serving,
               "infer": check_infer,
               "figures": check_figures,
               "loop": check_loop,
-              "p3d": check_p3d}
+              "p3d": check_p3d,
+              "corpus": check_corpus}
 
 
 def main():

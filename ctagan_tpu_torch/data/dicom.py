@@ -1,7 +1,7 @@
 """DICOM codec of the port (``ctagan_tpu/data/dicom.py``).
 
-The subset of DICOM the synthesis service, the datasets and the test-time
-writeback touch, in numpy and the standard
+The subset of DICOM the synthesis service, the datasets, the test-time
+writeback and the offline corpus stage touch, in numpy and the standard
 library: part-10 files (128-byte preamble + ``DICM``), the file meta group,
 and the two uncompressed little-endian transfer syntaxes (implicit VR
 1.2.840.10008.1.2, explicit VR 1.2.840.10008.1.2.1). Every top-level element
@@ -169,12 +169,36 @@ class DicomFile:
         return self.get_us(TAG_PIXEL_REP) or 0
 
     @property
+    def rescale_intercept(self) -> float:
+        return self.get_ds1(TAG_RESCALE_INTERCEPT, 0.0)
+
+    @property
+    def rescale_slope(self) -> float:
+        return self.get_ds1(TAG_RESCALE_SLOPE, 1.0)
+
+    @property
     def window_center(self) -> Optional[float]:
         return self.get_ds1(TAG_WINDOW_CENTER)
 
     @property
     def window_width(self) -> Optional[float]:
         return self.get_ds1(TAG_WINDOW_WIDTH)
+
+    @property
+    def series_description(self) -> str:
+        return self.get_str(TAG_SERIES_DESC) or ""
+
+    @property
+    def patient_id(self) -> str:
+        return self.get_str(TAG_PATIENT_ID) or ""
+
+    @property
+    def accession_number(self) -> str:
+        return self.get_str(TAG_ACCESSION) or ""
+
+    @property
+    def slice_location(self) -> Optional[float]:
+        return self.get_ds1(TAG_SLICE_LOCATION)
 
     @property
     def series_instance_uid(self) -> str:
@@ -200,6 +224,12 @@ class DicomFile:
         n = self.rows * self.cols
         arr = np.frombuffer(raw[: n * (bits // 8)], dtype=dt)
         return arr.reshape(self.rows, self.cols)
+
+    def hu_array(self) -> np.ndarray:
+        """Pixels with the rescale applied, slope · stored + intercept, as
+        float32."""
+        return (self.pixel_array().astype(np.float32) * self.rescale_slope
+                + self.rescale_intercept)
 
     def set_pixel_data(self, arr: np.ndarray):
         """Replace PixelData with ``arr`` cast per BitsAllocated (int16 or
@@ -333,21 +363,25 @@ def write_dicom(ds: DicomFile, path: str) -> None:
 
 def make_ct_slice(pixels: np.ndarray, *, series_uid: Optional[str] = None,
                   slice_location: float = 0.0, series_description: str = "C-",
-                  patient_id: str = "P0", accession: str = "A0") -> DicomFile:
+                  patient_id: str = "P0", accession: str = "A0",
+                  wc: float = 50.0, ww: float = 400.0,
+                  rescale_intercept: float = -1024.0,
+                  manufacturer: str = "GE MEDICAL SYSTEMS", sex: str = "M",
+                  age: str = "060Y") -> DicomFile:
     """An in-memory CT slice (explicit VR, 16-bit unsigned, 12 bits stored,
-    WC 50 / WW 400, intercept -1024) holding the stored values ``pixels``
-    (0..4095): the synthetic request body of the tests and the smoke."""
+    rescale slope 1) holding the stored values ``pixels`` (0..4095): the
+    synthetic request body and corpus slice of the tests and the smoke."""
     ds = DicomFile()
     ts = EXPLICIT_VR_LE.encode("ascii")
     ds.meta = [Element(0x0002, 0x0010, b"UI", ts + b"\x00" * (len(ts) % 2))]
     ds.set_str(TAG_SOP_CLASS, "1.2.840.10008.5.1.4.1.1.2", b"UI")  # CT Image
     ds.set_str(TAG_SOP_INSTANCE, generate_uid(), b"UI")
     ds.set_str(TAG_ACCESSION, accession, b"SH")
-    ds.set_str(TAG_MANUFACTURER, "GE MEDICAL SYSTEMS", b"LO")
+    ds.set_str(TAG_MANUFACTURER, manufacturer, b"LO")
     ds.set_str(TAG_SERIES_DESC, series_description, b"LO")
     ds.set_str(TAG_PATIENT_ID, patient_id, b"LO")
-    ds.set_str(TAG_PATIENT_SEX, "M", b"CS")
-    ds.set_str(TAG_PATIENT_AGE, "060Y", b"AS")
+    ds.set_str(TAG_PATIENT_SEX, sex, b"CS")
+    ds.set_str(TAG_PATIENT_AGE, age, b"AS")
     ds.set_str(TAG_SERIES_UID, series_uid or generate_uid(), b"UI")
     ds.set_str(TAG_SLICE_LOCATION, f"{slice_location:g}", b"DS")
     ds.set_us(TAG_ROWS, pixels.shape[0])
@@ -356,9 +390,9 @@ def make_ct_slice(pixels: np.ndarray, *, series_uid: Optional[str] = None,
     ds.set_us(TAG_BITS_STORED, 12)
     ds.set_us(TAG_HIGH_BIT, 11)
     ds.set_us(TAG_PIXEL_REP, 0)
-    ds.set_str(TAG_WINDOW_CENTER, "50", b"DS")
-    ds.set_str(TAG_WINDOW_WIDTH, "400", b"DS")
-    ds.set_str(TAG_RESCALE_INTERCEPT, "-1024", b"DS")
+    ds.set_str(TAG_WINDOW_CENTER, f"{wc:g}", b"DS")
+    ds.set_str(TAG_WINDOW_WIDTH, f"{ww:g}", b"DS")
+    ds.set_str(TAG_RESCALE_INTERCEPT, f"{rescale_intercept:g}", b"DS")
     ds.set_str(TAG_RESCALE_SLOPE, "1", b"DS")
     ds.set_bytes(TAG_PIXEL_DATA, pixels.astype(np.uint16).tobytes(), b"OW")
     return ds

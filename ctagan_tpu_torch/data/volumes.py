@@ -15,7 +15,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ctagan_tpu_torch.data.datasets import _read_list
-from ctagan_tpu_torch.data.dicom import TAG_SLICE_LOCATION, read_dicom
+from ctagan_tpu_torch.data.dicom import read_dicom
 from ctagan_tpu_torch.data.native import (
     dual_window_native,
     resize_nearest_native,
@@ -42,7 +42,7 @@ class VolumePatchDataset:
         by_series: Dict[str, List[Tuple[float, str]]] = {}
         for p in _read_list(list_file):
             try:
-                loc = read_dicom(p).get_ds1(TAG_SLICE_LOCATION) or 0.0
+                loc = read_dicom(p).slice_location or 0.0
             except Exception:  # an unreadable file is left out, as in JAX
                 continue
             by_series.setdefault(os.path.dirname(p), []).append((loc, p))

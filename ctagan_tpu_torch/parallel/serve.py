@@ -23,12 +23,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ctagan_tpu_torch.data.dicom import (
-    TAG_SLICE_LOCATION,
-    generate_uid,
-    read_dicom,
-    write_dicom,
-)
+from ctagan_tpu_torch.data.dicom import generate_uid, read_dicom, write_dicom
 from ctagan_tpu_torch.data.native import (
     dual_window_native,
     resize_nearest_native,
@@ -47,7 +42,7 @@ def load_series_fullrange(series_dir: str, size: Optional[int] = None
             continue
         path = os.path.join(series_dir, f)
         ds = read_dicom(path)
-        entries.append((ds.get_ds1(TAG_SLICE_LOCATION) or 0.0, path, ds))
+        entries.append((ds.slice_location or 0.0, path, ds))
     entries.sort(key=lambda t: t[0])
     slices = []
     for _, _, ds in entries:
