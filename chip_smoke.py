@@ -185,9 +185,37 @@ card, ``nvcc`` and no network, and imports nothing of JAX. Phases:
    without JAX on that tree plus three seeded 6-slice patients, then
    ``--stats`` and ``--equip-split`` on its lists: every listed path and
    its SE1 partner exist, no patient in two lists, ``--stats``' slices
-   the listed count.
+   the listed count;
+18. ``dp``, a main path: the data-parallel plan (``parallel/mesh.py``,
+   ``parallel/dist.py``) on ``configs/HdGan.yaml``'s stage 1 at full width,
+   512², f32, TF32 off, on the kernel route, through ``__main__``'s
+   ``train()`` and ``test()``. (a) 6 steps in a process group of one under
+   NCCL: every gradient all-reduce returns its input bit for bit, 36 K1,
+   18 K4 and 18 K5 a step, and the weights equal those of the same 6 steps
+   without a group (bit for bit where two runs without a group are; else
+   as (b) holds them); (b) two ranks on the one card under gloo, started
+   by ``torchrun`` as this script with ``--dp-worker``: 4 steps at a
+   global batch of 2, G, R and D bit-identical across the ranks after
+   every step; step 1's gradient and the weights after 4 steps against
+   one process's 4 steps on the same global batch at ``grad_accum: 2``
+   (the ranks' forwards and backwards, summed on one card), bit-equal
+   where a repeat of that run is, else within the grad phase's form
+   (GRAD_RATIO × the repeat's distance + GRAD_TOL); each rank's launches,
+   its p50 step, all-reduce ms a step (CUDA events), bytes reduced (the
+   G, R and D gradients and 5 losses, checked) and peak memory; (c)
+   test() of 48 slices at ``eval_batch`` 2 over the two ranks against one
+   process at ``eval_batch`` 1, on two routes: the plain route with
+   cuDNN's deterministic algorithms (the 8 metrics within 1e-6, the SE2
+   trees file for file and pixel for pixel), and the default training
+   route with cuDNN's defaults, the body through K1 (launched 18 times a
+   forward on each rank): each metric within GRAD_RATIO × its distance in
+   a repeat of the one process + 3e-5 (relative beyond 1), SE2 pixels
+   within 1 stored unit. On a machine with several cards (b)
+   and (c) run a rank a card under NCCL, and (d) ``python -m
+   ctagan_tpu_torch --mode train``, which starts a rank a card itself
+   through torchrun: one checkpoint, one row of each CSV.
 
-The launch counts of the eleven main paths (each counted from zero) are the
+The launch counts of the twelve main paths (each counted from zero) are the
 ``launches`` of the kernels line. ``--phases a,b`` runs a subset and stops
 before the result lines; ``--cases K2,K3`` keeps only the kernel phase's
 cases and timing lines of those kernels (and stops there too). Any failure
@@ -202,6 +230,7 @@ import json
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -373,9 +402,40 @@ P3D_LOSS_KEYS = ["loss_G", "loss_L1", "loss_GAN_A2B", "loss_D_B"]
 CORPUS_A_SHAPE, CORPUS_PHI_TOL = (16, 128, 128), 1e-3
 CORPUS_SLICES, CORPUS_SIZE, CORPUS_CUT = 128, 512, 4.0
 CORPUS_EXTRA, CORPUS_EXTRA_SLICES = 3, 6
+# the dp phase: configs/HdGan.yaml's stage 1 (full width, 512², f32, TF32
+# off, kernel route) on a seeded corpus of DP_PATIENTS patients of DP_SLICES
+# slices, trained on the first patient's: (a) DP_W1_STEPS steps in a group
+# of one under NCCL against the same steps without a group (bit-equal where
+# two runs without a group are; the kernels' stats and weight gradients
+# and grid_sample's backward sum with float atomics); (b) DP_STEPS steps of
+# DP_WORLD gloo ranks sharing the card at a global batch of DP_WORLD
+# against one process at batchSize DP_WORLD and grad_accum DP_WORLD,
+# bit-equal where a repeat of that run is (two ranks: two gradients sum
+# to the same bits in either order), else held as the grad phase holds a
+# route (GRAD_RATIO, GRAD_TOL); (c) test() of every slice at eval_batch
+# DP_WORLD over the ranks against one process at eval_batch 1 (each rank
+# then forwards a slice at a time, as the one process does): on the plain
+# route (cuDNN deterministic) the 8 metrics within DP_METRIC_TOL (relative
+# beyond 1) and the SE2 trees file for file and pixel for pixel; on the
+# kernel route (cuDNN's defaults) each metric within GRAD_RATIO × its
+# distance in a repeat of the one process + DP_KERNEL_METRIC_TOL, the SE2
+# pixels within DP_KERNEL_PIXELS stored units. There K1 sums its
+# statistics with float atomics, so a fake pixel can cross the 0.3
+# threshold of the fake's own mask (evaluation.py::_masked_views), which
+# moves that slice's window metrics by a step: in the H100 runs the
+# aggregate PSNRw of two ranks stood 1.3e-5 from one process's (in two
+# calls) while one process's repeats stood 6e-8 apart. DP_KERNEL_METRIC_TOL
+# leaves room for about ten such steps; a wrong slice, row or window moves
+# a metric by far more, and the pixel bound holds every fake. On a machine
+# with several cards (b) and (c) run over every card under NCCL, a rank
+# each, in place of DP_WORLD gloo ranks on one card
+DP_PATIENTS, DP_SLICES = 4, 12
+DP_W1_STEPS, DP_STEPS, DP_WORLD = 6, 4, 2
+DP_METRIC_TOL = 1e-6
+DP_KERNEL_METRIC_TOL, DP_KERNEL_PIXELS = 3e-5, 1
 ALL_PHASES = ("kernels", "generator", "int8", "grad", "serving",
               "int8_serving", "training", "test", "stage2", "families",
-              "infer", "export", "figures", "loop", "p3d", "corpus")
+              "infer", "export", "figures", "loop", "p3d", "corpus", "dp")
 
 
 def fail(msg):
@@ -3119,6 +3179,528 @@ def check_corpus(torch, card):
     return counts
 
 
+# -- the dp phase --------------------------------------------------------------
+
+def _hd_weights(trainer):
+    """G's, R's and D's weights on the host, by net."""
+    return {net: {k: v.detach().cpu().clone()
+                  for k, v in getattr(trainer, attr).state_dict().items()}
+            for net, attr in (("G", "g_model"), ("R", "r_model"),
+                              ("D", "d_model"))}
+
+
+def _hd_digest(trainer):
+    """G's, R's and D's weights as one number, reduced on the device (no
+    copy to the host inside the timed step): each tensor's bit patterns as
+    int64, weighted by their position and summed, one pull for all. A
+    changed bit anywhere changes it, barring a coincidence."""
+    import torch
+
+    sums = []
+    for attr in ("g_model", "r_model", "d_model"):
+        for v in getattr(trainer, attr).state_dict().values():
+            bits = v.detach().reshape(-1).view(torch.int32).long()
+            pos = torch.arange(1, bits.numel() + 1, device=bits.device)
+            sums.append((bits * pos).sum())
+    total = 0
+    for x in torch.stack(sums).tolist():
+        total = total * 1000003 + x
+    return total % (1 << 64)
+
+
+def _hd_first_moments(trainer):
+    """Adam's first moment of each parameter, by net (after the run)."""
+    st = trainer.state
+    return {net: {k: opt.state[p]["exp_avg"].detach().cpu().clone()
+                  for k, p in getattr(trainer, attr).named_parameters()}
+            for net, attr, opt in (("G", "g_model", st.g_opt),
+                                   ("R", "r_model", st.r_opt),
+                                   ("D", "d_model", st.d_opt))}
+
+
+def _dp_held(got, want, ref):
+    """``got`` against ``want`` (weights or first moments, by net), as the
+    grad phase holds a route: by net, ||got − want|| <= GRAD_RATIO ·
+    ||ref − want|| + GRAD_TOL · ||want|| (Frobenius over the net), ``ref``
+    a repeat of ``want``'s run: the card's float atomics, which f32
+    training amplifies (the one-pass InstanceNorm variance, Adam's steps
+    of ±lr on the conv biases before an InstanceNorm, whose gradient is
+    rounding alone), set that distance. Returns ({net: (||got − want||,
+    ||ref − want||, ||want||)}, held)."""
+    out, held = {}, True
+    for net, ws in want.items():
+        d_got = d_ref = norm = 0.0
+        for k, w in ws.items():
+            w = w.double()
+            d_got += float((got[net][k].double() - w).norm()) ** 2
+            d_ref += float((ref[net][k].double() - w).norm()) ** 2
+            norm += float(w.norm()) ** 2
+        d_got, d_ref, norm = d_got ** 0.5, d_ref ** 0.5, norm ** 0.5
+        out[net] = (d_got, d_ref, norm)
+        held = held and d_got <= GRAD_RATIO * d_ref + GRAD_TOL * norm
+    return out, held
+
+
+def _dp_line(dists):
+    return "; ".join(f"{net} {g:.3e} (repeat {r:.3e}, norm {n:.3e})"
+                     for net, (g, r, n) in dists.items())
+
+
+def _dp_run(torch, config, dev, steps, group=False):
+    """``__main__.train`` for ``steps`` steps, the counts from 0; with
+    ``group``, in a process group of one under NCCL (torchrun's env set in
+    this process for the call), every gradient all-reduce checked to return
+    its input bit for bit. Returns a dict: the weights and first moments
+    after the run (``w``, ``mu``) and after step 1 (``w1``, ``mu1``), the
+    counts, the p50 step, the losses, the all-reduce checks."""
+    from ctagan_tpu_torch.__main__ import train
+    from ctagan_tpu_torch.parallel import dist
+    from ctagan_tpu_torch.train import trainers
+
+    with socket.socket() as s:  # a free port for the group's store
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+    reduce, step = dist.all_reduce_mean_, trainers.HdTrainerStage1._step
+    out = {"checks": []}
+
+    def checked(tensors):
+        before = [t.clone() for t in tensors]
+        reduce(tensors)
+        if dist.initialized():
+            out["checks"].append(all(torch.equal(a, b)
+                                      for a, b in zip(before, tensors)))
+
+    def spy(self, batch, lr, lr_d):
+        res = step(self, batch, lr, lr_d)
+        if "w1" not in out:
+            out.update(w1=_hd_weights(self), mu1=_hd_first_moments(self))
+        return res
+
+    if group:
+        os.environ.update(env)
+        dev = dist.init(dev)
+        if dist.world() != 1 or dist.rank() != 0:
+            fail(f"dp: a group of one came up as {dist.world()} ranks")
+    dist.all_reduce_mean_, trainers.HdTrainerStage1._step = checked, spy
+    try:
+        reset_counts()
+        trainer = train(config, dev, max_steps=steps)
+        torch.cuda.synchronize()
+        out["counts"] = launch_counts()
+    finally:
+        dist.all_reduce_mean_, trainers.HdTrainerStage1._step = reduce, step
+        if group:
+            dist.shutdown()
+            for k in env:
+                os.environ.pop(k, None)
+    out.update(w=_hd_weights(trainer), mu=_hd_first_moments(trainer),
+               p50=trainer.timer.summary(skip=1)["p50_ms"],
+               losses=trainer.loss_history)
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_worker(torch, tmp):
+    """One rank of the dp phase's world (two gloo ranks on one card; on a
+    machine with several cards a rank a card under NCCL): DP_STEPS steps of
+    ``tmp``/dp_train.yaml, a digest of G, R and D after
+    every step, each all-reduce timed by CUDA events, then test() of
+    ``tmp``/dp_test.yaml (the plain route) and of ``tmp``/dp_test_k.yaml
+    (the kernel route); results in ``tmp``/dp_rank<r>.json (rank 0's
+    weights in dp_rank0.pt)."""
+    import torch.distributed as tdist
+
+    from ctagan_tpu_torch.__main__ import test as run_test
+    from ctagan_tpu_torch.__main__ import train
+    from ctagan_tpu_torch.parallel import dist
+    from ctagan_tpu_torch.train import trainers
+    from ctagan_tpu_torch.utils.config import load_config
+
+    marks = [time.time()]  # entry, the group, the go, the steps, test()
+    dev = (dist.init(torch.device("cuda")) if torch.cuda.device_count() > 1
+           else dist.init(torch.device("cuda", 0), backend="gloo"))
+    marks.append(time.time())
+    while not os.path.exists(os.path.join(tmp, "dp_go")):  # (a) runs
+        time.sleep(0.05)
+    marks.append(time.time())
+    rank = dist.rank()
+    digests, reduces = [], []
+    all_reduce = tdist.all_reduce
+
+    def timed(t, *args, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        h0 = time.perf_counter()
+        ev[0].record()
+        res = all_reduce(t, *args, **kw)
+        ev[1].record()
+        reduces.append((len(digests), ev, t.numel() * t.element_size(),
+                        time.perf_counter() - h0))
+        return res
+
+    step = trainers.HdTrainerStage1._step
+
+    first = {}
+
+    def spy(self, batch, lr, lr_d):
+        out = step(self, batch, lr, lr_d)
+        digests.append(_hd_digest(self))
+        if not first:
+            first.update(w1=_hd_weights(self), mu1=_hd_first_moments(self))
+        return out
+
+    tdist.all_reduce, trainers.HdTrainerStage1._step = timed, spy
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        reset_counts()
+        trainer = train(load_config(os.path.join(tmp, "dp_train.yaml")), dev,
+                        max_steps=DP_STEPS)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    finally:
+        tdist.all_reduce, trainers.HdTrainerStage1._step = all_reduce, step
+    marks.append(time.time())
+    peak = torch.cuda.max_memory_allocated(dev)
+    per_step = [{"ms": 0.0, "host_ms": 0.0, "bytes": 0}
+                for _ in range(DP_STEPS)]
+    for i, ev, nbytes, host_s in reduces:
+        per_step[i]["ms"] += ev[0].elapsed_time(ev[1])
+        per_step[i]["host_ms"] += host_s * 1e3
+        per_step[i]["bytes"] += nbytes
+    if rank == 0:
+        torch.save(dict(first, w=_hd_weights(trainer)),
+                   os.path.join(tmp, "dp_rank0.pt"))
+    res = {"digests": digests, "losses": trainer.loss_history,
+           "counts": counts, "reduce": per_step, "peak": peak,
+           "p50_ms": trainer.timer.summary(skip=1)["p50_ms"]}
+    del trainer
+    torch.cuda.empty_cache()
+    reset_counts()
+    torch.backends.cudnn.deterministic = True  # as the one process's test()
+    _, agg, secs = run_test(load_config(os.path.join(tmp, "dp_test.yaml")),
+                            dev)
+    torch.cuda.synchronize()
+    res.update(test_counts=launch_counts(), agg=agg, test_s=secs)
+    reset_counts()
+    torch.backends.cudnn.deterministic = False
+    _, agg, secs = run_test(load_config(os.path.join(tmp,
+                                                     "dp_test_k.yaml")), dev)
+    torch.cuda.synchronize()
+    marks.append(time.time())
+    res.update(test_k_counts=launch_counts(), agg_k=agg, test_k_s=secs,
+               marks=marks)
+    with open(os.path.join(tmp, f"dp_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.shutdown()
+    return 0
+
+
+def check_dp_group_of_one(torch, config, dev, t_corpus, card):
+    """(a): DP_W1_STEPS steps in a process group of one under NCCL against
+    the same steps without a group, twice. Returns the group's counts and
+    the p50 step of the first run without a group."""
+    t0 = time.perf_counter()
+    a, b, c = (_dp_run(torch, config, dev, DP_W1_STEPS, group=g)
+               for g in (False, True, False))
+    t_a = time.perf_counter() - t0
+    repeat = all(torch.equal(c["w"][n][k], v)
+                 for n in a["w"] for k, v in a["w"][n].items())
+    equal = all(torch.equal(b["w"][n][k], v)
+                for n in a["w"] for k, v in a["w"][n].items())
+    dist_b, ok_b = _dp_held(b["w"], a["w"], c["w"])
+    counts, checks = b["counts"], b["checks"]
+    expect = {k: v * DP_W1_STEPS for k, v in PER_TRAIN_STEP.items()}
+    print(f"dp (a) HdGan.yaml 512^2 b=1 f32 kernel route (cuDNN TF32 "
+          f"off), {DP_W1_STEPS} steps in a group of one under NCCL: "
+          f"{len(checks)} gradient all-reduces, each returning its input "
+          f"bit for bit {all(checks)}; weights bit-equal to the run "
+          f"without a group {equal} (two runs without a group bit-equal "
+          f"{repeat}); group vs none by net: {_dp_line(dist_b)}; losses "
+          f"step 1 {b['losses'][0]} vs {a['losses'][0]}; launches "
+          f"{counts} (expected {expect}); the corpus {t_corpus:.1f} s, "
+          f"the three runs {t_a:.1f} s [{card}]", flush=True)
+    if len(checks) != 2 * DP_W1_STEPS or not all(checks):
+        fail(f"dp (a): the all-reduces of a group of one {checks}")
+    if counts != expect:
+        fail(f"dp (a) launches {counts}, expected {expect}")
+    if (repeat and not equal) or not ok_b:
+        fail("dp (a): a group of one moved the weights off the run "
+             "without a group")
+    return counts, a["p50"]
+
+
+def check_dp(torch, card):
+    """Phase 18, a main path: the data-parallel plan on HD stage 1 through
+    the entry points' ``train()`` and ``test()``: (a) a group of one under
+    NCCL against no group; (b) two gloo ranks on the one card against one
+    process on the same global batch; (c) test() over the two ranks against
+    one process."""
+    import numpy as np
+
+    from ctagan_tpu_torch.__main__ import test as run_test
+    from ctagan_tpu_torch.data.fixtures import make_corpus
+    from ctagan_tpu_torch.models import Discriminator, Generator, RegNet
+    from ctagan_tpu_torch.parallel import dist
+    from ctagan_tpu_torch.utils.config import load_config
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        lists = make_corpus(tmp, n_patients=DP_PATIENTS,
+                            slices_per_patient=DP_SLICES, size=512, seed=0,
+                            lists=("train",))
+        paths = _read_list(lists["train"])
+        lists = {"train": _write_list(os.path.join(tmp, "patient0.txt"),
+                                      paths[:DP_SLICES]),
+                 "val": lists["train"], "test": lists["train"]}
+
+        def yaml(name, extra=""):
+            path = _smoke_config(tmp, lists, f"save_root: '{tmp}/{name}/'\n"
+                                 f"image_save: '{tmp}/{name}_img/'\n" + extra)
+            shutil.move(path, os.path.join(tmp, f"{name}.yaml"))
+            return os.path.join(tmp, f"{name}.yaml")
+
+        # (b) two gloo ranks on the one card (several cards: a rank a card
+        # under NCCL), and (c) their test(); the ranks start (their imports
+        # and group) while (a) runs, and wait for dp_go before their steps
+        nccl = torch.cuda.device_count() > 1
+        world = torch.cuda.device_count() if nccl else DP_WORLD
+        how = "a card each (NCCL)" if nccl else "on one card (gloo)"
+        yaml("dp_train")
+        # test() on the plain route with cuDNN's deterministic algorithms
+        # (dp_worker sets them too): the same bits run to run; and on the
+        # default kernel route, held as DP_KERNEL_METRIC_TOL says
+        plain = "fused_body_grad: off\n"
+        yaml("dp_test", plain + f"eval_batch: {world}\n")
+        yaml("dp_test_k", f"eval_batch: {world}\n")
+        t_corpus, t_wall = time.perf_counter() - t0, time.time()
+        ranks_proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             f"--nproc-per-node={world}", os.path.abspath(__file__),
+             "--dp-worker", tmp])
+        try:
+            # (a) a group of one under NCCL against no group, twice
+            counts, p50_w1 = check_dp_group_of_one(
+                torch, load_config(yaml("dp_a")), dev, t_corpus, card)
+            open(os.path.join(tmp, "dp_go"), "w").close()
+            t0 = time.perf_counter()
+            rc = ranks_proc.wait()
+        finally:
+            if ranks_proc.poll() is None:
+                ranks_proc.terminate()
+                ranks_proc.wait()
+        w2_s = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"dp: a rank exited {rc}")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"dp_rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        r0 = torch.load(os.path.join(tmp, "dp_rank0.pt"))
+        # one process on the same global batch, a slice at a time: the same
+        # forwards and backwards as the ranks', the two gradients summed on
+        # one card (f32 training amplifies any other order past GRAD_TOL:
+        # the one-pass InstanceNorm variance), twice, for the card's
+        # run-to-run distance
+        cfg_one = load_config(yaml(
+            "dp_one", f"batchSize: {world}\ngrad_accum: {world}\n"))
+        one, one2 = (_dp_run(torch, cfg_one, dev, DP_STEPS) for _ in "12")
+        # step 1's global-batch gradient (Adam's first moment, a half of
+        # it), then the weights after DP_STEPS steps
+        grad_2, ok_g = _dp_held(r0["mu1"], one["mu1"], one2["mu1"])
+        dist_2, ok_2 = _dp_held(r0["w"], one["w"], one2["w"])
+        exact, repeat = (all(torch.equal(w[n][k], v) for n in one["w"]
+                             for k, v in one["w"][n].items())
+                         for w in (r0["w"], one2["w"]))
+        n_params = sum(sum(p.numel() for p in m.parameters())
+                       for m in (Generator(1, 1), RegNet(), Discriminator()))
+        # every gradient in f32, and the step's 4 G-phase and 1 D-phase
+        # loss values
+        want_bytes = 4 * n_params + 4 * 5
+        expect = {k: v * DP_STEPS for k, v in PER_TRAIN_STEP.items()}
+        for r, res in enumerate(ranks):
+            steps_ = res["reduce"]
+            print(f"dp (b) rank {r} of {world} {how}: "
+                  f"{DP_STEPS} steps at batchSize 1 (global batch "
+                  f"{world}), p50 step {res['p50_ms']:.1f} ms (world 1 "
+                  f"{p50_w1:.1f} ms); all-reduce per step "
+                  + ", ".join(f"{s['ms']:.2f} ms (host {s['host_ms']:.2f})"
+                              for s in steps_)
+                  + f" of {steps_[0]['bytes']} bytes (G + R + D gradients "
+                  f"and 5 losses: {want_bytes}); peak memory "
+                  f"{res['peak'] / 2**30:.3f} GiB; launches "
+                  f"{res['counts']} (expected {expect}); losses "
+                  f"{res['losses']}; seconds from the launch to the rank's "
+                  f"start, group, go (after (a)), steps and test() done "
+                  f"{[round(m - t_wall, 1) for m in res['marks']]} "
+                  f"[{card}]", flush=True)
+            if res["counts"] != expect:
+                fail(f"dp (b): rank {r} launches {res['counts']}")
+            if any(s["bytes"] != want_bytes for s in steps_):
+                fail(f"dp (b): rank {r} reduced {steps_}, expected "
+                     f"{want_bytes} bytes a step")
+        same = [len(set(d)) == 1
+                for d in zip(*(res["digests"] for res in ranks))]
+        loss_one = one["losses"]
+        first = [abs(ranks[0]["losses"][0][k] - loss_one[0][k])
+                 / max(abs(loss_one[0][k]), 1e-12) for k in loss_one[0]]
+        print(f"dp (b): the ranks' G, R and D bit-identical after each step "
+              f"{same}; rank 0 bit-equal to one process at batchSize "
+              f"{world} and grad_accum {world} after {DP_STEPS} steps "
+              f"{exact} (two runs of it "
+              f"bit-equal {repeat}); against it "
+              f"(||rank 0 - one||, ||a repeat of one - one||, ||one||; tol "
+              f"{GRAD_RATIO} x repeat + {GRAD_TOL} x norm): step 1's "
+              f"gradient by net {_dp_line(grad_2)}; the weights after "
+              f"{DP_STEPS} steps by net {_dp_line(dist_2)}; first-step losses "
+              f"{ranks[0]['losses'][0]} vs {loss_one[0]} (largest relative "
+              f"{max(first):.2e}); one process's p50 {one['p50']:.1f} ms, "
+              f"launches {one['counts']}; the world's wall from the go "
+              f"{w2_s:.1f} s "
+              f"[{card}]", flush=True)
+        if len(same) != DP_STEPS or not all(same):
+            fail(f"dp (b): the ranks' weights differ after a step {same}")
+        # two gradients sum to the same bits in either order; more do not
+        if (repeat and not exact and world == 2) or not (ok_g and ok_2) \
+                or max(first) > FAMILY_ROUTE_TOL:
+            fail("dp (b): two ranks moved off one process's steps")
+
+        # (c) one process's test() at a slice a forward, as each rank's
+        reset_counts()
+        torch.backends.cudnn.deterministic = True
+        try:
+            _, agg1, secs1 = run_test(
+                load_config(yaml("dp_one_test", plain)), dev)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic = False
+        counts1 = launch_counts()
+        tree1 = _read_se2_tree(f"{tmp}/dp_one_test_img", paths)
+        tree2 = _read_se2_tree(f"{tmp}/dp_test_img", paths)
+        px = max(int(np.abs(tree2[n] - tree1[n]).max()) for n in tree1)
+        moved = sum(int((tree2[n] != tree1[n]).sum()) for n in tree1)
+        errs = {k: abs(ranks[0]["agg"][k] - agg1[k]) for k in agg1}
+        half = len(paths) // world
+        print(f"dp (c) test() of {len(paths)} slices on the plain route at "
+              f"eval_batch {world} over {world} ranks "
+              f"({ranks[0]['test_s']:.2f} "
+              f"s, {half} forwards a rank; launches "
+              f"{[res['test_counts'] for res in ranks]}) vs one process at "
+              f"eval_batch 1 ({secs1:.2f} s): metric distances {errs} (tol "
+              f"{DP_METRIC_TOL}); SE2 trees of {len(tree1)} files, largest "
+              f"pixel distance {px} stored units, {moved} pixels moved "
+              f"[{card}]", flush=True)
+        if any(res["test_counts"] != counts_of() for res in ranks) or \
+                counts1 != counts_of():
+            fail("dp (c): the plain route's test() launched a kernel")
+        if any(res["agg"] != ranks[0]["agg"] for res in ranks):
+            fail("dp (c): the ranks' aggregates differ")
+        if any(e > DP_METRIC_TOL * max(1.0, abs(agg1[k]))
+               for k, e in errs.items()) or sorted(tree1) != sorted(tree2) \
+                or px:
+            fail("dp (c): test() over two ranks differs from one process")
+        check_dp_kernel_test(torch, dev, ranks, yaml, paths, world, tmp,
+                             card)
+        if nccl:
+            _dp_launcher(tmp, lists, world, card)
+    return counts
+
+
+def check_dp_kernel_test(torch, dev, ranks, yaml, paths, world, tmp, card):
+    """(c) on the default training route (the body through K1) with
+    cuDNN's defaults: the ranks' test() at eval_batch ``world`` against
+    one process's at eval_batch 1 and a repeat of it (without the
+    writeback), each metric within GRAD_RATIO × the repeat's distance +
+    DP_KERNEL_METRIC_TOL (relative beyond 1), the SE2 pixels within
+    DP_KERNEL_PIXELS."""
+    import math
+
+    import numpy as np
+
+    from ctagan_tpu_torch.__main__ import test as run_test
+    from ctagan_tpu_torch.utils.config import load_config
+
+    config = load_config(yaml("dp_one_test_k", ""))
+    reset_counts()
+    _, one, secs1 = run_test(config, dev)
+    torch.cuda.synchronize()
+    counts1 = launch_counts()
+    _, repeat, _ = run_test(config, dev, write_dicom=False)
+    tree1 = _read_se2_tree(f"{tmp}/dp_one_test_k_img", paths)
+    tree2 = _read_se2_tree(f"{tmp}/dp_test_k_img", paths)
+    px = max(int(np.abs(tree2[n] - tree1[n]).max()) for n in tree1)
+    moved = sum(int((tree2[n] != tree1[n]).sum()) for n in tree1)
+    errs = {k: abs(ranks[0]["agg_k"][k] - v) for k, v in one.items()}
+    noise = {k: abs(repeat[k] - v) for k, v in one.items()}
+    limit = {k: GRAD_RATIO * noise[k]
+             + DP_KERNEL_METRIC_TOL * max(1.0, abs(v))
+             for k, v in one.items()}
+    forwards = math.ceil(len(paths) / world)
+    want = counts_of(conv3x3_reflect_stats=18 * forwards)
+    print(f"dp (c) test() of {len(paths)} slices on the kernel route "
+          f"(fused_body_grad auto: the body through K1; cuDNN's "
+          f"defaults) at eval_batch {world} over {world} ranks "
+          f"({ranks[0]['test_k_s']:.2f} s; launches "
+          f"{[res['test_k_counts'] for res in ranks]}, expected {want}) vs "
+          f"one process at eval_batch 1 ({secs1:.2f} s; launches "
+          f"{counts1}): metric distances {errs}; a repeat of the one "
+          f"process, its distances {noise}; limits {limit}; SE2 "
+          f"trees of {len(tree1)} files, largest pixel distance {px} stored "
+          f"units (tol {DP_KERNEL_PIXELS}), {moved} pixels moved [{card}]",
+          flush=True)
+    if any(res["test_k_counts"] != want for res in ranks):
+        fail("dp (c): the kernel route's test() over the ranks launched "
+             f"{[res['test_k_counts'] for res in ranks]}, expected {want}")
+    if any(res["agg_k"] != ranks[0]["agg_k"] for res in ranks):
+        fail("dp (c): the ranks' kernel-route aggregates differ")
+    if sorted(one) != sorted(ranks[0]["agg_k"]) or any(
+            errs[k] > limit[k] for k in one) or \
+            sorted(tree1) != sorted(tree2) or px > DP_KERNEL_PIXELS:
+        fail("dp (c): test() on the kernel route over the ranks differs "
+             "from one process")
+
+
+def _dp_launcher(tmp, lists, world, card):
+    """(d), on a machine with several cards: ``python -m ctagan_tpu_torch
+    --mode train`` in a fresh interpreter starts a rank a card itself
+    through torchrun (``data_parallel``'s default): an epoch cut at 2
+    global batches (``--max-steps 2``) with its validation; one checkpoint,
+    one row of each CSV (rank 0 writes them)."""
+    paths = _read_list(lists["train"])[:2 * world]
+    sub = os.path.join(tmp, "dp_launch")
+    os.makedirs(sub)
+    lst = _write_list(os.path.join(sub, "train.txt"), paths)
+    config = _smoke_config(sub, lst, "n_epochs: 1\ndecay_epoch: 0\n"
+                           "val_every: 1\nlog_every: 1\n")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "ctagan_tpu_torch",
+                          "--config", config, "--mode", "train",
+                          "--max-steps", "2"],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=600)
+    secs = time.perf_counter() - t0
+    model = os.path.join(sub, "model")
+    saved = sorted(os.listdir(model)) if os.path.isdir(model) else []
+    rows = {}
+    for name in ("HdGan_losses.csv", "HdGan_val.csv"):
+        if name in saved:
+            with open(os.path.join(model, name)) as f:
+                rows[name] = len(f.read().splitlines()) - 1
+    pts = [f for f in saved if f.endswith(".pt")]
+    print(f"dp (d) python -m ctagan_tpu_torch --mode train on {world} cards: "
+          f"exit {res.returncode} in {secs:.1f} s; "
+          + " | ".join(ln for ln in res.stdout.splitlines()
+                       if ln.startswith(("mesh plan", "training", "PSNR")))
+          + f"; saved {pts}, CSV rows {rows} [{card}]", flush=True)
+    if res.returncode != 0 or f"{world} ranks, global batch {world}" \
+            not in res.stdout or len(pts) != 1 or rows != {
+                "HdGan_losses.csv": 1, "HdGan_val.csv": 1}:
+        fail(f"dp (d): the launcher's run: {res.stdout[-2000:]} "
+             f"{res.stderr[-3000:]}")
+
+
 def check_tensor_cores(lib_path):
     """K1's, K2's, K3's, K4's and K5's kernels (each instantiation, f32 and
     bf16 I/O) hold HGMMA (wgmma) instructions in the built library's SASS,
@@ -3187,7 +3769,8 @@ MAIN_PATHS = {"serving": check_serving,
               "figures": check_figures,
               "loop": check_loop,
               "p3d": check_p3d,
-              "corpus": check_corpus}
+              "corpus": check_corpus,
+              "dp": check_dp}
 
 
 def main():
@@ -3199,6 +3782,8 @@ def main():
                     help="comma-separated kernels (K1..K7) whose cases and "
                     "timing lines the kernels phase runs (stops before the "
                     "result lines)")
+    ap.add_argument("--dp-worker", default=None, metavar="DIR",
+                    help=argparse.SUPPRESS)  # a rank of the dp phase
     args = ap.parse_args()
     phases = args.phases.split(",")
     cases = args.cases.split(",") if args.cases else None
@@ -3216,6 +3801,8 @@ def main():
     # the plain versions are the oracle: f32 convs and matmuls in full f32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.dp_worker:
+        return dp_worker(torch, args.dp_worker)
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)

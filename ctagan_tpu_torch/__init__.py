@@ -16,7 +16,8 @@ package.
   the eval path (warp, augmentation, losses, resize, windowing, metrics,
   LPIPS).
 - ``ctagan_tpu_torch.parallel`` — whole-series inference (an SE0 series in,
-  an SE2 series out).
+  an SE2 series out) and the data-parallel plan (its process group, the
+  plan a config asks for).
 - ``ctagan_tpu_torch.serving`` — the HTTP synthesis service and the
   exported generator artifact.
 - ``ctagan_tpu_torch.train``   — the HD stage-1 step and trainer (train,

@@ -45,11 +45,24 @@ does: ``--generator-ckpt`` / ``generator_ckpt``, else the newest checkpoint
 of the trainer's prefix in ``save_root``, else seeded weights; its EMA with
 ``ema_decay`` > 0. Every mode runs on the CUDA card unless ``--device cpu``
 is given; with no card and no ``--device`` they stop with an error.
+
+Several cards (the data-parallel plan, ``parallel/mesh.py``): with
+``data_parallel: true`` (the default) and more than one visible card,
+``train`` and ``train_test`` start one rank per card themselves through
+``torchrun`` (``mesh: {dp: N}``: N ranks), after building the kernels
+once, and each rank trains ``batchSize`` rows of every global batch. Under
+``torchrun`` (its env set) the process joins the launcher's group:
+``torchrun --nproc-per-node N -m ctagan_tpu_torch ...``, with ``--device
+cpu`` a gloo group on the CPU. ``infer``, ``figures``, ``export`` and
+``serve`` run in one process, as in JAX. ``--supervise`` wraps the
+launcher, which exits nonzero when a rank does, so the whole world is
+relaunched.
 """
 from __future__ import annotations
 
 import argparse
 import os
+import subprocess
 import sys
 import time
 from typing import Optional, Tuple
@@ -57,7 +70,11 @@ from typing import Optional, Tuple
 import torch
 
 from ctagan_tpu_torch.models import Generator
+from ctagan_tpu_torch.parallel import dist
 from ctagan_tpu_torch.utils.config import Config, load_config
+
+# the modes that run over the ranks of a process group
+_DP_MODES = ("train", "test", "train_test")
 
 
 def _device(name: str | None) -> torch.device:
@@ -89,19 +106,27 @@ def _trainer(config: Config, device: torch.device):
     return trainer
 
 
+def _say(*args) -> None:
+    """print, on rank 0 alone."""
+    if dist.is_host0():
+        print(*args, flush=True)
+
+
 def _train(trainer, max_steps: Optional[int] = None,
            max_steps_per_epoch: Optional[int] = None):
     config, device = trainer.config, trainer.device
-    print(f"training {config.name} ({trainer.title}) at {config.size}^2 on "
-          f"{device}, fused_body_grad {config.fused_body_grad}"
-          + (f", max {max_steps} steps" if max_steps is not None else "")
-          + (f", max {max_steps_per_epoch} steps an epoch"
-             if max_steps_per_epoch is not None else ""),
-          flush=True)
+    n = trainer.plan.batch_scale
+    _say(f"training {config.name} ({trainer.title}) at {config.size}^2 on "
+         f"{device}, fused_body_grad {config.fused_body_grad}"
+         + (f", {n} ranks, global batch {config.batchSize * n}"
+            if n > 1 else "")
+         + (f", max {max_steps} steps" if max_steps is not None else "")
+         + (f", max {max_steps_per_epoch} steps an epoch"
+            if max_steps_per_epoch is not None else ""))
     trainer.train(max_steps=max_steps,
                   max_steps_per_epoch=max_steps_per_epoch)
     s = trainer.timer.summary()
-    if s:
+    if s and dist.is_host0():
         print(f"{trainer.steps_done} steps; over steps 2-{trainer.steps_done}"
               f": p50 {s['p50_ms']:.1f} ms, p90 {s['p90_ms']:.1f} ms, mean "
               f"{s['mean_ms']:.1f} ms per step", flush=True)
@@ -112,15 +137,15 @@ def _test(trainer, write_dicom: bool = True):
     config, device = trainer.config, trainer.device
     route = ("serving route (fused_body)" if config.fused_body else
              f"training route (fused_body_grad {config.fused_body_grad})")
-    print(f"testing {config.name} ({trainer.title}) at {config.size}^2 on "
-          f"{device}, {route}, eval_batch {config.eval_batch}", flush=True)
+    _say(f"testing {config.name} ({trainer.title}) at {config.size}^2 on "
+         f"{device}, {route}, eval_batch {config.eval_batch}")
     t0 = time.perf_counter()
     agg = trainer.test(write_dicom=write_dicom)
     secs = time.perf_counter() - t0
     n = len(trainer.test_dataset)
-    print(f"test: {n} slices in {secs:.2f} s ({n / secs:.2f} slices/s)"
-          + (f"; SE2 series under {config.image_save}" if write_dicom
-             else ""), flush=True)
+    _say(f"test: {n} slices in {secs:.2f} s ({n / secs:.2f} slices/s)"
+         + (f"; SE2 series under {config.image_save}" if write_dicom
+            else ""))
     return trainer, agg, secs
 
 
@@ -231,6 +256,9 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     opts = ap.parse_args(argv)
     if opts.supervise > 0:
+        if dist.launched():
+            ap.error("--supervise relaunches the whole world: run it "
+                     "outside torchrun")
         return _supervise(argv, opts.supervise)
     if opts.mode == "infer" and not opts.series:
         ap.error("--mode infer requires --series <SE0 dir>")
@@ -242,6 +270,49 @@ def main(argv=None) -> int:
         config.resume = True
     config.generator_ckpt = opts.generator_ckpt or config.generator_ckpt
     device = _device(opts.device)
+    if dist.launched():
+        if opts.mode not in _DP_MODES:
+            if int(os.environ["WORLD_SIZE"]) > 1:
+                raise SystemExit(f"--mode {opts.mode} runs in one process, "
+                                 "not over the ranks of a group")
+        else:
+            device = dist.init(device)
+            try:
+                return _run(opts, config, device)
+            finally:
+                dist.shutdown()
+    elif opts.mode in ("train", "train_test"):
+        n = dp_ranks(config, device, opts.device)
+        if n > 1:
+            from ctagan_tpu_torch.ops import _build
+
+            _build.build()  # once, before the ranks would race on it
+            return subprocess.call([sys.executable, "-m",
+                                    "torch.distributed.run", "--standalone",
+                                    f"--nproc-per-node={n}", "-m",
+                                    "ctagan_tpu_torch", *argv])
+    return _run(opts, config, device)
+
+
+def dp_ranks(config: Config, device: torch.device,
+             device_arg: Optional[str]) -> int:
+    """The ranks ``--mode train`` starts itself outside a launcher: one a
+    visible card under the data-parallel plan (``mesh: {dp: N}``: N, which
+    the cards must hold; else every card with ``data_parallel``), one on the
+    CPU, on a named card or with ``data_parallel: false``."""
+    if device.type != "cuda" or device_arg not in (None, "cuda"):
+        return 1
+    cards = torch.cuda.device_count()
+    if config.mesh:
+        n = int(config.mesh.get("dp", 1))
+        if n > cards:
+            raise SystemExit(f"mesh {config.mesh} needs {n} devices, have "
+                             f"{cards}")
+        return n
+    return cards if config.data_parallel else 1
+
+
+def _run(opts, config: Config, device: torch.device) -> int:
     if opts.mode == "train":
         train(config, device, max_steps_per_epoch=opts.max_steps)
     elif opts.mode == "test":

@@ -59,6 +59,10 @@ class VolumePatchDataset:
                     self._index.append((si, start))
                 if not s or len(s) < depth:
                     self._index.append((si, 0))
+            # each window's A path, as its item carries it
+            self.files_a = [self.series[si][min(start, len(self.series[si])
+                                                - 1)]
+                            for si, start in self._index]
 
     def __len__(self) -> int:
         return len(self._index)
@@ -72,11 +76,22 @@ class VolumePatchDataset:
                       for i in idxs])
         return a[..., None], b[..., None]
 
+    def _train_start(self, index: int) -> Tuple[List[str], int]:
+        """A training item's series and its window start, drawn from the
+        generator (no draw where the series has one window)."""
+        series = self.series[self._index[index % len(self._index)]]
+        hi = max(len(series) - self.depth, 0)
+        return series, int(self.rng.integers(0, hi + 1)) if hi > 0 else 0
+
+    def skip(self, index: int) -> None:
+        """The draws of item ``index`` without its reads: a data-parallel
+        loader skips the other ranks' items so (``data/loader.py``)."""
+        if self.train:
+            self._train_start(index)
+
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
         if self.train:
-            series = self.series[self._index[index % len(self._index)]]
-            hi = max(len(series) - self.depth, 0)
-            start = int(self.rng.integers(0, hi + 1)) if hi > 0 else 0
+            series, start = self._train_start(index)
         else:
             si, start = self._index[index % len(self._index)]
             series = self.series[si]

@@ -1,0 +1,151 @@
+"""The port's process group: the counterpart of ``jax.process_index`` and
+``jax.process_count`` for the data-parallel plan (``parallel/mesh.py``).
+
+A process joins a group only when a launcher has set torchrun's env
+(``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
+``MASTER_PORT``): ``torchrun``, which ``python -m ctagan_tpu_torch --mode
+train`` also starts itself on a host with several cards. Without that env
+the process is world 1 and no group exists, and every helper here is the
+identity. The backend is NCCL when the rank's device is
+a CUDA device and gloo on the CPU; each rank's device is ``cuda:LOCAL_RANK``
+unless the caller names one. The helpers use only ``all_reduce`` and
+``broadcast``, which gloo also runs on CUDA tensors, so an explicit
+``backend="gloo"`` lets several ranks share one card. A group that cannot
+form raises: a rank never carries on as world 1.
+"""
+from __future__ import annotations
+
+import os
+from datetime import timedelta
+from typing import Dict, List, Optional, Sequence
+
+import torch
+import torch.distributed as tdist
+
+_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+# how long a collective waits for the other ranks before it raises
+_TIMEOUT = timedelta(minutes=30)
+# where the group's own small tensors live (set by init): the rank's card
+# under NCCL, the CPU under gloo
+_coll_device: Optional[torch.device] = None
+
+
+def launched() -> bool:
+    """True when a launcher set the env of a group to join."""
+    return "RANK" in os.environ and "WORLD_SIZE" in os.environ
+
+
+def init(device=None, backend: Optional[str] = None
+         ) -> Optional[torch.device]:
+    """Join the launcher's group, if its env names one, and return this
+    rank's device: ``device`` as given, except that a CUDA device without an
+    index becomes ``cuda:LOCAL_RANK``. Without the env nothing is joined and
+    ``device`` comes back unchanged. ``backend``: NCCL for a CUDA device,
+    gloo otherwise, unless named."""
+    global _coll_device
+    if not launched():
+        return device
+    missing = [k for k in _ENV if k not in os.environ]
+    if missing:
+        raise RuntimeError(f"a process group needs {', '.join(_ENV)}; "
+                           f"{', '.join(missing)} unset")
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    local = int(os.environ["LOCAL_RANK"])
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if dev.index is None:
+            dev = torch.device("cuda", local)
+        if (not torch.cuda.is_available()
+                or dev.index >= torch.cuda.device_count()):
+            raise RuntimeError(f"rank {rank}: no CUDA device {dev}")
+        torch.cuda.set_device(dev)
+    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+    if not tdist.is_initialized():
+        kw = {"device_id": dev} if backend == "nccl" else {}
+        tdist.init_process_group(backend, rank=rank, world_size=world,
+                                 timeout=_TIMEOUT, **kw)
+    _coll_device = dev if backend == "nccl" else torch.device("cpu")
+    return dev
+
+
+def initialized() -> bool:
+    return tdist.is_available() and tdist.is_initialized()
+
+
+def rank() -> int:
+    return tdist.get_rank() if initialized() else 0
+
+
+def world() -> int:
+    return tdist.get_world_size() if initialized() else 1
+
+
+def is_host0() -> bool:
+    return rank() == 0
+
+
+def shutdown() -> None:
+    """Leave the group (every rank, at the end of its work)."""
+    global _coll_device
+    if initialized():
+        tdist.destroy_process_group()
+    _coll_device = None
+
+
+def all_reduce_mean_(tensors: Sequence[torch.Tensor]) -> None:
+    """Replace each tensor by its mean over the ranks, in place: one flat
+    buffer per dtype, one ``all_reduce`` SUM each, divided by the world. In
+    a group of one the values come back bit for bit."""
+    if not initialized():
+        return
+    n = world()
+    groups: Dict[tuple, List[torch.Tensor]] = {}
+    for t in tensors:
+        groups.setdefault((t.dtype, t.device), []).append(t)
+    for parts in groups.values():
+        flat = torch.cat([t.reshape(-1) for t in parts])
+        tdist.all_reduce(flat, op=tdist.ReduceOp.SUM)
+        flat.div_(n)
+        for t, chunk in zip(parts, flat.split([t.numel() for t in parts])):
+            t.copy_(chunk.view_as(t))
+
+
+def gather_rows(x: torch.Tensor) -> torch.Tensor:
+    """The global batch of ``x`` (every rank's rows, rank 0's first): an
+    ``all_reduce`` SUM of a zero-filled global buffer in which each rank
+    fills its own rows, so each value is its rank's own. Without a group,
+    ``x`` itself."""
+    if not initialized():
+        return x
+    n, r = x.shape[0], rank()
+    buf = x.new_zeros((n * world(), *x.shape[1:]))
+    buf[r * n:(r + 1) * n] = x
+    tdist.all_reduce(buf, op=tdist.ReduceOp.SUM)
+    return buf
+
+
+def all_reduce_sum_(t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over the ranks, in place (the identity without a
+    group)."""
+    if initialized():
+        tdist.all_reduce(t, op=tdist.ReduceOp.SUM)
+    return t
+
+
+def broadcast_object(obj):
+    """Rank 0's ``obj`` on every rank (picklable; ``obj`` itself without a
+    group), for decisions that every rank must take alike."""
+    if not initialized():
+        return obj
+    box = [obj]
+    tdist.broadcast_object_list(box, src=0, device=_coll_device)
+    return box[0]
+
+
+def barrier() -> None:
+    """Wait for every rank: an ``all_reduce`` of one element."""
+    if initialized():
+        t = torch.zeros(1, device=_coll_device)
+        tdist.all_reduce(t, op=tdist.ReduceOp.SUM)
+        t.item()  # waits for the collective
+

@@ -1,0 +1,106 @@
+"""The parallel plan of the port (``ctagan_tpu/parallel/mesh.py``): which
+plan a config's ``mesh:`` (or ``data_parallel``) asks for, and how a rank
+takes its rows of a global batch.
+
+The data-parallel plan (``dp``) is ported: N ranks of one process group
+(``parallel/dist.py``), one card each, the parameters replicated, each
+rank's ``batchSize`` rows of a global batch of ``batchSize × N``, and the
+gradients mean-reduced over the ranks in the train steps. A rank's rows are
+the block that device ``rank`` holds under JAX's ``P("data")`` sharding of
+the global batch. The model axes (fsdp, tp, sp, depth, pp) are validated as
+in JAX and raise naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict
+
+import numpy as np
+
+MODEL_AXES = ("fsdp", "tp", "sp", "depth", "pp")
+# the ROADMAP item of each model axis
+_ITEMS = {"fsdp": "M12b", "tp": "M12c", "sp": "M12d", "pp": "M12e",
+          "depth": "M12f"}
+
+
+@dataclass(frozen=True)
+class MeshPlan:
+    """``kind`` names the plan (``"dp"``); ``batch_scale`` is how many ways
+    the global batch splits, the number of ranks."""
+
+    kind: str
+    batch_scale: int
+
+    def describe(self) -> str:
+        """JAX's "mesh plan" line."""
+        return (f"mesh plan: {{'data': {self.batch_scale}}} "
+                f"(kind={self.kind}, batch x{self.batch_scale})")
+
+
+def plan_from_spec(spec, world: int) -> MeshPlan:
+    """A plan from a ``config.mesh`` dict (keys dp/fsdp/tp/sp/depth/pp, each
+    an axis extent, default 1) for a group of ``world`` ranks, validated as
+    JAX's: unknown axes, extents below 1 and more than one model axis above
+    1 raise ValueError. A model axis above 1 then raises NotImplementedError
+    naming its ROADMAP item, whatever the world. ``{dp: N}`` (or ``{}``, N =
+    1) needs exactly ``world`` = N ranks: more raise JAX's "needs N
+    devices", fewer that the group is larger than the plan."""
+    spec: Dict[str, int] = dict(spec or {})
+    unknown = set(spec) - {"dp", *MODEL_AXES}
+    if unknown:
+        raise ValueError(f"unknown mesh axes {sorted(unknown)} "
+                         "(have dp, fsdp, tp, sp, depth, pp)")
+    sizes = {k: int(spec.get(k, 1)) for k in ("dp", *MODEL_AXES)}
+    if any(v < 1 for v in sizes.values()):
+        raise ValueError(f"mesh axis extents must be >= 1, got {spec}")
+    model_axes = [k for k in MODEL_AXES if sizes[k] > 1]
+    if len(model_axes) > 1:
+        raise ValueError(
+            f"at most one of fsdp/tp/sp/depth/pp may exceed 1, got {spec} "
+            "(dp composes with any single one)")
+    if model_axes:
+        kind = model_axes[0]
+        raise NotImplementedError(
+            f"mesh {spec}: the {kind} plan is not ported yet (ROADMAP "
+            f"{_ITEMS[kind]}); the port runs the dp plan")
+    dp = sizes["dp"]
+    if dp > world:
+        raise ValueError(f"mesh {spec} needs {dp} devices, have {world}")
+    if dp < world:
+        raise ValueError(
+            f"mesh {spec} trains on {dp} rank(s), but the process group has "
+            f"{world}: launch {dp} (torchrun --nproc-per-node {dp})")
+    return MeshPlan("dp", dp)
+
+
+def shard_rows(n: int, rank: int, world: int) -> slice:
+    """Rank ``rank``'s rows of a global batch of ``n``: the ``rank``-th of
+    ``world`` equal blocks."""
+    if n % world:
+        raise ValueError(f"a batch of {n} does not split over {world} ranks")
+    m = n // world
+    return slice(rank * m, (rank + 1) * m)
+
+
+def shard_batch(batch, rank: int, world: int):
+    """Rank ``rank``'s rows of each entry (arrays, tensors, path lists) of a
+    global batch dict."""
+    return {k: v[shard_rows(len(v), rank, world)] for k, v in batch.items()}
+
+
+def pad_batch_to(batch, target: int):
+    """Pad the leading axis up to ``target`` (repeat last element) so a
+    ragged final batch still shards evenly; returns (padded, valid_count)."""
+    out = {}
+    n = None
+    for k, v in batch.items():
+        if k.endswith("_path"):
+            out[k] = v
+            continue
+        n = v.shape[0]
+        if n < target:
+            reps = np.concatenate([v] + [v[-1:]] * (target - n), axis=0)
+            out[k] = reps
+        else:
+            out[k] = v
+    return out, (n if n is not None else target)

@@ -12,7 +12,7 @@ with ``fused_body``, else the training model's (on the card the body through
 K1), and the EMA with ``ema_decay`` > 0. The 3-D family (``P3d``) runs
 ``Generator3D`` over overlapping windows of ``patch_depth`` slices blended
 along depth (``parallel/volume.py::infer_volume_3d``); JAX's exact
-depth-sharded branch (``infer_depth_sharded: true``) waits for ROADMAP M12
+depth-sharded branch (``infer_depth_sharded: true``) waits for ROADMAP M12f
 and raises.
 """
 from __future__ import annotations
@@ -77,7 +77,7 @@ def infer_series(trainer, series_dir: str, out_root: str,
     if three_d and cfg.infer_depth_sharded:
         raise NotImplementedError(
             "infer_series: infer_depth_sharded (the depth axis halo-sharded "
-            "over a mesh) is not ported yet (ROADMAP M12)")
+            "over a mesh) is not ported yet (ROADMAP M12f)")
     trainer.load_inference_generator()
     t0 = time.perf_counter()
     volume, paths = load_series_fullrange(series_dir, size=cfg.size)

@@ -14,7 +14,7 @@ than the model's resolution.
   by a 2-D Hann window.
 
 JAX's ``infer_volume_depth_sharded`` and the depth-parallel training
-functions wait for ROADMAP M12 (the parallel plans).
+functions wait for ROADMAP M12f (the depth plan).
 """
 from __future__ import annotations
 

@@ -83,27 +83,38 @@ def evaluate_pair(fake_b, real_b, wc: float, ww: float,
 class DicomWriteback:
     """Stateful SE2 writer with the reference's per-patient layout: a new
     patient index ``i`` and SeriesInstanceUID whenever the source series
-    changes (HdTrainer.py:456-476)."""
+    changes (HdTrainer.py:456-476). Several writers (one a data-parallel
+    rank) fill one tree when each is shown every slice in order, writing
+    its own and passing over (:meth:`skip`) the others', and all share
+    ``series_uid_root``: patient ``i``'s series is then
+    ``<series_uid_root>.<i>`` in every writer."""
 
-    def __init__(self, image_save_root: str):
+    def __init__(self, image_save_root: str,
+                 series_uid_root: Optional[str] = None):
         self.root = image_save_root
+        self.uid_root = series_uid_root
         self.current_series = None
         self.patient_idx = 0
         self.series_uid = None
         self.out0 = self.out1 = self.out2 = None
 
-    def write(self, a_path: str, fake_b: np.ndarray) -> None:
+    def skip(self, a_path: str) -> None:
+        """Pass over a slice that another writer writes."""
         series_dir = a_path.split("IM")[0]
         if series_dir != self.current_series:
             self.current_series = series_dir
             self.patient_idx += 1
-            self.series_uid = generate_uid()
+            self.series_uid = (generate_uid() if self.uid_root is None else
+                               f"{self.uid_root}.{self.patient_idx}")
             idx = str(self.patient_idx)
             self.out0 = os.path.join(self.root, "ST0", idx, "SE0")
             self.out1 = os.path.join(self.root, "ST0", idx, "SE1")
             self.out2 = os.path.join(self.root, "ST1", idx, "SE2")
-            for d in (self.out0, self.out1, self.out2):
-                os.makedirs(d, exist_ok=True)
+
+    def write(self, a_path: str, fake_b: np.ndarray) -> None:
+        self.skip(a_path)
+        for d in (self.out0, self.out1, self.out2):
+            os.makedirs(d, exist_ok=True)
 
         name = (a_path.split("SE0/")[-1] if "SE0/" in a_path
                 else os.path.basename(a_path))

@@ -36,6 +36,16 @@ to [−R, R] (``ops/warp.py::warp2d_local``); ``reg_downsample`` > 1 runs R at
 1/ds resolution and upsamples its flow, times ds; ``r1_gamma`` > 0 adds the
 R1 penalty 0.5·γ·E‖∇ₓ D(real)‖² to D's loss (and returns it as
 ``R1_loss``). ``pipeline_1f1b`` is not ported yet and raises.
+
+Data parallelism (``parallel/mesh.py``): in a process group each rank's
+batch is its rows of the global batch. JAX's losses are global-batch means
+and XLA derives the gradient all-reduce; here every gradient is
+mean-reduced over the ranks where :func:`_value_and_grad` returns it, with
+the loss and its terms, so the logged losses are global-batch means too.
+The augmentation draws the global batch's parameters from the state's
+generator, which every rank keeps alike, and takes the rank's rows;
+CycleGAN's replay pools take the global fakes, so each rank holds the one
+pool of one process. Without a group every step is as on one process.
 """
 from __future__ import annotations
 
@@ -55,6 +65,8 @@ from ctagan_tpu_torch.ops.losses import (
 )
 from ctagan_tpu_torch.ops.resize import interpolate_bilinear
 from ctagan_tpu_torch.ops.warp import smoothing_loss, warp2d, warp2d_local
+from ctagan_tpu_torch.parallel import dist
+from ctagan_tpu_torch.parallel.mesh import shard_rows
 from ctagan_tpu_torch.train.replay_buffer import ReplayBuffer, push_and_pop
 
 
@@ -115,7 +127,9 @@ def _value_and_grad(loss_fn: LossFn, params: List[torch.nn.Parameter],
     """(loss, aux, grads) of ``loss_fn(mb) -> (loss, aux)``: with ``n`` > 1
     the means over ``n`` equal microbatches of the batch's leading axis
     (summed in microbatch order, then scaled by 1/n, as JAX's
-    ``_grad_accum_scan``), holding one microbatch's graph at a time."""
+    ``_grad_accum_scan``), holding one microbatch's graph at a time. In a
+    process group all three are then mean-reduced over the ranks, outside
+    autograd, in one collective per dtype."""
     lead = next(iter(batches.values())).shape[0]
     assert lead % n == 0, f"grad_accum={n} must divide the batch ({lead})"
     m = lead // n
@@ -136,17 +150,29 @@ def _value_and_grad(loss_fn: LossFn, params: List[torch.nn.Parameter],
         loss = loss * inv
         aux = {k: v * inv for k, v in aux.items()}
         grads = [g * inv for g in grads]
+    dist.all_reduce_mean_([loss, *aux.values(), *grads])
     return loss, aux, grads
+
+
+def _rank_rows(n: int) -> slice:
+    """This rank's rows of the global batch that every rank's ``n`` rows
+    make."""
+    world = dist.world()
+    return shard_rows(n * world, dist.rank(), world)
 
 
 def _augment(state, cfg, a: torch.Tensor, b: torch.Tensor):
     """A and B through independent affine draws (one shared draw with
-    ``aligned_aug``)."""
+    ``aligned_aug``): the global batch's draws, this rank's rows of them."""
     n, h, w, _ = a.shape
-    noise = cfg["noise_level"]
-    params_a = sample_affine_params(state.gen, n, noise, h, w)
-    params_b = (params_a if cfg.get("aligned_aug", False)
-                else sample_affine_params(state.gen, n, noise, h, w))
+    noise, rows = cfg["noise_level"], _rank_rows(n)
+
+    def draw():
+        return tuple(p[rows] for p in sample_affine_params(
+            state.gen, n * dist.world(), noise, h, w))
+
+    params_a = draw()
+    params_b = params_a if cfg.get("aligned_aug", False) else draw()
     return affine_warp(a, *params_a), affine_warp(b, *params_b)
 
 
@@ -349,9 +375,14 @@ def cyc_train_step(state: CycState, cfg: Dict,
             fakes.update(b=ga(real_a), a=gb(real_b))
     _apply(state.g_opt, g_params, g_grads, lr)
 
-    # the Ds train on the pre-update fakes, through the history pools
-    fake_a_d = push_and_pop(state.fake_a_buffer, fakes["a"], state.gen)
-    fake_b_d = push_and_pop(state.fake_b_buffer, fakes["b"], state.gen)
+    # the Ds train on the pre-update fakes, through the history pools: the
+    # global batch's fakes through one pool, this rank's rows of what it
+    # passes on
+    rows = _rank_rows(real_a.shape[0])
+    fake_a_d = push_and_pop(state.fake_a_buffer, dist.gather_rows(fakes["a"]),
+                            state.gen)[rows]
+    fake_b_d = push_and_pop(state.fake_b_buffer, dist.gather_rows(fakes["b"]),
+                            state.gen)[rows]
 
     def d_update(d_model, opt, real, fake):
         params = list(d_model.parameters())
@@ -435,7 +466,7 @@ def reg_train_step(state: RegState, cfg: Dict, batch: Dict[str, torch.Tensor],
     (``toal_loss`` as spelled there)."""
     if pipeline_1f1b is not None:
         raise NotImplementedError(
-            "reg_train_step: pipeline_1f1b is not ported yet (ROADMAP M12)")
+            "reg_train_step: pipeline_1f1b is not ported yet (ROADMAP M12e)")
     g_model, r_model, d_model = state.g_model, state.r_model, state.d_model
     if dual_window_mode:
         # B2 and B1 warp as channels of one gather with the same parameters

@@ -41,8 +41,22 @@ has no torch counterpart.
 Validation and test run the generator's serving route (K3, K1, K2) with
 ``fused_body``, else the training model's route (on CUDA with
 ``fused_body_grad: auto``, the body through K1), on the same parameters.
-JAX's orbax checkpoints are not read yet (they raise). A ``mesh`` axis
-above 1 raises naming ROADMAP M12.
+JAX's orbax checkpoints are not read yet (they raise).
+
+The data-parallel plan (``parallel/mesh.py``, JAX's default
+``data_parallel: true``, or ``mesh: {dp: N}``) trains over the N ranks of a
+process group (``parallel/dist.py``): each rank feeds its ``batchSize``
+rows of every global batch (``PrefetchLoader.shard``), the steps
+mean-reduce the gradients, and the weights stay alike on every rank. Rank
+0 alone prints and writes the checkpoints, the CSVs, the panels and the
+dashboard; the other ranks wait for each checkpoint. The decisions that
+steer the loop (the resume file, the collapse guard) are rank 0's,
+broadcast, so every rank reaches the same collectives. Validation and
+test() split each eval batch over the ranks when ``eval_batch`` divides
+over them (else rank 0 evaluates alone), gather every slice's metrics to
+every rank, and write each rank's own SE2 slices into the tree one process
+writes. A model axis of ``mesh`` above 1 raises naming its ROADMAP M12
+item.
 """
 from __future__ import annotations
 
@@ -60,7 +74,7 @@ from ctagan_tpu_torch.data.datasets import (
     DualWindowDataset,
     PairedSliceDataset,
 )
-from ctagan_tpu_torch.data.dicom import read_dicom
+from ctagan_tpu_torch.data.dicom import generate_uid, read_dicom
 from ctagan_tpu_torch.data.loader import PrefetchLoader, _collate
 from ctagan_tpu_torch.data.volumes import VolumePatchDataset
 from ctagan_tpu_torch.models import (
@@ -84,6 +98,13 @@ from ctagan_tpu_torch.models.convert import (
     regnet_state_dict,
 )
 from ctagan_tpu_torch.ops.lpips import make_lpips_fn
+from ctagan_tpu_torch.parallel import dist
+from ctagan_tpu_torch.parallel.mesh import (
+    MeshPlan,
+    pad_batch_to,
+    plan_from_spec,
+    shard_batch,
+)
 from ctagan_tpu_torch.train.evaluation import (
     METRIC_KEYS,
     DicomWriteback,
@@ -166,14 +187,13 @@ class TrainerBase:
         if config.context_slices > 1 and self.family != "p2p":
             raise ValueError(
                 "context_slices > 1 is supported by the P2p family only")
-        if any(v > 1 for v in (config.mesh or {}).values()):
-            raise NotImplementedError(
-                f"mesh: {config.mesh} (the parallel plans: dp/fsdp/tp/sp/"
-                "depth/pp) is not ported yet (ROADMAP M12); the port trains "
-                "on one card")
+        self.plan = self._plan(config)
         self.config = config
         self.device = torch.device(device)
-        self.quiet = quiet
+        # rank 0 speaks for the world
+        self.quiet = quiet or not dist.is_host0()
+        if not self.quiet and (config.mesh or self.plan.batch_scale > 1):
+            print(self.plan.describe(), flush=True)
         self.lr = float(config.lr)
         self.lr_d = float(config.lrd)
         self.start_epoch = int(config.epoch)
@@ -191,6 +211,17 @@ class TrainerBase:
         self.timer = StepTimer(self.device)
         if config.resume:
             self._try_resume()
+
+    @staticmethod
+    def _plan(config: Config) -> MeshPlan:
+        """JAX's choice: an explicit ``mesh`` wins; else ``data_parallel``
+        trains over every rank of the process group (one without a
+        group)."""
+        world = dist.world()
+        if config.mesh:
+            return plan_from_spec(config.mesh, world)
+        return plan_from_spec({"dp": world if config.data_parallel else 1},
+                              world)
 
     def _generator(self, seed: int) -> Generator:
         cfg = self.config
@@ -281,16 +312,21 @@ class TrainerBase:
     _loader_threads: Optional[int] = None
 
     def _train_loader(self) -> PrefetchLoader:
+        """``batchSize`` rows a rank of global batches of ``batchSize`` ×
+        the ranks."""
         cfg = self.config
         ds = self._train_dataset()
+        n = self.plan.batch_scale
         loader = PrefetchLoader(ds, batch_size=cfg.batchSize, shuffle=True,
                                 drop_last=True,
                                 num_threads=self._loader_threads or cfg.n_cpu,
-                                rng=self._data_rng)
+                                rng=self._data_rng,
+                                shard=(dist.rank(), n) if n > 1 else None)
         if len(loader) == 0:
             raise ValueError(
-                f"train loader is EMPTY: {len(ds)} samples for batchSize "
-                f"{cfg.batchSize} (drop_last); grow the training list")
+                f"train loader is EMPTY: {len(ds)} samples for a global "
+                f"batch of batchSize {cfg.batchSize} x {n} rank(s) = "
+                f"{cfg.batchSize * n} (drop_last); grow the training list")
         return loader
 
     def _to_device(self, v: np.ndarray) -> torch.Tensor:
@@ -350,22 +386,34 @@ class TrainerBase:
                 getattr(st, name).load_state_dict(state[name])
         st.gen.set_state(state["rng"])
 
-    def _save(self, epoch: int, psnr: Optional[float] = None,
-              ssim_v: Optional[float] = None) -> str:
-        payload = {"state": self._checkpoint_state(), "epoch": epoch,
-                   "lr": self.lr, "lr_d": self.lr_d}
-        return save_checkpoint(self.config.save_root, self.ckpt_prefix, epoch,
-                               payload, psnr, ssim_v)
+    # set by train()'s exception handler: the emergency save waits for no
+    # rank (another may be gone)
+    _emergency = False
 
-    def _try_resume(self) -> None:
-        """Restore the newest readable checkpoint, the port's or JAX's; an
-        unreadable one (torn by a crash mid-write, or a dying disk) is
-        renamed ``.corrupt`` and the next newest is tried. An orbax
-        directory raises (not read yet)."""
+    def _save(self, epoch: int, psnr: Optional[float] = None,
+              ssim_v: Optional[float] = None) -> Optional[str]:
+        """Rank 0 writes the checkpoint (the weights are alike on every
+        rank, so the state is plan-portable, as JAX's ``_canonical_state``
+        makes it) and every rank waits for it; returns its path on rank 0."""
+        path = None
+        if dist.is_host0():
+            payload = {"state": self._checkpoint_state(), "epoch": epoch,
+                       "lr": self.lr, "lr_d": self.lr_d}
+            path = save_checkpoint(self.config.save_root, self.ckpt_prefix,
+                                   epoch, payload, psnr, ssim_v)
+        if not self._emergency:
+            dist.barrier()
+        return path
+
+    def _newest_readable(self):
+        """(path, payload) of the newest readable checkpoint, the port's or
+        JAX's, or None; an unreadable one (torn by a crash mid-write, or a
+        dying disk) is renamed ``.corrupt`` and the next newest is tried. An
+        orbax directory raises (not read yet)."""
         for path, _ in find_checkpoints(self.config.save_root,
                                         self.ckpt_prefix):
             try:
-                payload = load_checkpoint(path)
+                return path, load_checkpoint(path)
             except NotImplementedError:
                 raise
             except Exception as e:  # unreadable: keep it aside, go on
@@ -377,17 +425,25 @@ class TrainerBase:
                 print(f"[resume] checkpoint {path} unreadable ({e}) — "
                       f"quarantined as {quarantined}, trying the next newest",
                       file=sys.stderr, flush=True)
-                continue
-            if is_jax_checkpoint(path):
-                load_jax_state(self.state, payload["state"])
-            else:
-                self._load_state(payload["state"])
-            self.start_epoch = self._current_epoch = int(payload["epoch"])
-            self.lr = float(payload["lr"])
-            self.lr_d = float(payload["lr_d"])
-            if not self.quiet:
-                print(f"resumed from {path} (epoch {self.start_epoch})")
+        return None
+
+    def _try_resume(self) -> None:
+        """Restore the newest readable checkpoint (:meth:`_newest_readable`):
+        rank 0 picks it and every rank reads that file."""
+        found = self._newest_readable() if dist.is_host0() else None
+        path = dist.broadcast_object(found[0] if found else None)
+        if path is None:
             return
+        payload = found[1] if found else load_checkpoint(path)
+        if is_jax_checkpoint(path):
+            load_jax_state(self.state, payload["state"])
+        else:
+            self._load_state(payload["state"])
+        self.start_epoch = self._current_epoch = int(payload["epoch"])
+        self.lr = float(payload["lr"])
+        self.lr_d = float(payload["lr_d"])
+        if not self.quiet:
+            print(f"resumed from {path} (epoch {self.start_epoch})")
 
     def load_generator(self, path: str) -> None:
         """G's weights (and the EMA's) from a reference-format ``.pth`` state
@@ -415,18 +471,16 @@ class TrainerBase:
         when a validation lands ``collapse_drop_db`` below the best of this
         run, the whole train state (nets, optimizers, EMAs, replay pools)
         restores from the best stamped checkpoint and the D lr is multiplied
-        by ``collapse_lrd_backoff``. Returns True when it fired."""
+        by ``collapse_lrd_backoff``. Returns True when it fired. Rank 0
+        decides, and every rank takes its decision and its best."""
         cfg = self.config
-        name = checkpoint_name(self.ckpt_prefix, epoch, psnr_v, ssim_v)
-        if self._best_val is None or psnr_v > self._best_val[0]:
-            self._best_val = (psnr_v, name)
+        best_path = (self._collapse_decision(epoch, psnr_v, ssim_v)
+                     if dist.is_host0() else None)
+        self._best_val, best_path = dist.broadcast_object(
+            (self._best_val, best_path))
+        if best_path is None:
             return False
         best_psnr, best_name = self._best_val
-        if not cfg.collapse_guard or best_psnr - psnr_v < cfg.collapse_drop_db:
-            return False
-        best_path = os.path.join(cfg.save_root, best_name)
-        if not os.path.exists(best_path):
-            return False  # the stamped best was pruned or moved
         self._load_state(load_checkpoint(best_path)["state"])
         self.lr_d = float(self.lr_d) * float(cfg.collapse_lrd_backoff)
         if not self.quiet:
@@ -435,6 +489,23 @@ class TrainerBase:
                   f"restored {best_name}, D lr backed off to {self.lr_d:g}",
                   flush=True)
         return True
+
+    def _collapse_decision(self, epoch: int, psnr_v: float, ssim_v: float
+                           ) -> Optional[str]:
+        """The best-val bookkeeping; the stamped best's path when the guard
+        fires, else None."""
+        cfg = self.config
+        name = checkpoint_name(self.ckpt_prefix, epoch, psnr_v, ssim_v)
+        if self._best_val is None or psnr_v > self._best_val[0]:
+            self._best_val = (psnr_v, name)
+            return None
+        best_psnr, best_name = self._best_val
+        if not cfg.collapse_guard or best_psnr - psnr_v < cfg.collapse_drop_db:
+            return None
+        best_path = os.path.join(cfg.save_root, best_name)
+        if not os.path.exists(best_path):
+            return None  # the stamped best was pruned or moved
+        return best_path
 
     # -- loop ---------------------------------------------------------------
     _watchdog: Optional[Watchdog] = None  # armed by train() (stall_timeout)
@@ -454,7 +525,8 @@ class TrainerBase:
         emergency checkpoint is saved and the exception re-raised."""
         cfg = self.config
         logger = TrainLogger(cfg.name, cfg.total_epochs, 1,
-                             log_dir=cfg.save_root or None,
+                             log_dir=(cfg.save_root or None)
+                             if dist.is_host0() else None,
                              log_every=cfg.log_every, quiet=self.quiet,
                              start_epoch=self.start_epoch)
         self._watchdog = None
@@ -463,12 +535,14 @@ class TrainerBase:
         try:
             self._train_epochs(logger, max_steps, max_steps_per_epoch)
         except (KeyboardInterrupt, Exception):
+            self._emergency = True
             self._save(self._current_epoch)
             if not self.quiet:
                 print(f"\nemergency checkpoint saved at epoch "
                       f"{self._current_epoch}", flush=True)
             raise
         finally:
+            self._emergency = False
             if self._watchdog is not None:
                 self._watchdog.stop()
                 self._watchdog = None
@@ -560,9 +634,10 @@ class TrainerBase:
         it (:func:`panel_uint8`), into ``<name>_latest_panel.png`` and
         ``dashboard.html``. 3-D batches have no panel, as in JAX. Writing
         the panel and the dashboard is best-effort (an error prints
-        "skipped" and training goes on); the forward is not."""
+        "skipped" and training goes on); the forward is not. Rank 0 alone,
+        from its own rows."""
         cfg = self.config
-        if not cfg.save_root:
+        if not cfg.save_root or not dist.is_host0():
             return
         if self.dual_window and "A2" in db:
             a, b = db["A2"], db["B2"]
@@ -588,9 +663,9 @@ class TrainerBase:
         """After a validation: a row of ``<name>_val.csv``, the panel of the
         first val slice (input | synthesized | target, its centre depth
         slice for a 3-D window) and ``dashboard.html``; the writing
-        best-effort as in :meth:`_refresh_live_panel`."""
+        best-effort as in :meth:`_refresh_live_panel`. Rank 0 alone."""
         cfg = self.config
-        if not cfg.save_root:
+        if not cfg.save_root or not dist.is_host0():
             return
         imgs = []
         if len(self.val_dataset):
@@ -664,36 +739,74 @@ class TrainerBase:
         stored = ((fb + 1.0) * 0.5 * 4095.0).to(torch.int16)
         return stored, mat
 
+    def _eval_blocks(self, n_slices: int):
+        """This rank's share of the eval batches of ``eval_batch`` slices,
+        after JAX's ``_eval_put``: over N ranks, when ``eval_batch`` divides
+        over them, its block of every batch (a ragged last batch padded by
+        repeating its last slice, ``pad_batch_to``), else rank 0 every batch
+        whole and the other ranks none; one rank every batch whole. A list
+        of (the batch's first slice, its slices, the block's first row in
+        the batch, its real rows, the block's slice indices)."""
+        k = max(1, int(self.config.eval_batch))
+        world, rank = dist.world(), dist.rank()
+        if k % world:
+            if rank > 0:
+                return []
+            world, rank = 1, 0
+        blocks = []
+        for start in range(0, n_slices, k):
+            n = min(k, n_slices - start)
+            padded, _ = pad_batch_to({"i": np.arange(start, start + n)},
+                                     -(-n // world) * world)
+            rows = shard_batch(padded, rank, world)["i"]
+            lo = rank * len(rows)
+            blocks.append((start, n, lo, max(0, min(len(rows), n - lo)),
+                           rows.tolist()))
+        return blocks
+
+    def _eval_feed(self, dataset, blocks):
+        """The ``blocks`` (:meth:`_eval_blocks`) with their data: this rank
+        decodes its block's slices alone. Yields (the batch's first slice,
+        its A paths, the block's first row, its real rows, its slice
+        indices, the block)."""
+        if not blocks:
+            return
+        rows = [i for *_, idx in blocks for i in idx]
+        loader = PrefetchLoader(torch.utils.data.Subset(dataset, rows),
+                                batch_size=len(blocks[0][4]),
+                                num_threads=self.config.n_cpu)
+        for (start, n, lo, real, idx), block in zip(blocks, loader):
+            yield (start, dataset.files_a[start:start + n], lo, real, idx,
+                   {key: v for key, v in block.items()
+                    if not key.endswith("_path")})
+
+    def _gathered(self, values: torch.Tensor) -> np.ndarray:
+        """(K, N) per-slice values, each filled by the rank that evaluated
+        the slice and zero elsewhere, summed over the ranks: every slice's
+        values on every rank, to be reduced on the host in slice order as
+        one process does."""
+        return dist.all_reduce_sum_(values).cpu().numpy()
+
     def validate(self) -> Tuple[float, float]:
         """Mean masked PSNR and SSIM over the val list. Every batch's values
-        stay queued on the device and are pulled together; the means are
-        summed on the host in slice order."""
-        k = max(1, int(self.config.eval_batch))
-        loader = PrefetchLoader(self.val_dataset, batch_size=k,
-                                num_threads=self.config.n_cpu)
+        stay on the device until one pull at the end; the means are summed
+        on the host in slice order."""
+        vals = torch.zeros(2, len(self.val_dataset), dtype=torch.float64,
+                           device=self.device)
+        ds = self.val_dataset
+        for start, _, lo, real, _, block in self._eval_feed(
+                ds, self._eval_blocks(len(ds))):
+            if real:
+                a, b = self._val_pairs(block)
+                p, q = self._val_step(self._eval_put(a), self._eval_put(b))
+                vals[:, start + lo:start + lo + real] = torch.stack(
+                    [p[:real], q[:real]]).double()
         psnr_sum = ssim_sum = 0.0
         num = 0
-        pending: List[Tuple[torch.Tensor, torch.Tensor]] = []
-
-        def drain():
-            nonlocal psnr_sum, ssim_sum, num
-            if not pending:
-                return
-            ps = torch.cat([p for p, _ in pending]).cpu().numpy()
-            ss = torch.cat([s for _, s in pending]).cpu().numpy()
-            pending.clear()
-            for p_i, s_i in zip(ps, ss):
-                psnr_sum += float(p_i)
-                ssim_sum += float(s_i)
-                num += 1
-
-        for batch in loader:
-            a, b = self._val_pairs(batch)
-            pending.append(self._val_step(self._eval_put(a),
-                                          self._eval_put(b)))
-            if len(pending) > 256:  # bound the device memory in flight
-                drain()
-        drain()
+        for p_i, s_i in self._gathered(vals).T:
+            psnr_sum += float(p_i)
+            ssim_sum += float(s_i)
+            num += 1
         if num == 0:
             return 0.0, 0.0
         return psnr_sum / num, ssim_sum / num
@@ -703,7 +816,9 @@ class TrainerBase:
         checkpoint unless ``resume``) and write the SE2 series. The SE1
         header windows are read ahead by a thread pool; one writer thread
         pulls the stored slices and keeps :class:`DicomWriteback`'s order;
-        the metric matrices are pulled once at the end."""
+        the metric matrices are pulled once at the end. Over several ranks
+        each writes the SE2 slices it evaluated, under the series UIDs rank
+        0 draws."""
         cfg = self.config
         if cfg.generator_ckpt:
             self.load_generator(cfg.generator_ckpt)
@@ -712,43 +827,56 @@ class TrainerBase:
             if found:
                 self.load_generator(found[0])
         lpips_fn = make_lpips_fn(cfg.lpips_weights, self.device)
-        k = max(1, int(cfg.eval_batch))
-        loader = PrefetchLoader(self.test_dataset, batch_size=k,
-                                num_threads=cfg.n_cpu)
-        writeback = DicomWriteback(cfg.image_save) if write_dicom else None
-        mats: List[torch.Tensor] = []
-        rows: List[Dict[str, float]] = []
+        keys = METRIC_KEYS + (() if lpips_fn is None else ("LPIPSw", "LPIPS"))
+        vals = torch.zeros(len(keys), len(self.test_dataset),
+                           dtype=torch.float64, device=self.device)
+        writeback = None
+        if write_dicom:
+            uid = (dist.broadcast_object(generate_uid())
+                   if dist.world() > 1 else None)
+            writeback = DicomWriteback(cfg.image_save, uid)
+        ds = self.test_dataset
+        blocks = self._eval_blocks(len(ds))
         with ThreadPoolExecutor(max(1, cfg.n_cpu)) as pool, \
                 ThreadPoolExecutor(1) as writer:
-            windows = {p: pool.submit(_se1_window, p) for p in
-                       getattr(self.test_dataset, "files_a", ())}
+            # the SE1 windows of this rank's slices (a padding row repeats
+            # one of them)
+            windows = {i: pool.submit(_se1_window, ds.files_a[i])
+                       for i in dict.fromkeys(i for *_, idx in blocks
+                                              for i in idx)}
             written = []
-            for batch in loader:
-                a, b = self._val_pairs(batch)
-                paths = batch["A_path"]
-                wcww = [windows[p].result() if p in windows
-                        else _se1_window(p) for p in paths]
-                wc, ww = (torch.tensor([w[i] for w in wcww],
-                                       dtype=torch.float32,
-                                       device=self.device) for i in (0, 1))
-                if lpips_fn is None:
-                    stored, mat = self._test_step(
-                        self._eval_put(a), self._eval_put(b), wc, ww)
-                    mats.append(mat)
-                else:  # JAX's per-slice evaluator, LPIPS on the masked views
-                    stored, lp_rows = self._lpips_test_step(
-                        self._eval_put(a), self._eval_put(b), wcww, lpips_fn)
-                    rows.extend(lp_rows)
+            for start, paths, lo, real, idx, block in self._eval_feed(
+                    ds, blocks):
+                stored = None
+                if real:
+                    a, b = self._val_pairs(block)
+                    wcww = [windows[i].result() for i in idx]
+                    wc, ww = (torch.tensor([w[i] for w in wcww],
+                                           dtype=torch.float32,
+                                           device=self.device)
+                              for i in (0, 1))
+                    if lpips_fn is None:
+                        stored, mat = self._test_step(
+                            self._eval_put(a), self._eval_put(b), wc, ww)
+                    else:  # JAX's per-slice evaluator, LPIPS on the views
+                        stored, lp_rows = self._lpips_test_step(
+                            self._eval_put(a), self._eval_put(b), wcww,
+                            lpips_fn)
+                        mat = torch.tensor([[r[key] for r in lp_rows]
+                                            for key in keys],
+                                           dtype=torch.float64)
+                    vals[:, start + lo:start + lo + real] = (
+                        mat[:, :real].to(vals))
+                    stored = stored[:real]
                 if writeback is not None:
                     written.append(writer.submit(_write_batch, writeback,
-                                                 paths, stored))
+                                                 paths, stored, lo))
             for f in written:
                 f.result()  # raise a writeback error here
-        if mats:
-            full = torch.cat(mats, dim=1).cpu().numpy()
-            rows = [{mk: float(full[i, j]) for i, mk in enumerate(METRIC_KEYS)}
-                    for j in range(full.shape[1])]
-        agg = aggregate(rows)
+        full = self._gathered(vals)
+        agg = aggregate([{key: float(full[i, j])
+                          for i, key in enumerate(keys)}
+                         for j in range(full.shape[1])])
         if not self.quiet:
             for key in ("MAEw", "PSNRw", "SSIMw", "UQIw", "LPIPSw"):
                 if key in agg:
@@ -825,11 +953,16 @@ def _se1_window(a_path: str) -> Tuple[float, float]:
     return ds1.window_center or 50.0, ds1.window_width or 400.0
 
 
-def _write_batch(writeback: DicomWriteback, paths, stored: torch.Tensor
-                 ) -> None:
-    px = stored.cpu().numpy()
+def _write_batch(writeback: DicomWriteback, paths,
+                 stored: Optional[torch.Tensor], lo: int = 0) -> None:
+    """The stored slices of ``paths[lo:lo + len(stored)]``; the writeback
+    passes over the others (another rank's), keeping the patient count."""
+    px = stored.cpu().numpy() if stored is not None else ()
     for j, path in enumerate(paths):
-        writeback.write(path, px[j])
+        if 0 <= j - lo < len(px):
+            writeback.write(path, px[j - lo])
+        else:
+            writeback.skip(path)
 
 
 class P2pTrainer(TrainerBase):

@@ -12,9 +12,12 @@ lists or other flow collections. Keys that are not fields land in
 ``extras``, as in the JAX package (``serve_port``, ``serve_quantize``,
 ``max_batch`` and stage 2's ``num_d`` and ``pyramid`` are read from there).
 
-``mesh`` (the parallel plans) is validated as in JAX; an axis above 1
-raises naming ROADMAP M12 when a trainer is built (the port runs on one
-card), as ``infer_depth_sharded: true`` does in ``infer_series``.
+``mesh`` (the parallel plans) is validated as in JAX. The data-parallel
+plan is ported (``parallel/mesh.py``): ``data_parallel: true`` (JAX's
+default) or ``mesh: {dp: N}`` trains over the ranks of a process group, one
+card each, ``batchSize`` rows per rank. A model axis (fsdp, tp, sp, depth,
+pp) above 1 raises naming its ROADMAP M12 item when a trainer is built, as
+``infer_depth_sharded: true`` does in ``infer_series``.
 
 The keys of the JAX package's TPU workarounds are accepted and ignored:
 ``checkpoint_backend`` (validated as in JAX, but it picks a JAX serialiser;
@@ -109,8 +112,11 @@ class Config:
     # --- the 3-D family (P3d) ---
     patch_depth: int = 8  # slices per depth window
     depth_downsample: int = 1  # the body's depth reduction: 1, 2 or 4
-    infer_depth_sharded: bool = False  # not ported (ROADMAP M12): raises
-    # the parallel plan, e.g. {dp: 2}; any axis > 1 raises (ROADMAP M12)
+    infer_depth_sharded: bool = False  # not ported (ROADMAP M12f): raises
+    # train over every rank of the process group (--mode train starts one a
+    # card), batchSize rows each; without ``mesh``
+    data_parallel: bool = True
+    # the parallel plan, e.g. {dp: 2}; a model axis > 1 raises (ROADMAP M12)
     mesh: Dict[str, int] = field(default_factory=dict)
     extras: Dict[str, Any] = field(default_factory=dict)
 

@@ -17,7 +17,8 @@ modules against the JAX package's.
   for the run's losses, the val CSV, the panel PNG, the dashboard, the
   watchdog disarmed; ``max_steps_per_epoch`` with JAX's per-epoch meaning.
 - The config keys of the loop and the mesh: JAX's defaults, a YAML
-  ``mesh: {dp: 2}`` refused naming M12 when the trainer is built.
+  model axis refused naming M12 when the trainer is built, and ``mesh:
+  {dp: 2}`` in one process refused as JAX's "needs 2 devices".
 - ``remat``: float64 gradients of the layer route bit-equal with and
   without it and against JAX's ``Generator(remat=True)`` (2 blocks, 32²),
   per tensor within 1e-6 of the tensor's Frobenius norm, floored at 1e-3
@@ -426,10 +427,14 @@ def test_config_validation_refuses_as_jax(raw):
 @pytest.mark.parametrize("text", ["mesh: {dp: 2}", "mesh:\n  pp: 2",
                                   "mesh: {dp: 1, tp: 4}"])
 def test_yaml_mesh_reaches_the_m12_refusal(tmp_path, text):
+    """A model axis reaches its M12 refusal; the dp plan is ported, and
+    ``{dp: 2}`` in one process reaches JAX's "needs 2 devices"."""
     path = tmp_path / "c.yaml"
     path.write_text(f"name: P2p\nsize: {SIZE}\n{text}\n")
     cfg = load_config(str(path))
-    with pytest.raises(NotImplementedError, match="ROADMAP M12"):
+    err, match = ((ValueError, "needs 2 devices, have 1") if "dp: 2" in text
+                  else (NotImplementedError, "ROADMAP M12"))
+    with pytest.raises(err, match=match):
         build_trainer(cfg, torch.device("cpu"), quiet=True)
 
 
