@@ -213,9 +213,22 @@ card, ``nvcc`` and no network, and imports nothing of JAX. Phases:
    within 1 stored unit. On a machine with several cards (b)
    and (c) run a rank a card under NCCL, and (d) ``python -m
    ctagan_tpu_torch --mode train``, which starts a rank a card itself
-   through torchrun: one checkpoint, one row of each CSV.
+   through torchrun: one checkpoint, one row of each CSV;
+19. ``fsdp``, a main path: the fsdp plan (``parallel/fsdp.py``) on the dp
+   phase's config and corpus under ``mesh: {fsdp: 2}``: two ranks on the
+   one card under gloo (several cards: a rank a card under NCCL), 4 steps
+   at a global batch of 2 against one process at ``grad_accum: 2`` as dp
+   (b) holds them; each rank's resting state (parameters, Adam moments:
+   97,118,052 B, half of one process's plus G's and D's padding) and the
+   bytes it gathers, reduce-scatters and all-reduces a step, each checked
+   against the count from the nets' sizes, with their ms (CUDA events and
+   the host clock), p50 step and peak memory; the ``.pt`` rank 0 writes,
+   read at world 1, bit-equal to the ranks' gathered weights and first
+   moments; test() over the ranks (the eval G gathered) as dp (c) holds
+   it. With four cards or more, also ``{fsdp: 4}`` and ``{dp: 2, fsdp:
+   2}``, a rank a card.
 
-The launch counts of the twelve main paths (each counted from zero) are the
+The launch counts of the thirteen main paths (each counted from zero) are the
 ``launches`` of the kernels line. ``--phases a,b`` runs a subset and stops
 before the result lines; ``--cases K2,K3`` keeps only the kernel phase's
 cases and timing lines of those kernels (and stops there too). Any failure
@@ -429,13 +442,15 @@ CORPUS_EXTRA, CORPUS_EXTRA_SLICES = 3, 6
 # a metric by far more, and the pixel bound holds every fake. On a machine
 # with several cards (b) and (c) run over every card under NCCL, a rank
 # each, in place of DP_WORLD gloo ranks on one card
+# (the fsdp phase runs on the same corpus, DP_STEPS steps a mesh)
 DP_PATIENTS, DP_SLICES = 4, 12
 DP_W1_STEPS, DP_STEPS, DP_WORLD = 6, 4, 2
 DP_METRIC_TOL = 1e-6
 DP_KERNEL_METRIC_TOL, DP_KERNEL_PIXELS = 3e-5, 1
 ALL_PHASES = ("kernels", "generator", "int8", "grad", "serving",
               "int8_serving", "training", "test", "stage2", "families",
-              "infer", "export", "figures", "loop", "p3d", "corpus", "dp")
+              "infer", "export", "figures", "loop", "p3d", "corpus", "dp",
+              "fsdp")
 
 
 def fail(msg):
@@ -3254,7 +3269,7 @@ def _dp_run(torch, config, dev, steps, group=False):
     after the run (``w``, ``mu``) and after step 1 (``w1``, ``mu1``), the
     counts, the p50 step, the losses, the all-reduce checks."""
     from ctagan_tpu_torch.__main__ import train
-    from ctagan_tpu_torch.parallel import dist
+    from ctagan_tpu_torch.parallel import dist, fsdp
     from ctagan_tpu_torch.train import trainers
 
     with socket.socket() as s:  # a free port for the group's store
@@ -3297,25 +3312,30 @@ def _dp_run(torch, config, dev, steps, group=False):
                 os.environ.pop(k, None)
     out.update(w=_hd_weights(trainer), mu=_hd_first_moments(trainer),
                p50=trainer.timer.summary(skip=1)["p50_ms"],
-               losses=trainer.loss_history)
+               losses=trainer.loss_history,
+               state_bytes=fsdp.state_bytes_per_rank(trainer.state))
     del trainer
     torch.cuda.empty_cache()
     return out
 
 
-def dp_worker(torch, tmp):
-    """One rank of the dp phase's world (two gloo ranks on one card; on a
-    machine with several cards a rank a card under NCCL): DP_STEPS steps of
-    ``tmp``/dp_train.yaml, a digest of G, R and D after
-    every step, each all-reduce timed by CUDA events, then test() of
-    ``tmp``/dp_test.yaml (the plain route) and of ``tmp``/dp_test_k.yaml
-    (the kernel route); results in ``tmp``/dp_rank<r>.json (rank 0's
-    weights in dp_rank0.pt)."""
+def dp_worker(torch, tmp, name="dp"):
+    """One rank of the dp phase's world, or with ``name`` of an fsdp
+    phase's (two gloo ranks on one card; on a machine with several cards a
+    rank a card under NCCL): DP_STEPS steps of ``tmp``/<name>_train.yaml
+    after the file ``tmp``/<name>_go appears, each collective inside a step
+    timed by CUDA events and the host clock, with its bytes; under dp a
+    digest of G, R and D after every step; under fsdp the resting state's
+    bytes and a checkpoint (rank 0 writes it); then test() of
+    ``tmp``/<name>_test.yaml (the plain route) and of
+    ``tmp``/<name>_test_k.yaml (the kernel route). Results in
+    ``tmp``/<name>_rank<r>.json, rank 0's weights (the gathered ones under
+    fsdp) in <name>_rank0.pt."""
     import torch.distributed as tdist
 
     from ctagan_tpu_torch.__main__ import test as run_test
     from ctagan_tpu_torch.__main__ import train
-    from ctagan_tpu_torch.parallel import dist
+    from ctagan_tpu_torch.parallel import dist, fsdp
     from ctagan_tpu_torch.train import trainers
     from ctagan_tpu_torch.utils.config import load_config
 
@@ -3323,75 +3343,105 @@ def dp_worker(torch, tmp):
     dev = (dist.init(torch.device("cuda")) if torch.cuda.device_count() > 1
            else dist.init(torch.device("cuda", 0), backend="gloo"))
     marks.append(time.time())
-    while not os.path.exists(os.path.join(tmp, "dp_go")):  # (a) runs
+    while not os.path.exists(os.path.join(tmp, f"{name}_go")):  # (a) runs
         time.sleep(0.05)
     marks.append(time.time())
     rank = dist.rank()
-    digests, reduces = [], []
-    all_reduce = tdist.all_reduce
+    digests, colls, done, in_step = [], [], [0], [False]
+    # each collective's tensor whose bytes count: the reduced buffer, the
+    # gathered one, the one scattered
+    moved = {"all_reduce": 0, "all_gather_into_tensor": 0,
+             "reduce_scatter_tensor": 1}
+    originals = {kind: getattr(tdist, kind) for kind in moved}
 
-    def timed(t, *args, **kw):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        h0 = time.perf_counter()
-        ev[0].record()
-        res = all_reduce(t, *args, **kw)
-        ev[1].record()
-        reduces.append((len(digests), ev, t.numel() * t.element_size(),
-                        time.perf_counter() - h0))
-        return res
+    def timed(kind):
+        def call(*args, **kw):
+            if not in_step[0]:
+                return originals[kind](*args, **kw)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            h0 = time.perf_counter()
+            ev[0].record()
+            res = originals[kind](*args, **kw)
+            ev[1].record()
+            t = args[moved[kind]]
+            colls.append((kind, done[0], ev, t.numel() * t.element_size(),
+                          time.perf_counter() - h0))
+            return res
+        return call
 
     step = trainers.HdTrainerStage1._step
 
     first = {}
 
     def spy(self, batch, lr, lr_d):
-        out = step(self, batch, lr, lr_d)
-        digests.append(_hd_digest(self))
+        in_step[0] = True
+        try:
+            out = step(self, batch, lr, lr_d)
+        finally:
+            in_step[0] = False
+        done[0] += 1
+        if not fsdp.is_sharded(self.state):
+            digests.append(_hd_digest(self))
         if not first:
-            first.update(w1=_hd_weights(self), mu1=_hd_first_moments(self))
+            with fsdp.unsharded_state(self.state):
+                first.update(w1=_hd_weights(self),
+                             mu1=_hd_first_moments(self))
         return out
 
-    tdist.all_reduce, trainers.HdTrainerStage1._step = timed, spy
+    for kind in moved:
+        setattr(tdist, kind, timed(kind))
+    trainers.HdTrainerStage1._step = spy
     torch.cuda.reset_peak_memory_stats(dev)
     try:
         reset_counts()
-        trainer = train(load_config(os.path.join(tmp, "dp_train.yaml")), dev,
-                        max_steps=DP_STEPS)
+        trainer = train(load_config(os.path.join(tmp, f"{name}_train.yaml")),
+                        dev, max_steps=DP_STEPS)
         torch.cuda.synchronize()
         counts = launch_counts()
     finally:
-        tdist.all_reduce, trainers.HdTrainerStage1._step = all_reduce, step
+        for kind, fn in originals.items():
+            setattr(tdist, kind, fn)
+        trainers.HdTrainerStage1._step = step
     marks.append(time.time())
     peak = torch.cuda.max_memory_allocated(dev)
-    per_step = [{"ms": 0.0, "host_ms": 0.0, "bytes": 0}
-                for _ in range(DP_STEPS)]
-    for i, ev, nbytes, host_s in reduces:
-        per_step[i]["ms"] += ev[0].elapsed_time(ev[1])
-        per_step[i]["host_ms"] += host_s * 1e3
-        per_step[i]["bytes"] += nbytes
-    if rank == 0:
-        torch.save(dict(first, w=_hd_weights(trainer)),
-                   os.path.join(tmp, "dp_rank0.pt"))
+    per_step = {kind: [{"ms": 0.0, "host_ms": 0.0, "bytes": 0, "calls": 0}
+                       for _ in range(DP_STEPS)] for kind in moved}
+    for kind, i, ev, nbytes, host_s in colls:
+        s = per_step[kind][i]
+        s["ms"] += ev[0].elapsed_time(ev[1])
+        s["host_ms"] += host_s * 1e3
+        s["bytes"] += nbytes
+        s["calls"] += 1
     res = {"digests": digests, "losses": trainer.loss_history,
-           "counts": counts, "reduce": per_step, "peak": peak,
-           "p50_ms": trainer.timer.summary(skip=1)["p50_ms"]}
-    del trainer
+           "counts": counts, "reduce": per_step["all_reduce"],
+           "gather": per_step["all_gather_into_tensor"],
+           "scatter": per_step["reduce_scatter_tensor"], "peak": peak,
+           "p50_ms": trainer.timer.summary(skip=1)["p50_ms"],
+           "state_bytes": fsdp.state_bytes_per_rank(trainer.state)}
+    if fsdp.is_sharded(trainer.state):
+        res["pt"] = trainer._save(trainer._current_epoch)
+    with fsdp.unsharded_state(trainer.state):
+        weights = dict(first, w=_hd_weights(trainer),
+                       mu=_hd_first_moments(trainer))
+    if rank == 0:
+        torch.save(weights, os.path.join(tmp, f"{name}_rank0.pt"))
+    del trainer, weights
     torch.cuda.empty_cache()
     reset_counts()
     torch.backends.cudnn.deterministic = True  # as the one process's test()
-    _, agg, secs = run_test(load_config(os.path.join(tmp, "dp_test.yaml")),
-                            dev)
+    _, agg, secs = run_test(load_config(os.path.join(
+        tmp, f"{name}_test.yaml")), dev)
     torch.cuda.synchronize()
     res.update(test_counts=launch_counts(), agg=agg, test_s=secs)
     reset_counts()
     torch.backends.cudnn.deterministic = False
-    _, agg, secs = run_test(load_config(os.path.join(tmp,
-                                                     "dp_test_k.yaml")), dev)
+    _, agg, secs = run_test(load_config(os.path.join(
+        tmp, f"{name}_test_k.yaml")), dev)
     torch.cuda.synchronize()
     marks.append(time.time())
     res.update(test_k_counts=launch_counts(), agg_k=agg, test_k_s=secs,
                marks=marks)
-    with open(os.path.join(tmp, f"dp_rank{rank}.json"), "w") as f:
+    with open(os.path.join(tmp, f"{name}_rank{rank}.json"), "w") as f:
         json.dump(res, f)
     dist.shutdown()
     return 0
@@ -3431,37 +3481,52 @@ def check_dp_group_of_one(torch, config, dev, t_corpus, card):
     return counts, a["p50"]
 
 
+def _dp_corpus(tmp):
+    """The dp and fsdp phases' seeded corpus of DP_PATIENTS patients of
+    DP_SLICES 512² slices, trained on the first patient's, validated and
+    tested on all: (the lists, every path, ``yaml(name, extra)``, which
+    writes ``tmp``/<name>.yaml, configs/HdGan.yaml with its checkpoints in
+    ``tmp``/<name>/ and its SE2 tree in ``tmp``/<name>_img/, then
+    ``extra``, and returns its path)."""
+    from ctagan_tpu_torch.data.fixtures import make_corpus
+
+    lists = make_corpus(tmp, n_patients=DP_PATIENTS,
+                        slices_per_patient=DP_SLICES, size=512, seed=0,
+                        lists=("train",))
+    paths = _read_list(lists["train"])
+    lists = {"train": _write_list(os.path.join(tmp, "patient0.txt"),
+                                  paths[:DP_SLICES]),
+             "val": lists["train"], "test": lists["train"]}
+
+    def yaml(name, extra=""):
+        path = _smoke_config(tmp, lists, f"save_root: '{tmp}/{name}/'\n"
+                             f"image_save: '{tmp}/{name}_img/'\n" + extra)
+        shutil.move(path, os.path.join(tmp, f"{name}.yaml"))
+        return os.path.join(tmp, f"{name}.yaml")
+
+    return lists, paths, yaml
+
+
+def _hd_param_counts(torch):
+    """The parameters of HD stage 1's G, R and D at full width."""
+    from ctagan_tpu_torch.models import Discriminator, Generator, RegNet
+
+    return [sum(p.numel() for p in m.parameters())
+            for m in (Generator(1, 1), RegNet(), Discriminator())]
+
+
 def check_dp(torch, card):
     """Phase 18, a main path: the data-parallel plan on HD stage 1 through
     the entry points' ``train()`` and ``test()``: (a) a group of one under
     NCCL against no group; (b) two gloo ranks on the one card against one
     process on the same global batch; (c) test() over the two ranks against
     one process."""
-    import numpy as np
-
-    from ctagan_tpu_torch.__main__ import test as run_test
-    from ctagan_tpu_torch.data.fixtures import make_corpus
-    from ctagan_tpu_torch.models import Discriminator, Generator, RegNet
-    from ctagan_tpu_torch.parallel import dist
     from ctagan_tpu_torch.utils.config import load_config
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        lists = make_corpus(tmp, n_patients=DP_PATIENTS,
-                            slices_per_patient=DP_SLICES, size=512, seed=0,
-                            lists=("train",))
-        paths = _read_list(lists["train"])
-        lists = {"train": _write_list(os.path.join(tmp, "patient0.txt"),
-                                      paths[:DP_SLICES]),
-                 "val": lists["train"], "test": lists["train"]}
-
-        def yaml(name, extra=""):
-            path = _smoke_config(tmp, lists, f"save_root: '{tmp}/{name}/'\n"
-                                 f"image_save: '{tmp}/{name}_img/'\n" + extra)
-            shutil.move(path, os.path.join(tmp, f"{name}.yaml"))
-            return os.path.join(tmp, f"{name}.yaml")
-
+        lists, paths, yaml = _dp_corpus(tmp)
         # (b) two gloo ranks on the one card (several cards: a rank a card
         # under NCCL), and (c) their test(); the ranks start (their imports
         # and group) while (a) runs, and wait for dp_go before their steps
@@ -3514,8 +3579,7 @@ def check_dp(torch, card):
         exact, repeat = (all(torch.equal(w[n][k], v) for n in one["w"]
                              for k, v in one["w"][n].items())
                          for w in (r0["w"], one2["w"]))
-        n_params = sum(sum(p.numel() for p in m.parameters())
-                       for m in (Generator(1, 1), RegNet(), Discriminator()))
+        n_params = sum(_hd_param_counts(torch))
         # every gradient in f32, and the step's 4 G-phase and 1 D-phase
         # loss values
         want_bytes = 4 * n_params + 4 * 5
@@ -3568,97 +3632,115 @@ def check_dp(torch, card):
             fail("dp (b): two ranks moved off one process's steps")
 
         # (c) one process's test() at a slice a forward, as each rank's
-        reset_counts()
-        torch.backends.cudnn.deterministic = True
-        try:
-            _, agg1, secs1 = run_test(
-                load_config(yaml("dp_one_test", plain)), dev)
-            torch.cuda.synchronize()
-        finally:
-            torch.backends.cudnn.deterministic = False
-        counts1 = launch_counts()
-        tree1 = _read_se2_tree(f"{tmp}/dp_one_test_img", paths)
-        tree2 = _read_se2_tree(f"{tmp}/dp_test_img", paths)
-        px = max(int(np.abs(tree2[n] - tree1[n]).max()) for n in tree1)
-        moved = sum(int((tree2[n] != tree1[n]).sum()) for n in tree1)
-        errs = {k: abs(ranks[0]["agg"][k] - agg1[k]) for k in agg1}
-        half = len(paths) // world
-        print(f"dp (c) test() of {len(paths)} slices on the plain route at "
-              f"eval_batch {world} over {world} ranks "
-              f"({ranks[0]['test_s']:.2f} "
-              f"s, {half} forwards a rank; launches "
-              f"{[res['test_counts'] for res in ranks]}) vs one process at "
-              f"eval_batch 1 ({secs1:.2f} s): metric distances {errs} (tol "
-              f"{DP_METRIC_TOL}); SE2 trees of {len(tree1)} files, largest "
-              f"pixel distance {px} stored units, {moved} pixels moved "
-              f"[{card}]", flush=True)
-        if any(res["test_counts"] != counts_of() for res in ranks) or \
-                counts1 != counts_of():
-            fail("dp (c): the plain route's test() launched a kernel")
-        if any(res["agg"] != ranks[0]["agg"] for res in ranks):
-            fail("dp (c): the ranks' aggregates differ")
-        if any(e > DP_METRIC_TOL * max(1.0, abs(agg1[k]))
-               for k, e in errs.items()) or sorted(tree1) != sorted(tree2) \
-                or px:
-            fail("dp (c): test() over two ranks differs from one process")
-        check_dp_kernel_test(torch, dev, ranks, yaml, paths, world, tmp,
-                             card)
+        one_tests = _one_process_tests(torch, dev, yaml, tmp, "dp", plain)
+        _held_rank_tests(torch, ranks, one_tests, paths, world, tmp, "dp",
+                         "dp (c)", card)
         if nccl:
             _dp_launcher(tmp, lists, world, card)
     return counts
 
 
-def check_dp_kernel_test(torch, dev, ranks, yaml, paths, world, tmp, card):
-    """(c) on the default training route (the body through K1) with
-    cuDNN's defaults: the ranks' test() at eval_batch ``world`` against
-    one process's at eval_batch 1 and a repeat of it (without the
-    writeback), each metric within GRAD_RATIO × the repeat's distance +
-    DP_KERNEL_METRIC_TOL (relative beyond 1), the SE2 pixels within
-    DP_KERNEL_PIXELS."""
+def _one_process_tests(torch, dev, yaml, tmp, prefix, plain):
+    """One process's test() at eval_batch 1, as each rank of a world
+    forwards a slice at a time: on the plain route (``plain``'s config
+    lines) with cuDNN's deterministic algorithms, then twice on the default
+    kernel route with cuDNN's defaults (the second without the writeback,
+    for the card's run-to-run distance)."""
+    from ctagan_tpu_torch.__main__ import test as run_test
+    from ctagan_tpu_torch.utils.config import load_config
+
+    reset_counts()
+    torch.backends.cudnn.deterministic = True
+    try:
+        _, agg, secs = run_test(load_config(yaml(f"{prefix}_one_test",
+                                                 plain)), dev)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    out = {"agg": agg, "secs": secs, "counts": launch_counts(),
+           "tree": f"{tmp}/{prefix}_one_test_img"}
+    config = load_config(yaml(f"{prefix}_one_test_k", ""))
+    reset_counts()
+    _, agg_k, secs_k = run_test(config, dev)
+    torch.cuda.synchronize()
+    out.update(agg_k=agg_k, secs_k=secs_k, counts_k=launch_counts(),
+               tree_k=f"{tmp}/{prefix}_one_test_k_img")
+    _, out["repeat_k"], _ = run_test(config, dev, write_dicom=False)
+    return out
+
+
+def _held_rank_tests(torch, ranks, one, paths, world, tmp, name, label,
+                     card):
+    """(c): the ranks' test() (:func:`dp_worker`, at eval_batch ``world``)
+    against one process's (:func:`_one_process_tests`): on the plain route
+    the 8 metrics within DP_METRIC_TOL (relative beyond 1) and the SE2
+    trees file for file and pixel for pixel, no kernel launched; on the
+    default training route (the body through K1, 18 launches a forward on
+    each rank) each metric within GRAD_RATIO × the one process's distance
+    in a repeat + DP_KERNEL_METRIC_TOL (relative beyond 1), the SE2 pixels
+    within DP_KERNEL_PIXELS."""
     import math
 
     import numpy as np
 
-    from ctagan_tpu_torch.__main__ import test as run_test
-    from ctagan_tpu_torch.utils.config import load_config
-
-    config = load_config(yaml("dp_one_test_k", ""))
-    reset_counts()
-    _, one, secs1 = run_test(config, dev)
-    torch.cuda.synchronize()
-    counts1 = launch_counts()
-    _, repeat, _ = run_test(config, dev, write_dicom=False)
-    tree1 = _read_se2_tree(f"{tmp}/dp_one_test_k_img", paths)
-    tree2 = _read_se2_tree(f"{tmp}/dp_test_k_img", paths)
+    agg1 = one["agg"]
+    tree1 = _read_se2_tree(one["tree"], paths)
+    tree2 = _read_se2_tree(f"{tmp}/{name}_test_img", paths)
     px = max(int(np.abs(tree2[n] - tree1[n]).max()) for n in tree1)
     moved = sum(int((tree2[n] != tree1[n]).sum()) for n in tree1)
-    errs = {k: abs(ranks[0]["agg_k"][k] - v) for k, v in one.items()}
-    noise = {k: abs(repeat[k] - v) for k, v in one.items()}
+    errs = {k: abs(ranks[0]["agg"][k] - agg1[k]) for k in agg1}
+    half = len(paths) // world
+    print(f"{label} test() of {len(paths)} slices on the plain route at "
+          f"eval_batch {world} over {world} ranks "
+          f"({ranks[0]['test_s']:.2f} "
+          f"s, {half} forwards a rank; launches "
+          f"{[res['test_counts'] for res in ranks]}) vs one process at "
+          f"eval_batch 1 ({one['secs']:.2f} s): metric distances {errs} (tol "
+          f"{DP_METRIC_TOL}); SE2 trees of {len(tree1)} files, largest "
+          f"pixel distance {px} stored units, {moved} pixels moved "
+          f"[{card}]", flush=True)
+    if any(res["test_counts"] != counts_of() for res in ranks) or \
+            one["counts"] != counts_of():
+        fail(f"{label}: the plain route's test() launched a kernel")
+    if any(res["agg"] != ranks[0]["agg"] for res in ranks):
+        fail(f"{label}: the ranks' aggregates differ")
+    if any(e > DP_METRIC_TOL * max(1.0, abs(agg1[k]))
+           for k, e in errs.items()) or sorted(tree1) != sorted(tree2) \
+            or px:
+        fail(f"{label}: test() over the ranks differs from one process")
+
+    one_k = one["agg_k"]
+    tree1 = _read_se2_tree(one["tree_k"], paths)
+    tree2 = _read_se2_tree(f"{tmp}/{name}_test_k_img", paths)
+    px = max(int(np.abs(tree2[n] - tree1[n]).max()) for n in tree1)
+    moved = sum(int((tree2[n] != tree1[n]).sum()) for n in tree1)
+    errs = {k: abs(ranks[0]["agg_k"][k] - v) for k, v in one_k.items()}
+    noise = {k: abs(one["repeat_k"][k] - v) for k, v in one_k.items()}
     limit = {k: GRAD_RATIO * noise[k]
              + DP_KERNEL_METRIC_TOL * max(1.0, abs(v))
-             for k, v in one.items()}
+             for k, v in one_k.items()}
     forwards = math.ceil(len(paths) / world)
     want = counts_of(conv3x3_reflect_stats=18 * forwards)
-    print(f"dp (c) test() of {len(paths)} slices on the kernel route "
+    print(f"{label} test() of {len(paths)} slices on the kernel route "
           f"(fused_body_grad auto: the body through K1; cuDNN's "
           f"defaults) at eval_batch {world} over {world} ranks "
           f"({ranks[0]['test_k_s']:.2f} s; launches "
           f"{[res['test_k_counts'] for res in ranks]}, expected {want}) vs "
-          f"one process at eval_batch 1 ({secs1:.2f} s; launches "
-          f"{counts1}): metric distances {errs}; a repeat of the one "
+          f"one process at eval_batch 1 ({one['secs_k']:.2f} s; launches "
+          f"{one['counts_k']}): metric distances {errs}; a repeat of the one "
           f"process, its distances {noise}; limits {limit}; SE2 "
           f"trees of {len(tree1)} files, largest pixel distance {px} stored "
           f"units (tol {DP_KERNEL_PIXELS}), {moved} pixels moved [{card}]",
           flush=True)
     if any(res["test_k_counts"] != want for res in ranks):
-        fail("dp (c): the kernel route's test() over the ranks launched "
+        fail(f"{label}: the kernel route's test() over the ranks launched "
              f"{[res['test_k_counts'] for res in ranks]}, expected {want}")
     if any(res["agg_k"] != ranks[0]["agg_k"] for res in ranks):
-        fail("dp (c): the ranks' kernel-route aggregates differ")
-    if sorted(one) != sorted(ranks[0]["agg_k"]) or any(
-            errs[k] > limit[k] for k in one) or \
+        fail(f"{label}: the ranks' kernel-route aggregates differ")
+    if sorted(one_k) != sorted(ranks[0]["agg_k"]) or any(
+            errs[k] > limit[k] for k in one_k) or \
             sorted(tree1) != sorted(tree2) or px > DP_KERNEL_PIXELS:
-        fail("dp (c): test() on the kernel route over the ranks differs "
+        fail(f"{label}: test() on the kernel route over the ranks differs "
              "from one process")
 
 
@@ -3699,6 +3781,186 @@ def _dp_launcher(tmp, lists, world, card):
                 "HdGan_losses.csv": 1, "HdGan_val.csv": 1}:
         fail(f"dp (d): the launcher's run: {res.stdout[-2000:]} "
              f"{res.stderr[-3000:]}")
+
+
+# -- the fsdp phase ------------------------------------------------------------
+
+def _mesh_name(mesh):
+    return "".join(f"{k}{v}" for k, v in mesh.items())
+
+
+def _fsdp_expect(counts, mesh):
+    """A rank's predicted bytes under ``mesh``, from the nets' parameter
+    counts (G, R, D), f32: each net padded to a multiple of the fsdp
+    extent N, a rank keeping 1/N of it, its two Adam moments alike; a step
+    gathers G twice (D's fresh forward of the updated G), R and D once,
+    reduce-scatters the three gradients, and all-reduces 5 losses (with a
+    dp column, each gradient shard across it too)."""
+    n, dp = mesh["fsdp"], mesh.get("dp", 1)
+    g, r, d = (-(-c // n) * n for c in counts)
+    return {"state": 3 * 4 * (g + r + d) // n,
+            "gather": 4 * (2 * g + r + d),
+            "scatter": 4 * (g + r + d),
+            "reduce": 4 * 5 + (4 * (g + r + d) // n if dp > 1 else 0)}
+
+
+def check_fsdp(torch, card):
+    """Phase 19, a main path: the fsdp plan (``parallel/fsdp.py``) on HD
+    stage 1 through the entry points' ``train()`` and ``test()``, under
+    ``mesh: {fsdp: 2}`` over two gloo ranks sharing the card (several
+    cards: NCCL, a rank a card; four or more: also ``{fsdp: 4}`` and
+    ``{dp: 2, fsdp: 2}``): DP_STEPS steps against one process on the same
+    global batch (held as dp (b)); each rank's resting state and the bytes
+    it gathers, reduce-scatters and all-reduces a step against
+    :func:`_fsdp_expect`; test() over the ranks on both routes (as dp
+    (c)); the ``.pt`` the ranks write, read at world 1, bit-equal to their
+    gathered state. Returns the ranks' launches (steps and the kernel
+    route's test())."""
+    dev = torch.device("cuda")
+    cards = torch.cuda.device_count()
+    meshes = [{"fsdp": 2}] + ([{"fsdp": 4}, {"dp": 2, "fsdp": 2}]
+                              if cards >= 4 else [])
+    counts = dict.fromkeys(SOURCES, 0)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        _, paths, yaml = _dp_corpus(tmp)
+        params = _hd_param_counts(torch)
+        ones = {}
+        print(f"fsdp: the corpus {time.perf_counter() - t0:.1f} s; G, R, D "
+              f"parameters {params} [{card}]", flush=True)
+        for mesh in meshes:
+            run = _fsdp_run(torch, dev, card, tmp, yaml, paths, mesh, params,
+                            ones, cards > 1)
+            world = mesh.get("dp", 1) * mesh["fsdp"]
+            _held_rank_tests(torch, run, ones["tests"], paths, world, tmp,
+                             _mesh_name(mesh), f"fsdp {mesh} (c)", card)
+            for res in run:
+                for k in counts:
+                    counts[k] += (res["counts"].get(k, 0)
+                                  + res["test_k_counts"].get(k, 0))
+    return counts
+
+
+def _fsdp_run(torch, dev, card, tmp, yaml, paths, mesh, params, ones,
+              nccl):
+    """One mesh of the fsdp phase: the ranks (:func:`dp_worker`) started
+    first; while they start, one process's DP_STEPS steps on the same
+    global batch twice (for the card's run-to-run distance) and its test()s
+    (:func:`_one_process_tests`), each once a phase (kept in ``ones``);
+    then the go; (b), the bytes and the ``.pt`` checked. Returns the ranks'
+    results."""
+    from ctagan_tpu_torch.train.trainers import HdTrainerStage1
+    from ctagan_tpu_torch.utils.config import load_config
+
+    world = mesh.get("dp", 1) * mesh["fsdp"]
+    name = _mesh_name(mesh)
+    spec = "mesh: {" + ", ".join(f"{k}: {v}" for k, v in mesh.items()) + "}\n"
+    plain = "fused_body_grad: off\n"
+    yaml(f"{name}_train", spec)
+    yaml(f"{name}_test", spec + plain + f"eval_batch: {world}\n")
+    yaml(f"{name}_test_k", spec + f"eval_batch: {world}\n")
+    how = "a card each (NCCL)" if nccl else "on one card (gloo)"
+    t_wall = time.time()
+    ranks_proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc-per-node={world}", os.path.abspath(__file__),
+         "--dp-worker", tmp, "--dp-name", name])
+    try:
+        if world not in ones:
+            cfg_one = load_config(yaml(
+                f"one{world}", f"batchSize: {world}\ngrad_accum: {world}\n"))
+            ones[world] = [_dp_run(torch, cfg_one, dev, DP_STEPS)
+                           for _ in "12"]
+        if "tests" not in ones:
+            ones["tests"] = _one_process_tests(torch, dev, yaml, tmp, "fsdp",
+                                               plain)
+        open(os.path.join(tmp, f"{name}_go"), "w").close()
+        t0 = time.perf_counter()
+        rc = ranks_proc.wait()
+    finally:
+        if ranks_proc.poll() is None:
+            ranks_proc.terminate()
+            ranks_proc.wait()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"fsdp {mesh}: a rank exited {rc}")
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"{name}_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    r0 = torch.load(os.path.join(tmp, f"{name}_rank0.pt"))
+    one, one2 = ones[world]
+    grad_2, ok_g = _dp_held(r0["mu1"], one["mu1"], one2["mu1"])
+    dist_2, ok_2 = _dp_held(r0["w"], one["w"], one2["w"])
+    exact, repeat = (all(torch.equal(w[n][k], v) for n in one["w"]
+                         for k, v in one["w"][n].items())
+                     for w in (r0["w"], one2["w"]))
+    expect = _fsdp_expect(params, mesh)
+    launches = {k: v * DP_STEPS for k, v in PER_TRAIN_STEP.items()}
+    for r, res in enumerate(ranks):
+        step_bytes = {kind: sorted({s["bytes"] for s in res[kind]})
+                      for kind in ("gather", "scatter", "reduce")}
+        print(f"fsdp {mesh} rank {r} of {world} {how}: {DP_STEPS} steps at "
+              f"batchSize 1 (global batch {world}), p50 step "
+              f"{res['p50_ms']:.1f} ms (one process at batchSize {world} "
+              f"and grad_accum {world}: {one['p50']:.1f} ms); resting state "
+              f"{res['state_bytes']} B (expected {expect['state']}; one "
+              f"process {one['state_bytes']}); a step's bytes gathered, "
+              f"reduce-scattered, all-reduced {step_bytes} (expected "
+              f"{expect['gather']}, {expect['scatter']}, "
+              f"{expect['reduce']}); gather ms a step "
+              + ", ".join(f"{s['ms']:.2f} (host {s['host_ms']:.2f}, "
+                          f"{s['calls']} calls)" for s in res["gather"])
+              + "; reduce-scatter ms a step "
+              + ", ".join(f"{s['ms']:.2f} (host {s['host_ms']:.2f})"
+                          for s in res["scatter"])
+              + "; all-reduce ms a step "
+              + ", ".join(f"{s['ms']:.2f} (host {s['host_ms']:.2f})"
+                          for s in res["reduce"])
+              + f"; peak memory {res['peak'] / 2**30:.3f} GiB; launches "
+              f"{res['counts']} (expected {launches}); losses "
+              f"{res['losses']}; seconds from the launch to the rank's "
+              f"start, group, go, steps and test() done "
+              f"{[round(m - t_wall, 1) for m in res['marks']]} [{card}]",
+              flush=True)
+        if res["counts"] != launches:
+            fail(f"fsdp {mesh}: rank {r} launches {res['counts']}")
+        if res["state_bytes"] != expect["state"] or step_bytes != {
+                kind: [expect[kind]] for kind in step_bytes}:
+            fail(f"fsdp {mesh}: rank {r}'s bytes {res['state_bytes']}, "
+                 f"{step_bytes}, expected {expect}")
+    loss_one = one["losses"]
+    first = [abs(ranks[0]["losses"][0][k] - loss_one[0][k])
+             / max(abs(loss_one[0][k]), 1e-12) for k in loss_one[0]]
+    # the .pt rank 0 wrote, at world 1
+    pt = ranks[0]["pt"]
+    back = HdTrainerStage1(load_config(yaml(f"{name}_back")), dev,
+                           quiet=True)
+    back._load_state(torch.load(pt, weights_only=False)["state"])
+    portable = all(set(got) == set(want) and all(
+        _equal_state(got[n], want[n]) for n in want)
+        for got, want in ((_hd_weights(back), r0["w"]),
+                          (_hd_first_moments(back), r0["mu"])))
+    del back
+    torch.cuda.empty_cache()
+    print(f"fsdp {mesh} (b): rank 0 bit-equal to one process at batchSize "
+          f"{world} and grad_accum {world} after {DP_STEPS} steps {exact} "
+          f"(two runs of it bit-equal {repeat}); against it (||rank 0 - "
+          f"one||, ||a repeat of one - one||, ||one||; tol {GRAD_RATIO} x "
+          f"repeat + {GRAD_TOL} x norm): step 1's gradient by net "
+          f"{_dp_line(grad_2)}; the weights after {DP_STEPS} steps by net "
+          f"{_dp_line(dist_2)}; first-step losses {ranks[0]['losses'][0]} vs "
+          f"{loss_one[0]} (largest relative {max(first):.2e}); the .pt of "
+          f"the ranks ({os.path.basename(pt)}) read at world 1 bit-equal to "
+          f"their gathered weights and first moments {portable}; the "
+          f"world's wall from the go {wall:.1f} s [{card}]", flush=True)
+    if (repeat and not exact and world == 2) or not (ok_g and ok_2) \
+            or max(first) > FAMILY_ROUTE_TOL:
+        fail(f"fsdp {mesh} (b): the ranks moved off one process's steps")
+    if not portable:
+        fail(f"fsdp {mesh}: the ranks' .pt read at world 1 differs from "
+             "their state")
+    return ranks
 
 
 def check_tensor_cores(lib_path):
@@ -3770,7 +4032,8 @@ MAIN_PATHS = {"serving": check_serving,
               "loop": check_loop,
               "p3d": check_p3d,
               "corpus": check_corpus,
-              "dp": check_dp}
+              "dp": check_dp,
+              "fsdp": check_fsdp}
 
 
 def main():
@@ -3784,6 +4047,8 @@ def main():
                     "result lines)")
     ap.add_argument("--dp-worker", default=None, metavar="DIR",
                     help=argparse.SUPPRESS)  # a rank of the dp phase
+    ap.add_argument("--dp-name", default="dp",
+                    help=argparse.SUPPRESS)  # or of an fsdp phase's mesh
     args = ap.parse_args()
     phases = args.phases.split(",")
     cases = args.cases.split(",") if args.cases else None
@@ -3802,7 +4067,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.dp_worker:
-        return dp_worker(torch, args.dp_worker)
+        return dp_worker(torch, args.dp_worker, args.dp_name)
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)

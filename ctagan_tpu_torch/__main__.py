@@ -46,11 +46,12 @@ of the trainer's prefix in ``save_root``, else seeded weights; its EMA with
 ``ema_decay`` > 0. Every mode runs on the CUDA card unless ``--device cpu``
 is given; with no card and no ``--device`` they stop with an error.
 
-Several cards (the data-parallel plan, ``parallel/mesh.py``): with
+Several cards (the dp and fsdp plans, ``parallel/mesh.py``): with
 ``data_parallel: true`` (the default) and more than one visible card,
 ``train`` and ``train_test`` start one rank per card themselves through
-``torchrun`` (``mesh: {dp: N}``: N ranks), after building the kernels
-once, and each rank trains ``batchSize`` rows of every global batch. Under
+``torchrun`` (``mesh: {dp: M, fsdp: N}``: M × N ranks), after building the
+kernels once, and each rank trains ``batchSize`` rows of every global
+batch. Under
 ``torchrun`` (its env set) the process joins the launcher's group:
 ``torchrun --nproc-per-node N -m ctagan_tpu_torch ...``, with ``--device
 cpu`` a gloo group on the CPU. ``infer``, ``figures``, ``export`` and
@@ -297,14 +298,15 @@ def main(argv=None) -> int:
 def dp_ranks(config: Config, device: torch.device,
              device_arg: Optional[str]) -> int:
     """The ranks ``--mode train`` starts itself outside a launcher: one a
-    visible card under the data-parallel plan (``mesh: {dp: N}``: N, which
-    the cards must hold; else every card with ``data_parallel``), one on the
-    CPU, on a named card or with ``data_parallel: false``."""
+    visible card under the dp and fsdp plans (``mesh: {dp: M, fsdp: N}``:
+    M × N, which the cards must hold; else every card with
+    ``data_parallel``), one on the CPU, on a named card or with
+    ``data_parallel: false``."""
     if device.type != "cuda" or device_arg not in (None, "cuda"):
         return 1
     cards = torch.cuda.device_count()
     if config.mesh:
-        n = int(config.mesh.get("dp", 1))
+        n = int(config.mesh.get("dp", 1)) * int(config.mesh.get("fsdp", 1))
         if n > cards:
             raise SystemExit(f"mesh {config.mesh} needs {n} devices, have "
                              f"{cards}")

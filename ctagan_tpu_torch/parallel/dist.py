@@ -8,16 +8,23 @@ train`` also starts itself on a host with several cards. Without that env
 the process is world 1 and no group exists, and every helper here is the
 identity. The backend is NCCL when the rank's device is
 a CUDA device and gloo on the CPU; each rank's device is ``cuda:LOCAL_RANK``
-unless the caller names one. The helpers use only ``all_reduce`` and
-``broadcast``, which gloo also runs on CUDA tensors, so an explicit
-``backend="gloo"`` lets several ranks share one card. A group that cannot
-form raises: a rank never carries on as world 1.
+unless the caller names one. An explicit ``backend="gloo"`` lets several
+ranks share one card (NCCL refuses two ranks on one device). A group that
+cannot form raises: a rank never carries on as world 1.
+
+The data-parallel plan reaches ``all_reduce`` and ``broadcast``, which gloo
+also runs on CUDA tensors. The fsdp plan (``parallel/fsdp.py``) adds
+:func:`mesh_groups` (its fsdp blocks and dp columns) and two collectives on
+flat buffers, :func:`all_gather_into` and :func:`reduce_scatter_mean`:
+``all_gather_into_tensor`` and ``reduce_scatter_tensor``, which NCCL runs
+on the card and gloo on the CPU alone, so under gloo a CUDA buffer goes
+through the host. The path is chosen by the group's backend.
 """
 from __future__ import annotations
 
 import os
 from datetime import timedelta
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as tdist
@@ -149,3 +156,64 @@ def barrier() -> None:
         tdist.all_reduce(t, op=tdist.ReduceOp.SUM)
         t.item()  # waits for the collective
 
+
+
+def mesh_groups(dp: int, fsdp: int) -> Tuple[object, Optional[object]]:
+    """This rank's groups of a ``dp`` × ``fsdp`` mesh laid out as JAX's
+    ``reshape(dp, fsdp)``: its fsdp block (``fsdp`` consecutive ranks) and
+    its dp column (the ``dp`` ranks spaced by ``fsdp``; None when ``dp`` is
+    1). A block of the whole world is the default group. Every rank creates
+    every group, in the same order, as ``new_group`` needs."""
+    n, r = world(), rank()
+    if dp * fsdp != n:
+        raise ValueError(f"a {dp} x {fsdp} mesh needs {dp * fsdp} ranks, "
+                         f"the group has {n}")
+    if dp == 1:
+        return tdist.group.WORLD, None
+    block = column = None
+    for d in range(dp):
+        g = tdist.new_group(list(range(d * fsdp, (d + 1) * fsdp)))
+        if r // fsdp == d:
+            block = g
+    for f in range(fsdp):
+        g = tdist.new_group(list(range(f, n, fsdp)))
+        if r % fsdp == f:
+            column = g
+    return block, column
+
+
+def _through_host(t: torch.Tensor, group) -> bool:
+    """gloo runs neither ``all_gather_into_tensor`` nor
+    ``reduce_scatter_tensor`` on CUDA tensors."""
+    return t.is_cuda and tdist.get_backend(group) == "gloo"
+
+
+def all_gather_into(out: torch.Tensor, shard: torch.Tensor, group) -> None:
+    """``out`` (the group's size × ``shard``'s elements, flat) ← every
+    rank's ``shard`` of ``group``, in rank order."""
+    if _through_host(shard, group):
+        host = torch.empty(out.shape, dtype=out.dtype)
+        tdist.all_gather_into_tensor(host, shard.cpu(), group=group)
+        out.copy_(host)
+    else:
+        tdist.all_gather_into_tensor(out, shard, group=group)
+
+
+def reduce_scatter_mean(flat: torch.Tensor, group,
+                        dp_group=None) -> torch.Tensor:
+    """This rank's block of ``flat`` (1 / the group's size of it) averaged
+    over every rank: a ``reduce_scatter_tensor`` SUM in ``group``, then
+    with ``dp_group`` an ``all_reduce`` SUM of the block across it, then
+    divided by the world, as :func:`all_reduce_mean_` divides."""
+    out = flat.new_empty(flat.numel() // tdist.get_world_size(group))
+    if _through_host(flat, group):
+        host = torch.empty(out.shape, dtype=out.dtype)
+        tdist.reduce_scatter_tensor(host, flat.cpu(), op=tdist.ReduceOp.SUM,
+                                    group=group)
+        out.copy_(host)
+    else:
+        tdist.reduce_scatter_tensor(out, flat, op=tdist.ReduceOp.SUM,
+                                    group=group)
+    if dp_group is not None:
+        tdist.all_reduce(out, op=tdist.ReduceOp.SUM, group=dp_group)
+    return out.div_(world())

@@ -2,13 +2,16 @@
 plan a config's ``mesh:`` (or ``data_parallel``) asks for, and how a rank
 takes its rows of a global batch.
 
-The data-parallel plan (``dp``) is ported: N ranks of one process group
+The data-parallel plan (``dp``): N ranks of one process group
 (``parallel/dist.py``), one card each, the parameters replicated, each
 rank's ``batchSize`` rows of a global batch of ``batchSize × N``, and the
-gradients mean-reduced over the ranks in the train steps. A rank's rows are
-the block that device ``rank`` holds under JAX's ``P("data")`` sharding of
-the global batch. The model axes (fsdp, tp, sp, depth, pp) are validated as
-in JAX and raise naming their ROADMAP item.
+gradients mean-reduced over the ranks in the train steps. The fsdp plan
+(``{fsdp: N}``, or the hybrid ``{dp: M, fsdp: N}``): M × N ranks, the
+state sharded over each block of N (``parallel/fsdp.py``), the batch over
+all M × N, as JAX's ``P((data, fsdp))``. A rank's rows are the block that
+device ``rank`` holds under JAX's sharding of the global batch. The other
+model axes (tp, sp, depth, pp) are validated as in JAX and raise naming
+their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -18,33 +21,42 @@ from typing import Dict
 import numpy as np
 
 MODEL_AXES = ("fsdp", "tp", "sp", "depth", "pp")
-# the ROADMAP item of each model axis
-_ITEMS = {"fsdp": "M12b", "tp": "M12c", "sp": "M12d", "pp": "M12e",
-          "depth": "M12f"}
+# the ROADMAP item of each model axis not ported yet
+_ITEMS = {"tp": "M12c", "sp": "M12d", "pp": "M12e", "depth": "M12f"}
 
 
 @dataclass(frozen=True)
 class MeshPlan:
-    """``kind`` names the plan (``"dp"``); ``batch_scale`` is how many ways
-    the global batch splits, the number of ranks."""
+    """``kind`` names the plan (``"dp"`` or ``"fsdp"``); ``batch_scale`` is
+    how many ways the global batch splits, the number of ranks, ``dp`` ×
+    ``fsdp``."""
 
     kind: str
     batch_scale: int
+    dp: int = 1
+    fsdp: int = 1
 
     def describe(self) -> str:
-        """JAX's "mesh plan" line."""
-        return (f"mesh plan: {{'data': {self.batch_scale}}} "
-                f"(kind={self.kind}, batch x{self.batch_scale})")
+        """JAX's "mesh plan" line: the mesh's axes and extents."""
+        if self.kind == "dp":
+            axes = {"data": self.dp}
+        elif self.dp == 1:
+            axes = {"fsdp": self.fsdp}
+        else:
+            axes = {"data": self.dp, "fsdp": self.fsdp}
+        return (f"mesh plan: {axes} (kind={self.kind}, "
+                f"batch x{self.batch_scale})")
 
 
 def plan_from_spec(spec, world: int) -> MeshPlan:
     """A plan from a ``config.mesh`` dict (keys dp/fsdp/tp/sp/depth/pp, each
     an axis extent, default 1) for a group of ``world`` ranks, validated as
     JAX's: unknown axes, extents below 1 and more than one model axis above
-    1 raise ValueError. A model axis above 1 then raises NotImplementedError
-    naming its ROADMAP item, whatever the world. ``{dp: N}`` (or ``{}``, N =
-    1) needs exactly ``world`` = N ranks: more raise JAX's "needs N
-    devices", fewer that the group is larger than the plan."""
+    1 raise ValueError. tp, sp, depth or pp above 1 then raises
+    NotImplementedError naming its ROADMAP item, whatever the world. ``{dp:
+    M}`` (or ``{}``, M = 1) and ``{dp: M, fsdp: N}`` need exactly ``world``
+    = M × N ranks: more raise JAX's "needs M × N devices", fewer that the
+    group is larger than the plan."""
     spec: Dict[str, int] = dict(spec or {})
     unknown = set(spec) - {"dp", *MODEL_AXES}
     if unknown:
@@ -58,19 +70,21 @@ def plan_from_spec(spec, world: int) -> MeshPlan:
         raise ValueError(
             f"at most one of fsdp/tp/sp/depth/pp may exceed 1, got {spec} "
             "(dp composes with any single one)")
-    if model_axes:
+    if model_axes and model_axes[0] in _ITEMS:
         kind = model_axes[0]
         raise NotImplementedError(
             f"mesh {spec}: the {kind} plan is not ported yet (ROADMAP "
-            f"{_ITEMS[kind]}); the port runs the dp plan")
-    dp = sizes["dp"]
-    if dp > world:
-        raise ValueError(f"mesh {spec} needs {dp} devices, have {world}")
-    if dp < world:
+            f"{_ITEMS[kind]}); the port runs the dp and fsdp plans")
+    dp, fsdp = sizes["dp"], sizes["fsdp"]
+    total = dp * fsdp
+    if total > world:
+        raise ValueError(f"mesh {spec} needs {total} devices, have {world}")
+    if total < world:
         raise ValueError(
-            f"mesh {spec} trains on {dp} rank(s), but the process group has "
-            f"{world}: launch {dp} (torchrun --nproc-per-node {dp})")
-    return MeshPlan("dp", dp)
+            f"mesh {spec} trains on {total} rank(s), but the process group "
+            f"has {world}: launch {total} (torchrun --nproc-per-node "
+            f"{total})")
+    return MeshPlan("fsdp" if fsdp > 1 else "dp", total, dp, fsdp)
 
 
 def shard_rows(n: int, rank: int, world: int) -> slice:

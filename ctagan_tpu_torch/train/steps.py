@@ -46,12 +46,20 @@ The augmentation draws the global batch's parameters from the state's
 generator, which every rank keeps alike, and takes the rank's rows;
 CycleGAN's replay pools take the global fakes, so each rank holds the one
 pool of one process. Without a group every step is as on one process.
+
+The fsdp plan (``parallel/fsdp.py``): with the state sharded, a step
+gathers each net it reads (:func:`fsdp.unshard`), and again after that
+net's update where it reads it again (D's fresh forward of the updated G;
+:func:`_apply` releases an updated net), reduce-scatters each net's
+gradient into its shard in :func:`_value_and_grad`, and steps Adam and the
+EMA on the shards; every net is released by the step's end.
 """
 from __future__ import annotations
 
 import copy
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Callable, ClassVar, Dict, List, Optional, Sequence,
+                    Tuple)
 
 import torch
 
@@ -65,7 +73,7 @@ from ctagan_tpu_torch.ops.losses import (
 )
 from ctagan_tpu_torch.ops.resize import interpolate_bilinear
 from ctagan_tpu_torch.ops.warp import smoothing_loss, warp2d, warp2d_local
-from ctagan_tpu_torch.parallel import dist
+from ctagan_tpu_torch.parallel import dist, fsdp
 from ctagan_tpu_torch.parallel.mesh import shard_rows
 from ctagan_tpu_torch.train.replay_buffer import ReplayBuffer, push_and_pop
 
@@ -75,13 +83,19 @@ def make_optimizer(params: Sequence[torch.nn.Parameter]) -> torch.optim.Adam:
     return torch.optim.Adam(params, lr=0.0, betas=(0.5, 0.999), eps=1e-8)
 
 
-def _apply(opt: torch.optim.Adam, params, grads, lr: float) -> None:
+def _apply(opt: torch.optim.Adam, nets: Sequence[torch.nn.Module],
+           grads: Sequence[Sequence[torch.Tensor]], lr: float) -> None:
+    """One step of ``opt`` over the nets' parameters (their shards under
+    fsdp) with ``grads`` by net (:func:`_value_and_grad`); a sharded net's
+    gathered weights are stale after it, and are released."""
     for group in opt.param_groups:
         group["lr"] = float(lr)
-    for p, g in zip(params, grads):
+    params = [p for net in nets for p in fsdp.local_params(net)]
+    for p, g in zip(params, [g for gs in grads for g in gs]):
         p.grad = g
     opt.step()
     opt.zero_grad(set_to_none=True)
+    fsdp.reshard(*nets)
 
 
 def _count(opt: torch.optim.Adam) -> int:
@@ -108,28 +122,34 @@ def ema_decay_at(decay: float, count: int) -> Tuple[float, float]:
 def _ema_update(ema: Optional[torch.nn.Module], model: torch.nn.Module,
                 decay: float, count: int) -> None:
     """ema ← ema·d + params·(1 − d), the decay ramped by the G optimizer's
-    post-update ``count`` (:func:`ema_decay_at`)."""
+    post-update ``count`` (:func:`ema_decay_at`); under fsdp on the
+    shards."""
     if ema is None:
         return
     d, one_minus = ema_decay_at(decay, count)
-    shadow = list(ema.parameters())
+    shadow = fsdp.local_params(ema)
     torch._foreach_mul_(shadow, d)
     torch._foreach_add_(shadow, torch._foreach_mul(
-        [p.detach() for p in model.parameters()], one_minus))
+        [p.detach() for p in fsdp.local_params(model)], one_minus))
 
 
 LossFn = Callable[[Dict[str, torch.Tensor]],
                   Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 
 
-def _value_and_grad(loss_fn: LossFn, params: List[torch.nn.Parameter],
+def _value_and_grad(loss_fn: LossFn, nets: Sequence[torch.nn.Module],
                     batches: Dict[str, torch.Tensor], n: int = 1):
-    """(loss, aux, grads) of ``loss_fn(mb) -> (loss, aux)``: with ``n`` > 1
-    the means over ``n`` equal microbatches of the batch's leading axis
-    (summed in microbatch order, then scaled by 1/n, as JAX's
-    ``_grad_accum_scan``), holding one microbatch's graph at a time. In a
-    process group all three are then mean-reduced over the ranks, outside
-    autograd, in one collective per dtype."""
+    """(loss, aux, grads) of ``loss_fn(mb) -> (loss, aux)`` by the
+    parameters of ``nets``: with ``n`` > 1 the means over ``n`` equal
+    microbatches of the batch's leading axis (summed in microbatch order,
+    then scaled by 1/n, as JAX's ``_grad_accum_scan``), holding one
+    microbatch's graph at a time. ``grads`` by net, each what its optimizer
+    steps (:func:`_apply`). In a process group all three are then
+    mean-reduced over the ranks, outside autograd: in one collective per
+    dtype, or under fsdp the losses so and each net's gradients by a
+    reduce-scatter into its shard."""
+    per_net = [list(net.parameters()) for net in nets]
+    params = [p for ps in per_net for p in ps]
     lead = next(iter(batches.values())).shape[0]
     assert lead % n == 0, f"grad_accum={n} must divide the batch ({lead})"
     m = lead // n
@@ -150,8 +170,16 @@ def _value_and_grad(loss_fn: LossFn, params: List[torch.nn.Parameter],
         loss = loss * inv
         aux = {k: v * inv for k, v in aux.items()}
         grads = [g * inv for g in grads]
-    dist.all_reduce_mean_([loss, *aux.values(), *grads])
-    return loss, aux, grads
+    by_net, i = [], 0
+    for ps in per_net:
+        by_net.append(grads[i:i + len(ps)])
+        i += len(ps)
+    if fsdp.flat_of(nets[0]) is None:
+        dist.all_reduce_mean_([loss, *aux.values(), *grads])
+        return loss, aux, by_net
+    dist.all_reduce_mean_([loss, *aux.values()])
+    return loss, aux, [[fsdp.flat_of(net).reduce_grads(g)]
+                       for net, g in zip(nets, by_net)]
 
 
 def _rank_rows(n: int) -> slice:
@@ -188,6 +216,9 @@ class P2pState:
     d_opt: torch.optim.Adam
     gen: torch.Generator  # augmentation draws
     g_ema: Optional[torch.nn.Module] = None
+    # each optimizer's nets, in its parameter order, and the EMA shadows
+    OPT_NETS: ClassVar = {"g_opt": ("g_model",), "d_opt": ("d_model",)}
+    EMA_NETS: ClassVar = ("g_ema",)
 
 
 def init_p2p_state(g_model, d_model, seed: int = 0,
@@ -210,7 +241,6 @@ def p2p_train_step(state: P2pState, cfg: Dict,
     a, b = _augment(state, cfg, batch["A"], batch["B"])
     n_accum = int(cfg.get("grad_accum", 1))
     adv_w, l1_w = cfg["Adv_lamda"], cfg["P2P_lamda"]
-    g_params = list(g_model.parameters())
 
     def g_loss(mb):
         fake = g_model(mb["a"])
@@ -221,8 +251,10 @@ def p2p_train_step(state: P2pState, cfg: Dict,
                                     "loss_GAN_A2B": loss_adv}
 
     ab = {"a": a, "b": b}
-    g_loss_v, g_aux, g_grads = _value_and_grad(g_loss, g_params, ab, n_accum)
-    _apply(state.g_opt, g_params, g_grads, lr)
+    fsdp.unshard(g_model, d_model)
+    g_loss_v, g_aux, g_grads = _value_and_grad(g_loss, [g_model], ab,
+                                               n_accum)
+    _apply(state.g_opt, [g_model], g_grads, lr)
 
     def d_loss(mb):
         with torch.no_grad():
@@ -231,9 +263,10 @@ def p2p_train_step(state: P2pState, cfg: Dict,
         pr = d_model(torch.cat([mb["a"], mb["b"]], dim=-1)) * adv_w
         return mse(pf, 0.0) + mse(pr, 1.0), {}
 
-    d_params = list(d_model.parameters())
-    d_loss_v, _, d_grads = _value_and_grad(d_loss, d_params, ab, n_accum)
-    _apply(state.d_opt, d_params, d_grads, lr)
+    fsdp.unshard(g_model)  # the updated G
+    d_loss_v, _, d_grads = _value_and_grad(d_loss, [d_model], ab, n_accum)
+    _apply(state.d_opt, [d_model], d_grads, lr)
+    fsdp.reshard(g_model)
     _ema_update(state.g_ema, g_model, cfg.get("ema_decay", 0.999),
                 _count(state.g_opt))
     return {"loss_G": g_loss_v, **g_aux, "loss_D_B": d_loss_v}
@@ -276,7 +309,6 @@ def p3d_train_step(state: P2pState, cfg: Dict,
         a, b = torch.flip(a, dims), torch.flip(b, dims)
     n_accum = int(cfg.get("grad_accum", 1))
     adv_w, l1_w = cfg["Adv_lamda"], cfg["P2P_lamda"]
-    g_params = list(g_model.parameters())
 
     def g_loss(mb):
         fake = g_model(mb["a"])
@@ -287,8 +319,10 @@ def p3d_train_step(state: P2pState, cfg: Dict,
                                     "loss_GAN_A2B": loss_adv}
 
     ab = {"a": a, "b": b}
-    g_loss_v, g_aux, g_grads = _value_and_grad(g_loss, g_params, ab, n_accum)
-    _apply(state.g_opt, g_params, g_grads, lr)
+    fsdp.unshard(g_model, d_model)
+    g_loss_v, g_aux, g_grads = _value_and_grad(g_loss, [g_model], ab,
+                                               n_accum)
+    _apply(state.g_opt, [g_model], g_grads, lr)
 
     def d_loss(mb):
         with torch.no_grad():
@@ -297,9 +331,10 @@ def p3d_train_step(state: P2pState, cfg: Dict,
         pr = d_model(torch.cat([mb["a"], mb["b"]], dim=-1))
         return mse(pf, 0.0) + mse(pr, 1.0), {}
 
-    d_params = list(d_model.parameters())
-    d_loss_v, _, d_grads = _value_and_grad(d_loss, d_params, ab, n_accum)
-    _apply(state.d_opt, d_params, d_grads, lr)
+    fsdp.unshard(g_model)  # the updated G
+    d_loss_v, _, d_grads = _value_and_grad(d_loss, [d_model], ab, n_accum)
+    _apply(state.d_opt, [d_model], d_grads, lr)
+    fsdp.reshard(g_model)
     _ema_update(state.g_ema, g_model, cfg.get("ema_decay", 0.999),
                 _count(state.g_opt))
     return {"loss_G": g_loss_v, **g_aux, "loss_D_B": d_loss_v}
@@ -323,6 +358,9 @@ class CycState:
     gen: torch.Generator  # augmentation and replay-pool draws
     g_ema: Optional[torch.nn.Module] = None  # of G_A2B, the eval model
     g_ema_b2a: Optional[torch.nn.Module] = None
+    OPT_NETS: ClassVar = {"g_opt": ("g_a2b", "g_b2a"), "d_a_opt": ("d_a",),
+                          "d_b_opt": ("d_b",)}
+    EMA_NETS: ClassVar = ("g_ema", "g_ema_b2a")
 
 
 def init_cyc_state(g_a2b, g_b2a, d_a, d_b, size: int, input_nc: int = 1,
@@ -352,7 +390,6 @@ def cyc_train_step(state: CycState, cfg: Dict,
     real_a, real_b = _augment(state, cfg, batch["A"], batch["B"])
     adv_w, cyc_w = cfg["Adv_lamda"], cfg["Cyc_lamda"]
     n_accum = int(cfg.get("grad_accum", 1))
-    g_params = list(ga.parameters()) + list(gb.parameters())
     fakes: Dict[str, torch.Tensor] = {}
 
     def g_loss(mb):
@@ -368,12 +405,14 @@ def cyc_train_step(state: CycState, cfg: Dict,
         return total, {"loss_GAN_A2B": loss_gan_a2b,
                        "loss_cycle_ABA": loss_cyc_aba}
 
+    # the Ds' steps read neither G again
+    fsdp.unshard(ga, gb, da, db)
     g_loss_v, g_aux, g_grads = _value_and_grad(
-        g_loss, g_params, {"a": real_a, "b": real_b}, n_accum)
+        g_loss, [ga, gb], {"a": real_a, "b": real_b}, n_accum)
     if n_accum > 1:
         with torch.no_grad():
             fakes.update(b=ga(real_a), a=gb(real_b))
-    _apply(state.g_opt, g_params, g_grads, lr)
+    _apply(state.g_opt, [ga, gb], g_grads, lr)
 
     # the Ds train on the pre-update fakes, through the history pools: the
     # global batch's fakes through one pool, this rank's rows of what it
@@ -385,16 +424,14 @@ def cyc_train_step(state: CycState, cfg: Dict,
                             state.gen)[rows]
 
     def d_update(d_model, opt, real, fake):
-        params = list(d_model.parameters())
-
         def d_loss(mb):
             loss_real = adv_w * mse(d_model(mb["real"]), 1.0)
             loss_fake = adv_w * mse(d_model(mb["fake"]), 0.0)
             return loss_real + loss_fake, {}
 
         loss, _, grads = _value_and_grad(
-            d_loss, params, {"real": real, "fake": fake}, n_accum)
-        _apply(opt, params, grads, lr)
+            d_loss, [d_model], {"real": real, "fake": fake}, n_accum)
+        _apply(opt, [d_model], grads, lr)
         return loss
 
     d_a_loss = d_update(da, state.d_a_opt, real_a, fake_a_d)
@@ -420,6 +457,9 @@ class RegState:
     d_opt: torch.optim.Adam
     gen: torch.Generator  # augmentation draws
     g_ema: Optional[torch.nn.Module] = None
+    OPT_NETS: ClassVar = {"g_opt": ("g_model",), "r_opt": ("r_model",),
+                          "d_opt": ("d_model",)}
+    EMA_NETS: ClassVar = ("g_ema",)
 
 
 def init_reg_state(g_model, r_model, d_model, seed: int = 0,
@@ -519,15 +559,14 @@ def reg_train_step(state: RegState, cfg: Dict, batch: Dict[str, torch.Tensor],
             aux["SR_loss2"] = sr2
         return total, aux
 
-    g_params = list(g_model.parameters())
-    r_params = list(r_model.parameters())
     mbs = {"a": real_a, "b": real_b}
     if real_b1 is not None:
         mbs["b1"] = real_b1
-    total, aux, grads = _value_and_grad(gr_loss, g_params + r_params, mbs,
+    fsdp.unshard(g_model, r_model, d_model)
+    total, aux, grads = _value_and_grad(gr_loss, [g_model, r_model], mbs,
                                         n_accum)
-    _apply(state.g_opt, g_params, grads[: len(g_params)], lr)
-    _apply(state.r_opt, r_params, grads[len(g_params):], lr)
+    _apply(state.g_opt, [g_model], grads[:1], lr)
+    _apply(state.r_opt, [r_model], grads[1:], lr)
 
     def d_loss(mb):
         if "fake2" in mb:
@@ -557,10 +596,12 @@ def reg_train_step(state: RegState, cfg: Dict, batch: Dict[str, torch.Tensor],
     d_batch = {"a": real_a, "b": real_b}
     if not cfg.get("d_refwd", True) and fakes:
         d_batch["fake2"] = fakes[0]
-    d_params = list(d_model.parameters())
-    d_loss_v, d_aux, d_grads = _value_and_grad(d_loss, d_params, d_batch,
+    else:
+        fsdp.unshard(g_model)  # D's fresh forward of the updated G
+    d_loss_v, d_aux, d_grads = _value_and_grad(d_loss, [d_model], d_batch,
                                                n_accum)
-    _apply(state.d_opt, d_params, d_grads, lr_d)
+    _apply(state.d_opt, [d_model], d_grads, lr_d)
+    fsdp.reshard(g_model)
     _ema_update(state.g_ema, g_model, cfg.get("ema_decay", 0.999),
                 _count(state.g_opt))
     out = {"toal_loss": total, "loss_D_B": d_loss_v, **d_aux}

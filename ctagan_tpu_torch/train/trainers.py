@@ -55,8 +55,19 @@ broadcast, so every rank reaches the same collectives. Validation and
 test() split each eval batch over the ranks when ``eval_batch`` divides
 over them (else rank 0 evaluates alone), gather every slice's metrics to
 every rank, and write each rank's own SE2 slices into the tree one process
-writes. A model axis of ``mesh`` above 1 raises naming its ROADMAP M12
-item.
+writes.
+
+The fsdp plan (``mesh: {fsdp: N}`` or ``{dp: M, fsdp: N}``) trains over M
+× N ranks as dp does, with the state sharded over each block of N after
+init (``parallel/fsdp.py``): the steps gather each net they read. The
+checkpoint state, a loaded G (``load_generator``, the collapse guard) and
+the stage-2 bootstrap go through the one-process layout
+(``fsdp.unsharded_state``, every rank gathering), so a ``.pt`` is the same
+under any plan and any plan resumes from it, or from a JAX ``.ckpt``.
+validate() and test() gather the eval G for their pass, the panels for
+theirs. An emergency save is skipped: a rank that another rank's failure
+stopped may never reach the gather. tp, sp, depth and pp raise naming
+their ROADMAP M12 item.
 """
 from __future__ import annotations
 
@@ -98,7 +109,7 @@ from ctagan_tpu_torch.models.convert import (
     regnet_state_dict,
 )
 from ctagan_tpu_torch.ops.lpips import make_lpips_fn
-from ctagan_tpu_torch.parallel import dist
+from ctagan_tpu_torch.parallel import dist, fsdp
 from ctagan_tpu_torch.parallel.mesh import (
     MeshPlan,
     pad_batch_to,
@@ -208,6 +219,9 @@ class TrainerBase:
         self.g_model = self._generator(config.seed)
         self._build_models()
         self.state = self._init_state()
+        if self.plan.kind == "fsdp":
+            fsdp.shard_state_fsdp(self.state, fsdp.make_fsdp_mesh(
+                self.plan.dp, self.plan.fsdp))
         self.timer = StepTimer(self.device)
         if config.resume:
             self._try_resume()
@@ -252,10 +266,11 @@ class TrainerBase:
 
     def _set_g_params(self, sd) -> None:
         """Loaded G weights; they overwrite the EMA shadow too."""
-        self.g_model.load_state_dict(sd, strict=True)
-        ema = getattr(self.state, "g_ema", None)
-        if ema is not None:
-            ema.load_state_dict(sd, strict=True)
+        with fsdp.unsharded_state(self.state):
+            self.g_model.load_state_dict(sd, strict=True)
+            ema = getattr(self.state, "g_ema", None)
+            if ema is not None:
+                ema.load_state_dict(sd, strict=True)
 
     def _step_cfg(self, *keys) -> Dict[str, object]:
         """The step's config dict; ``ema_decay`` as JAX passes it (0 →
@@ -368,22 +383,26 @@ class TrainerBase:
     _EMAS: Tuple[str, ...] = ("g_ema",)
 
     def _checkpoint_state(self) -> Dict[str, object]:
+        """The state in the one-process layout (under fsdp every rank
+        gathers it)."""
         st = self.state
-        out: Dict[str, object] = {key: getattr(st, net).state_dict()
-                                  for key, net in self._NETS}
-        for name in self._OPTS + self._EMAS:
-            if getattr(st, name) is not None:
-                out[name] = getattr(st, name).state_dict()
+        with fsdp.unsharded_state(st):
+            out: Dict[str, object] = {key: getattr(st, net).state_dict()
+                                      for key, net in self._NETS}
+            for name in self._OPTS + self._EMAS:
+                if getattr(st, name) is not None:
+                    out[name] = getattr(st, name).state_dict()
         out["rng"] = st.gen.get_state()
         return out
 
     def _load_state(self, state) -> None:
         st = self.state
-        for key, net in self._NETS:
-            getattr(st, net).load_state_dict(state[key])
-        for name in self._OPTS + self._EMAS:
-            if getattr(st, name) is not None:
-                getattr(st, name).load_state_dict(state[name])
+        with fsdp.unsharded_state(st):
+            for key, net in self._NETS:
+                getattr(st, net).load_state_dict(state[key])
+            for name in self._OPTS + self._EMAS:
+                if getattr(st, name) is not None:
+                    getattr(st, name).load_state_dict(state[name])
         st.gen.set_state(state["rng"])
 
     # set by train()'s exception handler: the emergency save waits for no
@@ -392,12 +411,21 @@ class TrainerBase:
 
     def _save(self, epoch: int, psnr: Optional[float] = None,
               ssim_v: Optional[float] = None) -> Optional[str]:
-        """Rank 0 writes the checkpoint (the weights are alike on every
-        rank, so the state is plan-portable, as JAX's ``_canonical_state``
-        makes it) and every rank waits for it; returns its path on rank 0."""
+        """Rank 0 writes the checkpoint (the state in the one-process
+        layout, plan-portable as JAX's ``_canonical_state`` makes it; under
+        fsdp every rank gathers it) and every rank waits for it; returns
+        its path on rank 0. Under fsdp an emergency save is skipped."""
+        sharded = fsdp.is_sharded(self.state)
+        if sharded and self._emergency:
+            if not self.quiet:
+                print("\nemergency checkpoint skipped: the state is sharded "
+                      "over the ranks, and a rank may be gone", flush=True)
+            return None
         path = None
+        state = (self._checkpoint_state() if dist.is_host0() or sharded
+                 else None)
         if dist.is_host0():
-            payload = {"state": self._checkpoint_state(), "epoch": epoch,
+            payload = {"state": state, "epoch": epoch,
                        "lr": self.lr, "lr_d": self.lr_d}
             path = save_checkpoint(self.config.save_root, self.ckpt_prefix,
                                    epoch, payload, psnr, ssim_v)
@@ -436,7 +464,8 @@ class TrainerBase:
             return
         payload = found[1] if found else load_checkpoint(path)
         if is_jax_checkpoint(path):
-            load_jax_state(self.state, payload["state"])
+            with fsdp.unsharded_state(self.state):
+                load_jax_state(self.state, payload["state"])
         else:
             self._load_state(payload["state"])
         self.start_epoch = self._current_epoch = int(payload["epoch"])
@@ -536,8 +565,7 @@ class TrainerBase:
             self._train_epochs(logger, max_steps, max_steps_per_epoch)
         except (KeyboardInterrupt, Exception):
             self._emergency = True
-            self._save(self._current_epoch)
-            if not self.quiet:
+            if self._save(self._current_epoch) and not self.quiet:
                 print(f"\nemergency checkpoint saved at epoch "
                       f"{self._current_epoch}", flush=True)
             raise
@@ -591,7 +619,8 @@ class TrainerBase:
                         logger.log(lo)
                     pending = []
                     if cfg.live_panels:
-                        self._refresh_live_panel(db)
+                        with fsdp.gathered(self._eval_model()):
+                            self._refresh_live_panel(db)
                 if (i + 1) % cfg.checkpoint_every_iters == 0:
                     self._save(epoch)
                 self.timer.tick()
@@ -612,7 +641,8 @@ class TrainerBase:
                         wd.resume()
                 if not self.quiet:
                     print(f"PSNR: {psnr_v}\nSSIM: {ssim_v}", flush=True)
-                self._log_val_dashboard(epoch, psnr_v, ssim_v)
+                with fsdp.gathered(self._eval_model()):
+                    self._log_val_dashboard(epoch, psnr_v, ssim_v)
                 self._save(epoch, psnr_v, ssim_v)
                 self._collapse_guard(epoch, psnr_v, ssim_v)
             else:
@@ -794,13 +824,15 @@ class TrainerBase:
         vals = torch.zeros(2, len(self.val_dataset), dtype=torch.float64,
                            device=self.device)
         ds = self.val_dataset
-        for start, _, lo, real, _, block in self._eval_feed(
-                ds, self._eval_blocks(len(ds))):
-            if real:
-                a, b = self._val_pairs(block)
-                p, q = self._val_step(self._eval_put(a), self._eval_put(b))
-                vals[:, start + lo:start + lo + real] = torch.stack(
-                    [p[:real], q[:real]]).double()
+        with fsdp.gathered(self._eval_model()):
+            for start, _, lo, real, _, block in self._eval_feed(
+                    ds, self._eval_blocks(len(ds))):
+                if real:
+                    a, b = self._val_pairs(block)
+                    p, q = self._val_step(self._eval_put(a),
+                                          self._eval_put(b))
+                    vals[:, start + lo:start + lo + real] = torch.stack(
+                        [p[:real], q[:real]]).double()
         psnr_sum = ssim_sum = 0.0
         num = 0
         for p_i, s_i in self._gathered(vals).T:
@@ -826,6 +858,12 @@ class TrainerBase:
             found = find_latest_checkpoint(cfg.save_root, self.ckpt_prefix)
             if found:
                 self.load_generator(found[0])
+        with fsdp.gathered(self._eval_model()):
+            return self._test_pass(write_dicom)
+
+    def _test_pass(self, write_dicom: bool) -> Dict[str, float]:
+        """test()'s pass over the test list with the eval G as it is."""
+        cfg = self.config
         lpips_fn = make_lpips_fn(cfg.lpips_weights, self.device)
         keys = METRIC_KEYS + (() if lpips_fn is None else ("LPIPSw", "LPIPS"))
         vals = torch.zeros(len(keys), len(self.test_dataset),
@@ -1118,8 +1156,9 @@ class HdTrainerStage2(HdTrainerStage1):
             r_sd = regnet_state_dict(state["r_params"])
         else:
             g_sd, r_sd = state["g"], state["r"]
-        self.g_model.load_state_dict(g_sd, strict=True)
-        self.r_model.load_state_dict(r_sd, strict=True)
+        with fsdp.unsharded_state(self.state):
+            self.g_model.load_state_dict(g_sd, strict=True)
+            self.r_model.load_state_dict(r_sd, strict=True)
         if not self.quiet:
             print(f"stage 2 bootstrapped G and R from {path}", flush=True)
         return self

@@ -3,8 +3,8 @@ on the CPU, with gloo ranks in child processes that ``torchrun``
 (``torch.distributed.run``) starts.
 
 - ``plan_from_spec`` refuses every spec that JAX's ``plan_from_spec`` or
-  config refuses (``tests/test_mesh_plan.py``); a model axis above 1 names
-  its ROADMAP M12 item; ``{dp: N}`` needs a group of N ranks.
+  config refuses (``tests/test_mesh_plan.py``); tp, sp, depth or pp above
+  1 names its ROADMAP M12 item; ``{dp: N}`` needs a group of N ranks.
 - ``PrefetchLoader.shard``: at world 2 the ranks' rows are disjoint and
   together are world 1's global batches; at ``batchSize`` 1 they are JAX's
   multi-process ``order[idx::count]``; a dataset that draws at access
@@ -173,7 +173,7 @@ def test_config_mesh_refused_as_jax(mesh):
 
 
 @pytest.mark.parametrize("spec,item", [
-    ({"fsdp": 2}, "M12b"), ({"tp": 4}, "M12c"), ({"sp": 2}, "M12d"),
+    ({"dp": 2, "tp": 2}, "M12c"), ({"tp": 4}, "M12c"), ({"sp": 2}, "M12d"),
     ({"pp": 3}, "M12e"), ({"dp": 2, "pp": 4}, "M12e"), ({"depth": 2}, "M12f"),
 ], ids=str)
 def test_model_axis_names_its_roadmap_item(spec, item):
