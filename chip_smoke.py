@@ -226,9 +226,26 @@ card, ``nvcc`` and no network, and imports nothing of JAX. Phases:
    read at world 1, bit-equal to the ranks' gathered weights and first
    moments; test() over the ranks (the eval G gathered) as dp (c) holds
    it. With four cards or more, also ``{fsdp: 4}`` and ``{dp: 2, fsdp:
-   2}``, a rank a card.
+   2}``, a rank a card;
+20. ``tp``, a main path: the tp plan (``parallel/tensor.py``) on the dp
+   phase's config and corpus under ``mesh: {tp: 2}``: two ranks on the one
+   card under gloo (several cards: a rank a card under NCCL), the residual
+   pairs of G and R split over them, 4 steps against one process's 4 on
+   the same batch on the layer route (which the split step runs: JAX's
+   gate, no kernel launched, checked), held as dp (b); G's, R's and D's
+   replicated weights bit-identical across the ranks after every step;
+   each rank's resting state (parameters, Adam moments: 122,332,464 B) and
+   the bytes it sums a step (the blocks' activations, 631,980,032 B, and
+   the means of the replicated gradients and losses), each checked against
+   the count from the nets' sizes, with the sums' ms (CUDA events), p50
+   step and peak memory; the ``.pt`` rank 0 writes, read at world 1,
+   bit-equal to the ranks' gathered state; test() over the ranks as dp (c)
+   holds it (the eval G gathered, K1 18 a forward on the kernel route);
+   ``infer_tensor_sharded`` of a seeded G at 2 × 512² within GEN_TOL of
+   one process's forward. With four cards or more, also ``{tp: 4}`` and
+   ``{dp: 2, tp: 2}``, a rank a card.
 
-The launch counts of the thirteen main paths (each counted from zero) are the
+The launch counts of the fourteen main paths (each counted from zero) are the
 ``launches`` of the kernels line. ``--phases a,b`` runs a subset and stops
 before the result lines; ``--cases K2,K3`` keeps only the kernel phase's
 cases and timing lines of those kernels (and stops there too). Any failure
@@ -239,6 +256,7 @@ before that the card's name and power limit.
 import argparse
 import concurrent.futures
 import contextlib
+import copy
 import json
 import os
 import re
@@ -450,7 +468,7 @@ DP_KERNEL_METRIC_TOL, DP_KERNEL_PIXELS = 3e-5, 1
 ALL_PHASES = ("kernels", "generator", "int8", "grad", "serving",
               "int8_serving", "training", "test", "stage2", "families",
               "infer", "export", "figures", "loop", "p3d", "corpus", "dp",
-              "fsdp")
+              "fsdp", "tp")
 
 
 def fail(msg):
@@ -3205,15 +3223,22 @@ def _hd_weights(trainer):
 
 
 def _hd_digest(trainer):
-    """G's, R's and D's weights as one number, reduced on the device (no
+    """G's, R's and D's weights that every rank holds whole (under tp the
+    split slices are left out) as one number, reduced on the device (no
     copy to the host inside the timed step): each tensor's bit patterns as
     int64, weighted by their position and summed, one pull for all. A
     changed bit anywhere changes it, barring a coincidence."""
     import torch
 
+    from ctagan_tpu_torch.parallel import tensor
+
     sums = []
     for attr in ("g_model", "r_model", "d_model"):
-        for v in getattr(trainer, attr).state_dict().values():
+        net = getattr(trainer, attr)
+        split = set(tensor.split_params(net))
+        for v in net.state_dict(keep_vars=True).values():
+            if v in split:
+                continue
             bits = v.detach().reshape(-1).view(torch.int32).long()
             pos = torch.arange(1, bits.numel() + 1, device=bits.device)
             sums.append((bits * pos).sum())
@@ -3280,9 +3305,9 @@ def _dp_run(torch, config, dev, steps, group=False):
     reduce, step = dist.all_reduce_mean_, trainers.HdTrainerStage1._step
     out = {"checks": []}
 
-    def checked(tensors):
+    def checked(tensors, group=None):
         before = [t.clone() for t in tensors]
-        reduce(tensors)
+        reduce(tensors, group)
         if dist.initialized():
             out["checks"].append(all(torch.equal(a, b)
                                       for a, b in zip(before, tensors)))
@@ -3320,17 +3345,18 @@ def _dp_run(torch, config, dev, steps, group=False):
 
 
 def dp_worker(torch, tmp, name="dp"):
-    """One rank of the dp phase's world, or with ``name`` of an fsdp
+    """One rank of the dp phase's world, or with ``name`` of an fsdp or tp
     phase's (two gloo ranks on one card; on a machine with several cards a
     rank a card under NCCL): DP_STEPS steps of ``tmp``/<name>_train.yaml
     after the file ``tmp``/<name>_go appears, each collective inside a step
-    timed by CUDA events and the host clock, with its bytes; under dp a
-    digest of G, R and D after every step; under fsdp the resting state's
-    bytes and a checkpoint (rank 0 writes it); then test() of
-    ``tmp``/<name>_test.yaml (the plain route) and of
-    ``tmp``/<name>_test_k.yaml (the kernel route). Results in
-    ``tmp``/<name>_rank<r>.json, rank 0's weights (the gathered ones under
-    fsdp) in <name>_rank0.pt."""
+    timed by CUDA events and the host clock, with its bytes; under dp and
+    tp a digest of G, R and D (under tp their replicated weights) after
+    every step; under fsdp and tp the resting state's bytes and a
+    checkpoint (rank 0 writes it); then test() of ``tmp``/<name>_test.yaml
+    (the plain route) and of ``tmp``/<name>_test_k.yaml (the kernel route);
+    under tp last ``infer_tensor_sharded`` of a seeded G, timed (each rank
+    saves its output in <name>_fwd<r>.pt). Results in ``tmp``/<name>_rank<r>.json, rank
+    0's weights (the gathered ones under fsdp and tp) in <name>_rank0.pt."""
     import torch.distributed as tdist
 
     from ctagan_tpu_torch.__main__ import test as run_test
@@ -3383,7 +3409,7 @@ def dp_worker(torch, tmp, name="dp"):
         if not fsdp.is_sharded(self.state):
             digests.append(_hd_digest(self))
         if not first:
-            with fsdp.unsharded_state(self.state):
+            with trainers._one_process(self.state):
                 first.update(w1=_hd_weights(self),
                              mu1=_hd_first_moments(self))
         return out
@@ -3418,13 +3444,14 @@ def dp_worker(torch, tmp, name="dp"):
            "scatter": per_step["reduce_scatter_tensor"], "peak": peak,
            "p50_ms": trainer.timer.summary(skip=1)["p50_ms"],
            "state_bytes": fsdp.state_bytes_per_rank(trainer.state)}
-    if fsdp.is_sharded(trainer.state):
+    if trainers._sharded(trainer.state):
         res["pt"] = trainer._save(trainer._current_epoch)
-    with fsdp.unsharded_state(trainer.state):
+    with trainers._one_process(trainer.state):
         weights = dict(first, w=_hd_weights(trainer),
                        mu=_hd_first_moments(trainer))
     if rank == 0:
         torch.save(weights, os.path.join(tmp, f"{name}_rank0.pt"))
+    plan = trainer.plan
     del trainer, weights
     torch.cuda.empty_cache()
     reset_counts()
@@ -3441,6 +3468,44 @@ def dp_worker(torch, tmp, name="dp"):
     marks.append(time.time())
     res.update(test_k_counts=launch_counts(), agg_k=agg, test_k_s=secs,
                marks=marks)
+    if plan.kind == "tp":
+        from ctagan_tpu_torch.parallel import tensor
+
+        mesh = tensor.make_tp_mesh(plan.dp, plan.tp)
+        g, x = _tp_forward_g(torch, dev), _tp_forward_input(torch, dev)
+        calls = []
+        for _ in range(TP_FORWARD_CALLS):
+            t0 = time.perf_counter()
+            out = tensor.infer_tensor_sharded(g, x, mesh,
+                                              data_parallel=plan.dp > 1)
+            torch.cuda.synchronize()
+            calls.append(time.perf_counter() - t0)
+        # its parts: G copied and split, then the split forward alone, its
+        # sums timed by CUDA events
+        t0 = time.perf_counter()
+        split = tensor.shard_module_tp(copy.deepcopy(g), mesh)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sums = []
+
+        def timed_sum(*args, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out_ = originals["all_reduce"](*args, **kw)
+            ev[1].record()
+            sums.append(ev)
+            return out_
+
+        tdist.all_reduce = timed_sum
+        try:
+            with torch.no_grad():
+                split(x if plan.dp == 1 else x[:len(x) // plan.dp])
+            torch.cuda.synchronize()
+        finally:
+            tdist.all_reduce = originals["all_reduce"]
+        res["fwd_s"] = calls + [t1 - t0, time.perf_counter() - t1]
+        res["fwd_sums_ms"] = [e[0].elapsed_time(e[1]) for e in sums]
+        torch.save(out.cpu(), os.path.join(tmp, f"{name}_fwd{rank}.pt"))
     with open(os.path.join(tmp, f"{name}_rank{rank}.json"), "w") as f:
         json.dump(res, f)
     dist.shutdown()
@@ -3829,7 +3894,7 @@ def check_fsdp(torch, card):
         print(f"fsdp: the corpus {time.perf_counter() - t0:.1f} s; G, R, D "
               f"parameters {params} [{card}]", flush=True)
         for mesh in meshes:
-            run = _fsdp_run(torch, dev, card, tmp, yaml, paths, mesh, params,
+            run = _mesh_run(torch, dev, card, tmp, yaml, paths, mesh, params,
                             ones, cards > 1)
             world = mesh.get("dp", 1) * mesh["fsdp"]
             _held_rank_tests(torch, run, ones["tests"], paths, world, tmp,
@@ -3841,18 +3906,22 @@ def check_fsdp(torch, card):
     return counts
 
 
-def _fsdp_run(torch, dev, card, tmp, yaml, paths, mesh, params, ones,
+def _mesh_run(torch, dev, card, tmp, yaml, paths, mesh, params, ones,
               nccl):
-    """One mesh of the fsdp phase: the ranks (:func:`dp_worker`) started
-    first; while they start, one process's DP_STEPS steps on the same
-    global batch twice (for the card's run-to-run distance) and its test()s
+    """One mesh of the fsdp or the tp phase: the ranks (:func:`dp_worker`)
+    started first; while they start, one process's DP_STEPS steps on the
+    same global batch twice (for the card's run-to-run distance; under tp
+    on the layer route, which the split step runs) and its test()s
     (:func:`_one_process_tests`), each once a phase (kept in ``ones``);
-    then the go; (b), the bytes and the ``.pt`` checked. Returns the ranks'
-    results."""
+    then the go; (b), the bytes and the ``.pt`` checked, under tp also the
+    sharded forward. Returns the ranks' results."""
     from ctagan_tpu_torch.train.trainers import HdTrainerStage1
     from ctagan_tpu_torch.utils.config import load_config
 
-    world = mesh.get("dp", 1) * mesh["fsdp"]
+    kind = "tp" if "tp" in mesh else "fsdp"
+    dp = mesh.get("dp", 1)
+    world = dp * mesh[kind]
+    batch = world if kind == "fsdp" else dp  # the global batch
     name = _mesh_name(mesh)
     spec = "mesh: {" + ", ".join(f"{k}: {v}" for k, v in mesh.items()) + "}\n"
     plain = "fused_body_grad: off\n"
@@ -3865,14 +3934,16 @@ def _fsdp_run(torch, dev, card, tmp, yaml, paths, mesh, params, ones,
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          f"--nproc-per-node={world}", os.path.abspath(__file__),
          "--dp-worker", tmp, "--dp-name", name])
+    route = plain if kind == "tp" else ""
     try:
-        if world not in ones:
+        if (batch, route) not in ones:
             cfg_one = load_config(yaml(
-                f"one{world}", f"batchSize: {world}\ngrad_accum: {world}\n"))
-            ones[world] = [_dp_run(torch, cfg_one, dev, DP_STEPS)
-                           for _ in "12"]
+                f"one{batch}{kind}",
+                f"batchSize: {batch}\ngrad_accum: {batch}\n" + route))
+            ones[batch, route] = [_dp_run(torch, cfg_one, dev, DP_STEPS)
+                                  for _ in "12"]
         if "tests" not in ones:
-            ones["tests"] = _one_process_tests(torch, dev, yaml, tmp, "fsdp",
+            ones["tests"] = _one_process_tests(torch, dev, yaml, tmp, kind,
                                                plain)
         open(os.path.join(tmp, f"{name}_go"), "w").close()
         t0 = time.perf_counter()
@@ -3883,40 +3954,52 @@ def _fsdp_run(torch, dev, card, tmp, yaml, paths, mesh, params, ones,
             ranks_proc.wait()
     wall = time.perf_counter() - t0
     if rc != 0:
-        fail(f"fsdp {mesh}: a rank exited {rc}")
+        fail(f"{kind} {mesh}: a rank exited {rc}")
     ranks = []
     for r in range(world):
         with open(os.path.join(tmp, f"{name}_rank{r}.json")) as f:
             ranks.append(json.load(f))
     r0 = torch.load(os.path.join(tmp, f"{name}_rank0.pt"))
-    one, one2 = ones[world]
+    one, one2 = ones[batch, route]
     grad_2, ok_g = _dp_held(r0["mu1"], one["mu1"], one2["mu1"])
     dist_2, ok_2 = _dp_held(r0["w"], one["w"], one2["w"])
     exact, repeat = (all(torch.equal(w[n][k], v) for n in one["w"]
                          for k, v in one["w"][n].items())
                      for w in (r0["w"], one2["w"]))
-    expect = _fsdp_expect(params, mesh)
-    launches = {k: v * DP_STEPS for k, v in PER_TRAIN_STEP.items()}
+    if kind == "fsdp":
+        expect = _fsdp_expect(params, mesh)
+        launches = {k: v * DP_STEPS for k, v in PER_TRAIN_STEP.items()}
+    else:
+        expect = _tp_expect(params, mesh)
+        launches = counts_of()  # JAX's gate: the split step has no kernel
     for r, res in enumerate(ranks):
-        step_bytes = {kind: sorted({s["bytes"] for s in res[kind]})
-                      for kind in ("gather", "scatter", "reduce")}
-        print(f"fsdp {mesh} rank {r} of {world} {how}: {DP_STEPS} steps at "
-              f"batchSize 1 (global batch {world}), p50 step "
-              f"{res['p50_ms']:.1f} ms (one process at batchSize {world} "
-              f"and grad_accum {world}: {one['p50']:.1f} ms); resting state "
+        step_bytes = {kind_: sorted({s["bytes"] for s in res[kind_]})
+                      for kind_ in ("gather", "scatter", "reduce")}
+        if kind == "fsdp":
+            colls = ("gathered, reduce-scattered, all-reduced "
+                     f"{step_bytes} (expected {expect['gather']}, "
+                     f"{expect['scatter']}, {expect['reduce']}); gather ms a "
+                     "step " + ", ".join(
+                         f"{s['ms']:.2f} (host {s['host_ms']:.2f}, "
+                         f"{s['calls']} calls)" for s in res["gather"])
+                     + "; reduce-scatter ms a step " + ", ".join(
+                         f"{s['ms']:.2f} (host {s['host_ms']:.2f})"
+                         for s in res["scatter"]) + "; ")
+        else:
+            colls = (f"summed (all-reduce) {step_bytes['reduce']} (expected "
+                     f"{expect['reduce']}: {expect['sums']} of the "
+                     "activations, the rest the means of the gradients "
+                     "and losses); ")
+        print(f"{kind} {mesh} rank {r} of {world} {how}: {DP_STEPS} steps at "
+              f"batchSize 1 (global batch {batch}), p50 step "
+              f"{res['p50_ms']:.1f} ms (one process at batchSize {batch} "
+              f"and grad_accum {batch}{' on the layer route' * (kind == 'tp')}"
+              f": {one['p50']:.1f} ms); resting state "
               f"{res['state_bytes']} B (expected {expect['state']}; one "
-              f"process {one['state_bytes']}); a step's bytes gathered, "
-              f"reduce-scattered, all-reduced {step_bytes} (expected "
-              f"{expect['gather']}, {expect['scatter']}, "
-              f"{expect['reduce']}); gather ms a step "
+              f"process {one['state_bytes']}); a step's bytes {colls}"
+              "all-reduce ms a step "
               + ", ".join(f"{s['ms']:.2f} (host {s['host_ms']:.2f}, "
-                          f"{s['calls']} calls)" for s in res["gather"])
-              + "; reduce-scatter ms a step "
-              + ", ".join(f"{s['ms']:.2f} (host {s['host_ms']:.2f})"
-                          for s in res["scatter"])
-              + "; all-reduce ms a step "
-              + ", ".join(f"{s['ms']:.2f} (host {s['host_ms']:.2f})"
-                          for s in res["reduce"])
+                          f"{s['calls']} calls)" for s in res["reduce"])
               + f"; peak memory {res['peak'] / 2**30:.3f} GiB; launches "
               f"{res['counts']} (expected {launches}); losses "
               f"{res['losses']}; seconds from the launch to the rank's "
@@ -3924,11 +4007,17 @@ def _fsdp_run(torch, dev, card, tmp, yaml, paths, mesh, params, ones,
               f"{[round(m - t_wall, 1) for m in res['marks']]} [{card}]",
               flush=True)
         if res["counts"] != launches:
-            fail(f"fsdp {mesh}: rank {r} launches {res['counts']}")
-        if res["state_bytes"] != expect["state"] or step_bytes != {
-                kind: [expect[kind]] for kind in step_bytes}:
-            fail(f"fsdp {mesh}: rank {r}'s bytes {res['state_bytes']}, "
+            fail(f"{kind} {mesh}: rank {r} launches {res['counts']}")
+        want_bytes = ({k: [expect[k]] for k in step_bytes} if kind == "fsdp"
+                      else {"gather": [0], "scatter": [0],
+                            "reduce": [expect["reduce"]]})
+        if res["state_bytes"] != expect["state"] or step_bytes != want_bytes:
+            fail(f"{kind} {mesh}: rank {r}'s bytes {res['state_bytes']}, "
                  f"{step_bytes}, expected {expect}")
+    same = [len(set(d)) == 1 for d in zip(*(res["digests"] for res in ranks))]
+    if kind == "tp" and (len(same) != DP_STEPS or not all(same)):
+        fail(f"tp {mesh}: the ranks' replicated weights differ after a step "
+             f"{same}")
     loss_one = one["losses"]
     first = [abs(ranks[0]["losses"][0][k] - loss_one[0][k])
              / max(abs(loss_one[0][k]), 1e-12) for k in loss_one[0]]
@@ -3943,24 +4032,146 @@ def _fsdp_run(torch, dev, card, tmp, yaml, paths, mesh, params, ones,
                           (_hd_first_moments(back), r0["mu"])))
     del back
     torch.cuda.empty_cache()
-    print(f"fsdp {mesh} (b): rank 0 bit-equal to one process at batchSize "
-          f"{world} and grad_accum {world} after {DP_STEPS} steps {exact} "
-          f"(two runs of it bit-equal {repeat}); against it (||rank 0 - "
-          f"one||, ||a repeat of one - one||, ||one||; tol {GRAD_RATIO} x "
-          f"repeat + {GRAD_TOL} x norm): step 1's gradient by net "
-          f"{_dp_line(grad_2)}; the weights after {DP_STEPS} steps by net "
-          f"{_dp_line(dist_2)}; first-step losses {ranks[0]['losses'][0]} vs "
-          f"{loss_one[0]} (largest relative {max(first):.2e}); the .pt of "
-          f"the ranks ({os.path.basename(pt)}) read at world 1 bit-equal to "
-          f"their gathered weights and first moments {portable}; the "
-          f"world's wall from the go {wall:.1f} s [{card}]", flush=True)
-    if (repeat and not exact and world == 2) or not (ok_g and ok_2) \
-            or max(first) > FAMILY_ROUTE_TOL:
-        fail(f"fsdp {mesh} (b): the ranks moved off one process's steps")
+    replicas = (f"the ranks' replicated G, R and D bit-identical after each "
+                f"step {same}; " if kind == "tp" else "")
+    print(f"{kind} {mesh} (b): {replicas}rank 0 bit-equal to one process "
+          f"at batchSize {batch} and grad_accum {batch} after {DP_STEPS} "
+          f"steps {exact} (two runs of it bit-equal {repeat}); against it "
+          f"(||rank 0 - one||, ||a repeat of one - one||, ||one||; tol "
+          f"{GRAD_RATIO} x repeat + {GRAD_TOL} x norm): step 1's gradient "
+          f"by net {_dp_line(grad_2)}; the weights after {DP_STEPS} steps "
+          f"by net {_dp_line(dist_2)}; first-step losses "
+          f"{ranks[0]['losses'][0]} vs {loss_one[0]} (largest relative "
+          f"{max(first):.2e}); the .pt of the ranks ({os.path.basename(pt)}) "
+          f"read at world 1 bit-equal to their gathered weights and first "
+          f"moments {portable}; the world's wall from the go {wall:.1f} s "
+          f"[{card}]", flush=True)
+    if (repeat and not exact and world == 2 and kind == "fsdp") \
+            or not (ok_g and ok_2) or max(first) > FAMILY_ROUTE_TOL:
+        fail(f"{kind} {mesh} (b): the ranks moved off one process's steps")
     if not portable:
-        fail(f"fsdp {mesh}: the ranks' .pt read at world 1 differs from "
+        fail(f"{kind} {mesh}: the ranks' .pt read at world 1 differs from "
              "their state")
+    if kind == "tp":
+        _tp_forward_held(torch, dev, tmp, name, mesh, ranks, card)
     return ranks
+
+
+def _tp_expect(counts, mesh):
+    """A tp rank's predicted bytes under ``mesh``, from the nets' parameter
+    counts (G, R, D) and the rules' split counts of G and R, f32: each
+    split parameter 1/N a rank, the rest whole, each with two Adam moments;
+    a step sums each split block's input-shaped activation once in each
+    forward and backward pass (G: its forward, backward and D's no-grad
+    re-forward; R: its forward and backward), and averages the replicated
+    gradients and 5 losses over every rank (with a dp column, each split
+    gradient slice across it too)."""
+    from ctagan_tpu_torch.models import Generator, RegNet
+    from ctagan_tpu_torch.parallel import tensor
+
+    n, dp = mesh["tp"], mesh.get("dp", 1)
+    g_net, r_net = Generator(1, 1), RegNet()
+    g_split, r_split = (
+        sum(v.numel() for k, v in net.state_dict().items()
+            if rules[k] != tensor.REPLICATED)
+        for net, rules in ((g_net, tensor.tp_param_rules(g_net)),
+                           (r_net, tensor.reg_param_rules(r_net))))
+    g, r, d = counts
+    held = (g - g_split) + (r - r_split) + d + (g_split + r_split) // n
+    size = EVAL_SIZE  # one row a dp column
+    g_pass = 9 * (size // 4) ** 2 * 256
+    r_pass = sum((size >> i) ** 2 * c for i, c in enumerate(
+        (32, 64, 64, 64, 64, 64, 64))) + 3 * (size >> 7) ** 2 * 128 \
+        + size ** 2 * 32
+    sums = 4 * (3 * g_pass + 2 * r_pass)
+    means = 4 * ((g - g_split) + (r - r_split) + d) + 4 * 5 + (
+        4 * (g_split + r_split) // n if dp > 1 else 0)
+    return {"state": 3 * 4 * held, "sums": sums, "reduce": sums + means}
+
+
+# the tp phase's sharded forward: a seeded full-width G on a seeded 512²
+# batch of TP_FORWARD_ROWS slices, TP_FORWARD_CALLS calls on every rank,
+# each rank's output held within GEN_TOL of one process's layer route (the
+# split convs sum their halves, then the halves, in f32)
+TP_FORWARD_ROWS, TP_FORWARD_SEED, TP_FORWARD_CALLS = 2, 11, 2
+
+
+def _tp_forward_input(torch, dev):
+    gen = torch.Generator().manual_seed(TP_FORWARD_SEED)
+    return (torch.rand(TP_FORWARD_ROWS, EVAL_SIZE, EVAL_SIZE, 1,
+                       generator=gen) * 2 - 1).to(dev)
+
+
+def _tp_forward_g(torch, dev):
+    from ctagan_tpu_torch.models import Generator
+
+    return Generator(1, 1, fused_body=False).reset_parameters(
+        TP_FORWARD_SEED).to(dev)
+
+
+def _tp_forward_held(torch, dev, tmp, name, mesh, ranks, card):
+    """The ranks' ``infer_tensor_sharded`` (:func:`dp_worker`) against one
+    process's forward of the same G on the same batch."""
+    with torch.no_grad():
+        want = _tp_forward_g(torch, dev)(_tp_forward_input(torch, dev)).cpu()
+    got = [torch.load(os.path.join(tmp, f"{name}_fwd{r}.pt"))
+           for r in range(len(ranks))]
+    errs = [rel_err(torch, g, want) for g in got]
+    print(f"tp {mesh}: infer_tensor_sharded at {TP_FORWARD_ROWS}x"
+          f"{EVAL_SIZE}^2 (data_parallel {mesh.get('dp', 1) > 1}) vs one "
+          f"process's layer route: max error by rank {errs} (tol {GEN_TOL}); "
+          f"the ranks' outputs bit-equal "
+          f"{all(torch.equal(g, got[0]) for g in got)}; seconds a rank of "
+          f"{TP_FORWARD_CALLS} calls, then of G copied and split, then of "
+          f"its split forward alone "
+          f"{[[round(t, 3) for t in r['fwd_s']] for r in ranks]}, that "
+          f"forward's {len(ranks[0]['fwd_sums_ms'])} sums ms a rank "
+          f"{[round(sum(r['fwd_sums_ms']), 2) for r in ranks]} [{card}]",
+          flush=True)
+    if any(tuple(g.shape) != tuple(want.shape) for g in got) or \
+            not max(errs) <= GEN_TOL:
+        fail(f"tp {mesh}: the sharded forward differs from one process's")
+
+
+def check_tp(torch, card):
+    """Phase 20, a main path: the tp plan (``parallel/tensor.py``) on HD
+    stage 1 through the entry points' ``train()`` and ``test()``, under
+    ``mesh: {tp: 2}`` over two gloo ranks sharing the card (several cards:
+    NCCL, a rank a card; four or more: also ``{tp: 4}`` and ``{dp: 2, tp:
+    2}``): DP_STEPS steps against one process's on the layer route (held
+    as dp (b)), the replicated weights bit-identical across the ranks after
+    every step; each rank's resting state and the bytes it sums a step
+    against :func:`_tp_expect`; no kernel launched in the steps; test()
+    over the ranks on both routes (as dp (c); the eval G gathered, the
+    kernel route's body through K1); the ``.pt`` the ranks write, read at
+    world 1, bit-equal to their gathered state; ``infer_tensor_sharded``
+    at 512² against one process. Returns the ranks' launches (steps and the
+    kernel route's test())."""
+    dev = torch.device("cuda")
+    cards = torch.cuda.device_count()
+    meshes = [{"tp": 2}] + ([{"tp": 4}, {"dp": 2, "tp": 2}]
+                            if cards >= 4 else [])
+    counts = dict.fromkeys(SOURCES, 0)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        _, paths, yaml = _dp_corpus(tmp)
+        params = _hd_param_counts(torch)
+        ones = {}
+        print(f"tp: the corpus {time.perf_counter() - t0:.1f} s; G, R, D "
+              f"parameters {params}; predicted a rank under "
+              f"{meshes[0]}: {_tp_expect(params, meshes[0])} [{card}]",
+              flush=True)
+        for mesh in meshes:
+            run = _mesh_run(torch, dev, card, tmp, yaml, paths, mesh, params,
+                            ones, cards > 1)
+            world = mesh.get("dp", 1) * mesh["tp"]
+            _held_rank_tests(torch, run, ones["tests"], paths, world, tmp,
+                             _mesh_name(mesh), f"tp {mesh} (c)", card)
+            for res in run:
+                for k in counts:
+                    counts[k] += (res["counts"].get(k, 0)
+                                  + res["test_k_counts"].get(k, 0))
+    return counts
 
 
 def check_tensor_cores(lib_path):
@@ -4033,7 +4244,8 @@ MAIN_PATHS = {"serving": check_serving,
               "p3d": check_p3d,
               "corpus": check_corpus,
               "dp": check_dp,
-              "fsdp": check_fsdp}
+              "fsdp": check_fsdp,
+              "tp": check_tp}
 
 
 def main():

@@ -46,12 +46,13 @@ of the trainer's prefix in ``save_root``, else seeded weights; its EMA with
 ``ema_decay`` > 0. Every mode runs on the CUDA card unless ``--device cpu``
 is given; with no card and no ``--device`` they stop with an error.
 
-Several cards (the dp and fsdp plans, ``parallel/mesh.py``): with
+Several cards (the dp, fsdp and tp plans, ``parallel/mesh.py``): with
 ``data_parallel: true`` (the default) and more than one visible card,
 ``train`` and ``train_test`` start one rank per card themselves through
-``torchrun`` (``mesh: {dp: M, fsdp: N}``: M × N ranks), after building the
-kernels once, and each rank trains ``batchSize`` rows of every global
-batch. Under
+``torchrun`` (``mesh: {dp: M, fsdp: N}`` or ``{dp: M, tp: N}``: M × N
+ranks), after building the kernels once, and each rank trains
+``batchSize`` rows of every global batch (under tp the N ranks of a dp
+column the same rows). Under
 ``torchrun`` (its env set) the process joins the launcher's group:
 ``torchrun --nproc-per-node N -m ctagan_tpu_torch ...``, with ``--device
 cpu`` a gloo group on the CPU. ``infer``, ``figures``, ``export`` and
@@ -116,11 +117,11 @@ def _say(*args) -> None:
 def _train(trainer, max_steps: Optional[int] = None,
            max_steps_per_epoch: Optional[int] = None):
     config, device = trainer.config, trainer.device
-    n = trainer.plan.batch_scale
+    n, ranks = trainer.plan.batch_scale, dist.world()
     _say(f"training {config.name} ({trainer.title}) at {config.size}^2 on "
          f"{device}, fused_body_grad {config.fused_body_grad}"
-         + (f", {n} ranks, global batch {config.batchSize * n}"
-            if n > 1 else "")
+         + (f", {ranks} ranks, global batch {config.batchSize * n}"
+            if ranks > 1 else "")
          + (f", max {max_steps} steps" if max_steps is not None else "")
          + (f", max {max_steps_per_epoch} steps an epoch"
             if max_steps_per_epoch is not None else ""))
@@ -298,15 +299,17 @@ def main(argv=None) -> int:
 def dp_ranks(config: Config, device: torch.device,
              device_arg: Optional[str]) -> int:
     """The ranks ``--mode train`` starts itself outside a launcher: one a
-    visible card under the dp and fsdp plans (``mesh: {dp: M, fsdp: N}``:
-    M × N, which the cards must hold; else every card with
-    ``data_parallel``), one on the CPU, on a named card or with
-    ``data_parallel: false``."""
+    visible card under the dp, fsdp and tp plans (``mesh: {dp: M, fsdp:
+    N}`` or ``{dp: M, tp: N}``: M × N, which the cards must hold; else
+    every card with ``data_parallel``), one on the CPU, on a named card or
+    with ``data_parallel: false``."""
     if device.type != "cuda" or device_arg not in (None, "cuda"):
         return 1
     cards = torch.cuda.device_count()
     if config.mesh:
-        n = int(config.mesh.get("dp", 1)) * int(config.mesh.get("fsdp", 1))
+        n = 1
+        for axis in ("dp", "fsdp", "tp"):
+            n *= int(config.mesh.get(axis, 1))
         if n > cards:
             raise SystemExit(f"mesh {config.mesh} needs {n} devices, have "
                              f"{cards}")

@@ -31,6 +31,11 @@ are recomputed in the backward instead of kept. On the kernel route
 body never builds the rematerialized block: ``FusedChainFunction`` already
 saves only what its backward needs (each block's input, its two raw conv
 outputs and their norm statistics).
+
+A body split over tensor-parallel ranks (``parallel/tensor.py``: its blocks
+hold slices) runs the layer route whatever the flags say, as JAX gates its
+kernels off under a model-sharded plan; gathered whole again (an eval
+forward), it takes the route the flags pick.
 """
 from __future__ import annotations
 
@@ -117,6 +122,8 @@ class Generator(nn.Module):
         """x: (N, H, W, input_nc) -> (N, H, W, output_nc) in [-1, 1].
         ``fused_body`` picks the route for this call (default: the
         module's), on the same parameters: the trainer's eval forward."""
+        if not all(getattr(blk, "whole", True) for blk in self.model_body):
+            return self._forward_layers(x)  # split over tp ranks
         if self.fused_body if fused_body is None else fused_body:
             if self.pad_mode == "zero":
                 # the model's layer route, on every device: JAX's chain_ok

@@ -18,7 +18,12 @@ also runs on CUDA tensors. The fsdp plan (``parallel/fsdp.py``) adds
 flat buffers, :func:`all_gather_into` and :func:`reduce_scatter_mean`:
 ``all_gather_into_tensor`` and ``reduce_scatter_tensor``, which NCCL runs
 on the card and gloo on the CPU alone, so under gloo a CUDA buffer goes
-through the host. The path is chosen by the group's backend.
+through the host. The path is chosen by the group's backend. The tp plan
+(``parallel/tensor.py``) takes the same mesh, its tp blocks and dp
+columns, and reduces, sums and gathers rows within a group
+(:func:`all_reduce_mean_`, :func:`all_reduce_sum_`, :func:`gather_rows`
+with ``group``); a rank's column index (:func:`column_rank`) says which
+rows of the global batch it reads.
 """
 from __future__ import annotations
 
@@ -99,43 +104,44 @@ def shutdown() -> None:
     _coll_device = None
 
 
-def all_reduce_mean_(tensors: Sequence[torch.Tensor]) -> None:
-    """Replace each tensor by its mean over the ranks, in place: one flat
-    buffer per dtype, one ``all_reduce`` SUM each, divided by the world. In
-    a group of one the values come back bit for bit."""
+def all_reduce_mean_(tensors: Sequence[torch.Tensor], group=None) -> None:
+    """Replace each tensor by its mean over the ranks of ``group`` (default:
+    every rank), in place: one flat buffer per dtype, one ``all_reduce`` SUM
+    each, divided by the group's size. In a group of one the values come
+    back bit for bit."""
     if not initialized():
         return
-    n = world()
+    n = tdist.get_world_size(group)
     groups: Dict[tuple, List[torch.Tensor]] = {}
     for t in tensors:
         groups.setdefault((t.dtype, t.device), []).append(t)
     for parts in groups.values():
         flat = torch.cat([t.reshape(-1) for t in parts])
-        tdist.all_reduce(flat, op=tdist.ReduceOp.SUM)
+        tdist.all_reduce(flat, op=tdist.ReduceOp.SUM, group=group)
         flat.div_(n)
         for t, chunk in zip(parts, flat.split([t.numel() for t in parts])):
             t.copy_(chunk.view_as(t))
 
 
-def gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """The global batch of ``x`` (every rank's rows, rank 0's first): an
-    ``all_reduce`` SUM of a zero-filled global buffer in which each rank
-    fills its own rows, so each value is its rank's own. Without a group,
-    ``x`` itself."""
+def gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The global batch of ``x`` over the ranks of ``group`` (default: every
+    rank), in their order: an ``all_reduce`` SUM of a zero-filled global
+    buffer in which each rank fills its own rows, so each value is its
+    rank's own. Without a process group, ``x`` itself."""
     if not initialized():
         return x
-    n, r = x.shape[0], rank()
-    buf = x.new_zeros((n * world(), *x.shape[1:]))
+    n, r = x.shape[0], tdist.get_rank(group)
+    buf = x.new_zeros((n * tdist.get_world_size(group), *x.shape[1:]))
     buf[r * n:(r + 1) * n] = x
-    tdist.all_reduce(buf, op=tdist.ReduceOp.SUM)
+    tdist.all_reduce(buf, op=tdist.ReduceOp.SUM, group=group)
     return buf
 
 
-def all_reduce_sum_(t: torch.Tensor) -> torch.Tensor:
-    """``t`` summed over the ranks, in place (the identity without a
-    group)."""
+def all_reduce_sum_(t: torch.Tensor, group=None) -> torch.Tensor:
+    """``t`` summed over the ranks of ``group`` (default: every rank), in
+    place (the identity without a process group)."""
     if initialized():
-        tdist.all_reduce(t, op=tdist.ReduceOp.SUM)
+        tdist.all_reduce(t, op=tdist.ReduceOp.SUM, group=group)
     return t
 
 
@@ -160,10 +166,11 @@ def barrier() -> None:
 
 def mesh_groups(dp: int, fsdp: int) -> Tuple[object, Optional[object]]:
     """This rank's groups of a ``dp`` × ``fsdp`` mesh laid out as JAX's
-    ``reshape(dp, fsdp)``: its fsdp block (``fsdp`` consecutive ranks) and
-    its dp column (the ``dp`` ranks spaced by ``fsdp``; None when ``dp`` is
-    1). A block of the whole world is the default group. Every rank creates
-    every group, in the same order, as ``new_group`` needs."""
+    ``reshape(dp, fsdp)`` (``fsdp`` the fsdp or the tp extent): its block
+    (``fsdp`` consecutive ranks) and its dp column (the ``dp`` ranks spaced
+    by ``fsdp``; None when ``dp`` is 1). A block of the whole world is the
+    default group. Every rank creates every group, in the same order, as
+    ``new_group`` needs."""
     n, r = world(), rank()
     if dp * fsdp != n:
         raise ValueError(f"a {dp} x {fsdp} mesh needs {dp * fsdp} ranks, "
@@ -180,6 +187,13 @@ def mesh_groups(dp: int, fsdp: int) -> Tuple[object, Optional[object]]:
         if r % fsdp == f:
             column = g
     return block, column
+
+
+def column_rank(n: int) -> int:
+    """This rank's place in its dp column of a mesh of blocks of ``n``
+    (:func:`mesh_groups`): which rows of the global batch it reads under
+    tp, where the ``n`` ranks of a block read the same rows."""
+    return rank() // n
 
 
 def _through_host(t: torch.Tensor, group) -> bool:

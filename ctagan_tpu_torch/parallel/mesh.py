@@ -9,9 +9,12 @@ gradients mean-reduced over the ranks in the train steps. The fsdp plan
 (``{fsdp: N}``, or the hybrid ``{dp: M, fsdp: N}``): M × N ranks, the
 state sharded over each block of N (``parallel/fsdp.py``), the batch over
 all M × N, as JAX's ``P((data, fsdp))``. A rank's rows are the block that
-device ``rank`` holds under JAX's sharding of the global batch. The other
-model axes (tp, sp, depth, pp) are validated as in JAX and raise naming
-their ROADMAP item.
+device ``rank`` holds under JAX's sharding of the global batch. The tp
+plan (``{tp: N}``, or ``{dp: M, tp: N}``): M × N ranks, each residual pair
+split over each block of N (``parallel/tensor.py``), the batch over the M
+dp columns alone, as JAX's ``P(data)`` replicates it over ``model``: the N
+ranks of a block read the same rows. The other model axes (sp, depth, pp)
+are validated as in JAX and raise naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -22,41 +25,52 @@ import numpy as np
 
 MODEL_AXES = ("fsdp", "tp", "sp", "depth", "pp")
 # the ROADMAP item of each model axis not ported yet
-_ITEMS = {"tp": "M12c", "sp": "M12d", "pp": "M12e", "depth": "M12f"}
+_ITEMS = {"sp": "M12d", "pp": "M12e", "depth": "M12f"}
 
 
 @dataclass(frozen=True)
 class MeshPlan:
-    """``kind`` names the plan (``"dp"`` or ``"fsdp"``); ``batch_scale`` is
-    how many ways the global batch splits, the number of ranks, ``dp`` ×
-    ``fsdp``."""
+    """``kind`` names the plan (``"dp"``, ``"fsdp"`` or ``"tp"``);
+    ``batch_scale`` is how many ways the global batch splits: the number of
+    ranks, ``dp`` × ``fsdp``, or ``dp`` under tp."""
 
     kind: str
     batch_scale: int
     dp: int = 1
     fsdp: int = 1
+    tp: int = 1
+
+    def batch_rank(self, rank: int) -> int:
+        """Which of the ``batch_scale`` blocks of a global batch rank
+        ``rank`` reads: its own, or under tp its dp column's."""
+        return rank // self.tp
 
     def describe(self) -> str:
-        """JAX's "mesh plan" line: the mesh's axes and extents."""
+        """JAX's "mesh plan" line: the mesh's axes and extents; under tp
+        also that its step runs no kernel."""
+        model = {"fsdp": ("fsdp", self.fsdp), "tp": ("model", self.tp)}
         if self.kind == "dp":
             axes = {"data": self.dp}
-        elif self.dp == 1:
-            axes = {"fsdp": self.fsdp}
         else:
-            axes = {"data": self.dp, "fsdp": self.fsdp}
-        return (f"mesh plan: {axes} (kind={self.kind}, "
+            name, n = model[self.kind]
+            axes = {name: n} if self.dp == 1 else {"data": self.dp, name: n}
+        line = (f"mesh plan: {axes} (kind={self.kind}, "
                 f"batch x{self.batch_scale})")
+        if self.kind == "tp":
+            line += ("; the split residual pairs run the layer route, so "
+                     "the tp step launches no kernel (JAX's gate)")
+        return line
 
 
 def plan_from_spec(spec, world: int) -> MeshPlan:
     """A plan from a ``config.mesh`` dict (keys dp/fsdp/tp/sp/depth/pp, each
     an axis extent, default 1) for a group of ``world`` ranks, validated as
     JAX's: unknown axes, extents below 1 and more than one model axis above
-    1 raise ValueError. tp, sp, depth or pp above 1 then raises
+    1 raise ValueError. sp, depth or pp above 1 then raises
     NotImplementedError naming its ROADMAP item, whatever the world. ``{dp:
-    M}`` (or ``{}``, M = 1) and ``{dp: M, fsdp: N}`` need exactly ``world``
-    = M × N ranks: more raise JAX's "needs M × N devices", fewer that the
-    group is larger than the plan."""
+    M}`` (or ``{}``, M = 1), ``{dp: M, fsdp: N}`` and ``{dp: M, tp: N}``
+    need exactly ``world`` = M × N ranks: more raise JAX's "needs M × N
+    devices", fewer that the group is larger than the plan."""
     spec: Dict[str, int] = dict(spec or {})
     unknown = set(spec) - {"dp", *MODEL_AXES}
     if unknown:
@@ -74,9 +88,9 @@ def plan_from_spec(spec, world: int) -> MeshPlan:
         kind = model_axes[0]
         raise NotImplementedError(
             f"mesh {spec}: the {kind} plan is not ported yet (ROADMAP "
-            f"{_ITEMS[kind]}); the port runs the dp and fsdp plans")
-    dp, fsdp = sizes["dp"], sizes["fsdp"]
-    total = dp * fsdp
+            f"{_ITEMS[kind]}); the port runs the dp, fsdp and tp plans")
+    dp, fsdp, tp = sizes["dp"], sizes["fsdp"], sizes["tp"]
+    total = dp * fsdp * tp
     if total > world:
         raise ValueError(f"mesh {spec} needs {total} devices, have {world}")
     if total < world:
@@ -84,6 +98,8 @@ def plan_from_spec(spec, world: int) -> MeshPlan:
             f"mesh {spec} trains on {total} rank(s), but the process group "
             f"has {world}: launch {total} (torchrun --nproc-per-node "
             f"{total})")
+    if tp > 1:
+        return MeshPlan("tp", dp, dp, tp=tp)
     return MeshPlan("fsdp" if fsdp > 1 else "dp", total, dp, fsdp)
 
 

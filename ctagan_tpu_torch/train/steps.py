@@ -53,6 +53,13 @@ net's update where it reads it again (D's fresh forward of the updated G;
 :func:`_apply` releases an updated net), reduce-scatters each net's
 gradient into its shard in :func:`_value_and_grad`, and steps Adam and the
 EMA on the shards; every net is released by the step's end.
+
+The tp plan (``parallel/tensor.py``): the split residual pairs run on the
+layer route (``Generator.forward``'s gate), a split parameter's gradient is
+mean-reduced over the rank's dp column alone and every other over every
+rank (:func:`_value_and_grad`); the tp ranks of a dp column read its rows
+and draw its augmentation (:func:`_batch_ranks`), as JAX replicates its
+rng key over the model axis.
 """
 from __future__ import annotations
 
@@ -73,7 +80,7 @@ from ctagan_tpu_torch.ops.losses import (
 )
 from ctagan_tpu_torch.ops.resize import interpolate_bilinear
 from ctagan_tpu_torch.ops.warp import smoothing_loss, warp2d, warp2d_local
-from ctagan_tpu_torch.parallel import dist, fsdp
+from ctagan_tpu_torch.parallel import dist, fsdp, tensor
 from ctagan_tpu_torch.parallel.mesh import shard_rows
 from ctagan_tpu_torch.train.replay_buffer import ReplayBuffer, push_and_pop
 
@@ -147,7 +154,9 @@ def _value_and_grad(loss_fn: LossFn, nets: Sequence[torch.nn.Module],
     steps (:func:`_apply`). In a process group all three are then
     mean-reduced over the ranks, outside autograd: in one collective per
     dtype, or under fsdp the losses so and each net's gradients by a
-    reduce-scatter into its shard."""
+    reduce-scatter into its shard; under tp the gradients of split
+    parameters over the rank's dp column alone (they differ between the
+    ranks of a tp block)."""
     per_net = [list(net.parameters()) for net in nets]
     params = [p for ps in per_net for p in ps]
     lead = next(iter(batches.values())).shape[0]
@@ -174,30 +183,53 @@ def _value_and_grad(loss_fn: LossFn, nets: Sequence[torch.nn.Module],
     for ps in per_net:
         by_net.append(grads[i:i + len(ps)])
         i += len(ps)
-    if fsdp.flat_of(nets[0]) is None:
-        dist.all_reduce_mean_([loss, *aux.values(), *grads])
-        return loss, aux, by_net
-    dist.all_reduce_mean_([loss, *aux.values()])
-    return loss, aux, [[fsdp.flat_of(net).reduce_grads(g)]
-                       for net, g in zip(nets, by_net)]
+    if fsdp.flat_of(nets[0]) is not None:
+        dist.all_reduce_mean_([loss, *aux.values()])
+        return loss, aux, [[fsdp.flat_of(net).reduce_grads(g)]
+                           for net, g in zip(nets, by_net)]
+    split = {p for net in nets for p in tensor.split_params(net)}
+    dist.all_reduce_mean_([loss, *aux.values(), *(
+        g for p, g in zip(params, grads) if p not in split)])
+    mesh = next(filter(None, map(tensor.mesh_of, nets)), None)
+    if split and mesh.dp > 1:
+        dist.all_reduce_mean_([g for p, g in zip(params, grads)
+                               if p in split], mesh.dp_group)
+    return loss, aux, by_net
 
 
-def _rank_rows(n: int) -> slice:
-    """This rank's rows of the global batch that every rank's ``n`` rows
-    make."""
-    world = dist.world()
-    return shard_rows(n * world, dist.rank(), world)
+def _batch_ranks(state) -> Tuple[int, int, Optional[object]]:
+    """(this rank's place, their count, their group) among the ranks that
+    split the global batch: every rank (the default group), or under tp
+    the rank's dp column; the tp ranks of a column read its rows."""
+    mesh = state.tp
+    if mesh is None:
+        return dist.rank(), dist.world(), None
+    return mesh.column, mesh.dp, mesh.dp_group
+
+
+def _rank_rows(state, n: int) -> slice:
+    """This rank's rows of the global batch of every such rank's ``n``
+    rows (:func:`_batch_ranks`)."""
+    index, count, _ = _batch_ranks(state)
+    return shard_rows(n * count, index, count)
+
+
+def _global_rows(state, x: torch.Tensor) -> torch.Tensor:
+    """The global batch whose rows of this rank are ``x``."""
+    _, count, group = _batch_ranks(state)
+    return x if count == 1 else dist.gather_rows(x, group)
 
 
 def _augment(state, cfg, a: torch.Tensor, b: torch.Tensor):
     """A and B through independent affine draws (one shared draw with
     ``aligned_aug``): the global batch's draws, this rank's rows of them."""
     n, h, w, _ = a.shape
-    noise, rows = cfg["noise_level"], _rank_rows(n)
+    noise, rows = cfg["noise_level"], _rank_rows(state, n)
+    count = n * _batch_ranks(state)[1]  # the global batch's rows
 
     def draw():
         return tuple(p[rows] for p in sample_affine_params(
-            state.gen, n * dist.world(), noise, h, w))
+            state.gen, count, noise, h, w))
 
     params_a = draw()
     params_b = params_a if cfg.get("aligned_aug", False) else draw()
@@ -216,6 +248,7 @@ class P2pState:
     d_opt: torch.optim.Adam
     gen: torch.Generator  # augmentation draws
     g_ema: Optional[torch.nn.Module] = None
+    tp: Optional[tensor.TpMesh] = None  # set by tensor.shard_state_tp
     # each optimizer's nets, in its parameter order, and the EMA shadows
     OPT_NETS: ClassVar = {"g_opt": ("g_model",), "d_opt": ("d_model",)}
     EMA_NETS: ClassVar = ("g_ema",)
@@ -358,6 +391,7 @@ class CycState:
     gen: torch.Generator  # augmentation and replay-pool draws
     g_ema: Optional[torch.nn.Module] = None  # of G_A2B, the eval model
     g_ema_b2a: Optional[torch.nn.Module] = None
+    tp: Optional[tensor.TpMesh] = None
     OPT_NETS: ClassVar = {"g_opt": ("g_a2b", "g_b2a"), "d_a_opt": ("d_a",),
                           "d_b_opt": ("d_b",)}
     EMA_NETS: ClassVar = ("g_ema", "g_ema_b2a")
@@ -417,11 +451,11 @@ def cyc_train_step(state: CycState, cfg: Dict,
     # the Ds train on the pre-update fakes, through the history pools: the
     # global batch's fakes through one pool, this rank's rows of what it
     # passes on
-    rows = _rank_rows(real_a.shape[0])
-    fake_a_d = push_and_pop(state.fake_a_buffer, dist.gather_rows(fakes["a"]),
-                            state.gen)[rows]
-    fake_b_d = push_and_pop(state.fake_b_buffer, dist.gather_rows(fakes["b"]),
-                            state.gen)[rows]
+    rows = _rank_rows(state, real_a.shape[0])
+    fake_a_d = push_and_pop(state.fake_a_buffer,
+                            _global_rows(state, fakes["a"]), state.gen)[rows]
+    fake_b_d = push_and_pop(state.fake_b_buffer,
+                            _global_rows(state, fakes["b"]), state.gen)[rows]
 
     def d_update(d_model, opt, real, fake):
         def d_loss(mb):
@@ -457,6 +491,7 @@ class RegState:
     d_opt: torch.optim.Adam
     gen: torch.Generator  # augmentation draws
     g_ema: Optional[torch.nn.Module] = None
+    tp: Optional[tensor.TpMesh] = None
     OPT_NETS: ClassVar = {"g_opt": ("g_model",), "r_opt": ("r_model",),
                           "d_opt": ("d_model",)}
     EMA_NETS: ClassVar = ("g_ema",)

@@ -66,11 +66,22 @@ the stage-2 bootstrap go through the one-process layout
 under any plan and any plan resumes from it, or from a JAX ``.ckpt``.
 validate() and test() gather the eval G for their pass, the panels for
 theirs. An emergency save is skipped: a rank that another rank's failure
-stopped may never reach the gather. tp, sp, depth and pp raise naming
+stopped may never reach the gather. sp, depth and pp raise naming
 their ROADMAP M12 item.
+
+The tp plan (``mesh: {tp: N}`` or ``{dp: M, tp: N}``) trains over M × N
+ranks with the residual pairs of G and R split over each block of N after
+init (``parallel/tensor.py``); the N ranks of a block read their dp
+column's rows. Checkpoints, loads and the bootstrap go through the
+one-process layout (``tensor.unsharded_state``), validate() and test()
+gather the eval G whole on every rank and split their batches over all M
+× N ranks, as under fsdp; the emergency save is skipped alike. The split
+step runs no kernel (``Generator.forward``'s gate); the gathered eval G
+takes its configured route.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
 import sys
@@ -109,7 +120,7 @@ from ctagan_tpu_torch.models.convert import (
     regnet_state_dict,
 )
 from ctagan_tpu_torch.ops.lpips import make_lpips_fn
-from ctagan_tpu_torch.parallel import dist, fsdp
+from ctagan_tpu_torch.parallel import dist, fsdp, tensor
 from ctagan_tpu_torch.parallel.mesh import (
     MeshPlan,
     pad_batch_to,
@@ -152,6 +163,26 @@ def _fused_body_grad(cfg: Config):
     if isinstance(v, bool) or v == "auto":
         return v
     return v == "on"
+
+
+@contextlib.contextmanager
+def _one_process(state):
+    """The state in the one-process layout for the block, under fsdp or tp
+    (every rank gathering); as it is under dp."""
+    with fsdp.unsharded_state(state), tensor.unsharded_state(state):
+        yield
+
+
+@contextlib.contextmanager
+def _whole(model):
+    """``model``'s weights gathered whole for the block, under fsdp or
+    tp."""
+    with fsdp.gathered(model), tensor.gathered(model):
+        yield
+
+
+def _sharded(state) -> bool:
+    return fsdp.is_sharded(state) or tensor.is_sharded(state)
 
 
 def panel_uint8(t: torch.Tensor) -> torch.Tensor:
@@ -222,6 +253,9 @@ class TrainerBase:
         if self.plan.kind == "fsdp":
             fsdp.shard_state_fsdp(self.state, fsdp.make_fsdp_mesh(
                 self.plan.dp, self.plan.fsdp))
+        elif self.plan.kind == "tp":
+            tensor.shard_state_tp(self.state, tensor.make_tp_mesh(
+                self.plan.dp, self.plan.tp))
         self.timer = StepTimer(self.device)
         if config.resume:
             self._try_resume()
@@ -266,7 +300,7 @@ class TrainerBase:
 
     def _set_g_params(self, sd) -> None:
         """Loaded G weights; they overwrite the EMA shadow too."""
-        with fsdp.unsharded_state(self.state):
+        with _one_process(self.state):
             self.g_model.load_state_dict(sd, strict=True)
             ema = getattr(self.state, "g_ema", None)
             if ema is not None:
@@ -336,7 +370,8 @@ class TrainerBase:
                                 drop_last=True,
                                 num_threads=self._loader_threads or cfg.n_cpu,
                                 rng=self._data_rng,
-                                shard=(dist.rank(), n) if n > 1 else None)
+                                shard=(self.plan.batch_rank(dist.rank()), n)
+                                if n > 1 else None)
         if len(loader) == 0:
             raise ValueError(
                 f"train loader is EMPTY: {len(ds)} samples for a global "
@@ -386,7 +421,7 @@ class TrainerBase:
         """The state in the one-process layout (under fsdp every rank
         gathers it)."""
         st = self.state
-        with fsdp.unsharded_state(st):
+        with _one_process(st):
             out: Dict[str, object] = {key: getattr(st, net).state_dict()
                                       for key, net in self._NETS}
             for name in self._OPTS + self._EMAS:
@@ -397,7 +432,7 @@ class TrainerBase:
 
     def _load_state(self, state) -> None:
         st = self.state
-        with fsdp.unsharded_state(st):
+        with _one_process(st):
             for key, net in self._NETS:
                 getattr(st, net).load_state_dict(state[key])
             for name in self._OPTS + self._EMAS:
@@ -415,7 +450,7 @@ class TrainerBase:
         layout, plan-portable as JAX's ``_canonical_state`` makes it; under
         fsdp every rank gathers it) and every rank waits for it; returns
         its path on rank 0. Under fsdp an emergency save is skipped."""
-        sharded = fsdp.is_sharded(self.state)
+        sharded = _sharded(self.state)
         if sharded and self._emergency:
             if not self.quiet:
                 print("\nemergency checkpoint skipped: the state is sharded "
@@ -464,7 +499,7 @@ class TrainerBase:
             return
         payload = found[1] if found else load_checkpoint(path)
         if is_jax_checkpoint(path):
-            with fsdp.unsharded_state(self.state):
+            with _one_process(self.state):
                 load_jax_state(self.state, payload["state"])
         else:
             self._load_state(payload["state"])
@@ -619,7 +654,7 @@ class TrainerBase:
                         logger.log(lo)
                     pending = []
                     if cfg.live_panels:
-                        with fsdp.gathered(self._eval_model()):
+                        with _whole(self._eval_model()):
                             self._refresh_live_panel(db)
                 if (i + 1) % cfg.checkpoint_every_iters == 0:
                     self._save(epoch)
@@ -641,7 +676,7 @@ class TrainerBase:
                         wd.resume()
                 if not self.quiet:
                     print(f"PSNR: {psnr_v}\nSSIM: {ssim_v}", flush=True)
-                with fsdp.gathered(self._eval_model()):
+                with _whole(self._eval_model()):
                     self._log_val_dashboard(epoch, psnr_v, ssim_v)
                 self._save(epoch, psnr_v, ssim_v)
                 self._collapse_guard(epoch, psnr_v, ssim_v)
@@ -824,7 +859,7 @@ class TrainerBase:
         vals = torch.zeros(2, len(self.val_dataset), dtype=torch.float64,
                            device=self.device)
         ds = self.val_dataset
-        with fsdp.gathered(self._eval_model()):
+        with _whole(self._eval_model()):
             for start, _, lo, real, _, block in self._eval_feed(
                     ds, self._eval_blocks(len(ds))):
                 if real:
@@ -858,7 +893,7 @@ class TrainerBase:
             found = find_latest_checkpoint(cfg.save_root, self.ckpt_prefix)
             if found:
                 self.load_generator(found[0])
-        with fsdp.gathered(self._eval_model()):
+        with _whole(self._eval_model()):
             return self._test_pass(write_dicom)
 
     def _test_pass(self, write_dicom: bool) -> Dict[str, float]:
@@ -1156,7 +1191,7 @@ class HdTrainerStage2(HdTrainerStage1):
             r_sd = regnet_state_dict(state["r_params"])
         else:
             g_sd, r_sd = state["g"], state["r"]
-        with fsdp.unsharded_state(self.state):
+        with _one_process(self.state):
             self.g_model.load_state_dict(g_sd, strict=True)
             self.r_model.load_state_dict(r_sd, strict=True)
         if not self.quiet:

@@ -12,13 +12,15 @@ lists or other flow collections. Keys that are not fields land in
 ``extras``, as in the JAX package (``serve_port``, ``serve_quantize``,
 ``max_batch`` and stage 2's ``num_d`` and ``pyramid`` are read from there).
 
-``mesh`` (the parallel plans) is validated as in JAX. The dp and fsdp
+``mesh`` (the parallel plans) is validated as in JAX. The dp, fsdp and tp
 plans are ported (``parallel/mesh.py``): ``data_parallel: true`` (JAX's
-default), ``mesh: {dp: N}``, ``{fsdp: N}`` or ``{dp: M, fsdp: N}`` trains
-over the ranks of a process group, one card each, ``batchSize`` rows per
-rank (under fsdp with the state sharded, ``parallel/fsdp.py``). tp, sp,
-depth or pp above 1 raises naming its ROADMAP M12 item when a trainer is
-built, as ``infer_depth_sharded: true`` does in ``infer_series``.
+default), ``mesh: {dp: N}``, ``{fsdp: N}``, ``{dp: M, fsdp: N}``, ``{tp:
+N}`` or ``{dp: M, tp: N}`` trains over the ranks of a process group, one
+card each, ``batchSize`` rows per rank, or per dp column under tp (under
+fsdp with the state sharded, ``parallel/fsdp.py``; under tp with the
+residual pairs split, ``parallel/tensor.py``). sp, depth or pp above 1
+raises naming its ROADMAP M12 item when a trainer is built, as
+``infer_depth_sharded: true`` does in ``infer_series``.
 
 The keys of the JAX package's TPU workarounds are accepted and ignored:
 ``checkpoint_backend`` (validated as in JAX, but it picks a JAX serialiser;
@@ -117,8 +119,8 @@ class Config:
     # train over every rank of the process group (--mode train starts one a
     # card), batchSize rows each; without ``mesh``
     data_parallel: bool = True
-    # the parallel plan, e.g. {dp: 2} or {fsdp: 2}; tp, sp, depth or pp > 1
-    # raises (ROADMAP M12)
+    # the parallel plan, e.g. {dp: 2}, {fsdp: 2} or {tp: 2}; sp, depth or
+    # pp > 1 raises (ROADMAP M12)
     mesh: Dict[str, int] = field(default_factory=dict)
     extras: Dict[str, Any] = field(default_factory=dict)
 

@@ -3,8 +3,9 @@ on the CPU, with gloo ranks in child processes that ``torchrun``
 (``torch.distributed.run``) starts.
 
 - ``plan_from_spec`` refuses every spec that JAX's ``plan_from_spec`` or
-  config refuses (``tests/test_mesh_plan.py``); tp, sp, depth or pp above
-  1 names its ROADMAP M12 item; ``{dp: N}`` needs a group of N ranks.
+  config refuses (``tests/test_mesh_plan.py``); sp, depth or pp above 1
+  names its ROADMAP M12 item; ``{dp: N}`` needs a group of N ranks, and
+  ``{dp: M, tp: N}`` M × N.
 - ``PrefetchLoader.shard``: at world 2 the ranks' rows are disjoint and
   together are world 1's global batches; at ``batchSize`` 1 they are JAX's
   multi-process ``order[idx::count]``; a dataset that draws at access
@@ -173,13 +174,27 @@ def test_config_mesh_refused_as_jax(mesh):
 
 
 @pytest.mark.parametrize("spec,item", [
-    ({"dp": 2, "tp": 2}, "M12c"), ({"tp": 4}, "M12c"), ({"sp": 2}, "M12d"),
+    ({"dp": 2, "sp": 2}, "M12d"), ({"depth": 4}, "M12f"), ({"sp": 2}, "M12d"),
     ({"pp": 3}, "M12e"), ({"dp": 2, "pp": 4}, "M12e"), ({"depth": 2}, "M12f"),
 ], ids=str)
 def test_model_axis_names_its_roadmap_item(spec, item):
     for world in (1, 8):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             plan_from_spec(spec, world)
+
+
+@pytest.mark.parametrize("spec,world", [({"tp": 2}, 2), ({"tp": 4}, 4),
+                                        ({"dp": 2, "tp": 2}, 4)], ids=str)
+def test_tp_plan_needs_dp_times_tp_ranks(spec, world):
+    """The tp plan (ported): JAX's ``batch_scale`` (the dp extent, the
+    batch replicated over tp) at world dp × tp, and JAX's "needs N
+    devices" at world 1."""
+    p = plan_from_spec(spec, world)
+    assert (p.kind, p.batch_scale) == ("tp", spec.get("dp", 1))
+    assert p.batch_scale == jax_plan_from_spec(
+        spec, jax.devices()[:world]).batch_scale
+    with pytest.raises(ValueError, match=f"needs {world} devices, have 1"):
+        plan_from_spec(spec, 1)
 
 
 def test_dp_plan_needs_a_group_of_its_size():

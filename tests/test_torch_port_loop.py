@@ -427,12 +427,15 @@ def test_config_validation_refuses_as_jax(raw):
 @pytest.mark.parametrize("text", ["mesh: {dp: 2}", "mesh:\n  pp: 2",
                                   "mesh: {dp: 1, tp: 4}"])
 def test_yaml_mesh_reaches_the_m12_refusal(tmp_path, text):
-    """A model axis reaches its M12 refusal; the dp plan is ported, and
-    ``{dp: 2}`` in one process reaches JAX's "needs 2 devices"."""
+    """A model axis not ported reaches its M12 refusal; the dp and tp
+    plans are ported, and ``{dp: 2}`` or ``{dp: 1, tp: 4}`` in one process
+    reaches JAX's "needs N devices"."""
     path = tmp_path / "c.yaml"
     path.write_text(f"name: P2p\nsize: {SIZE}\n{text}\n")
     cfg = load_config(str(path))
     err, match = ((ValueError, "needs 2 devices, have 1") if "dp: 2" in text
+                  else (ValueError, "needs 4 devices, have 1")
+                  if "tp: 4" in text
                   else (NotImplementedError, "ROADMAP M12"))
     with pytest.raises(err, match=match):
         build_trainer(cfg, torch.device("cpu"), quiet=True)
