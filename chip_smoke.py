@@ -468,7 +468,7 @@ DP_KERNEL_METRIC_TOL, DP_KERNEL_PIXELS = 3e-5, 1
 ALL_PHASES = ("kernels", "generator", "int8", "grad", "serving",
               "int8_serving", "training", "test", "stage2", "families",
               "infer", "export", "figures", "loop", "p3d", "corpus", "dp",
-              "fsdp", "tp")
+              "fsdp", "tp", "sp")
 
 
 def fail(msg):
@@ -4174,6 +4174,533 @@ def check_tp(torch, card):
     return counts
 
 
+# the sp phase (parallel/halo.py, parallel/spatial.py): (a)
+# infer_spatial_sharded of a seeded full-width G (f32, TF32 off) on a seeded
+# SP_FORWARD_SIZE² slice with halo SP_HALO, SP_FORWARD_CALLS calls a rank,
+# held within GEN_TOL of one process's forward of the symmetric-extended
+# slice, cropped; (b) configs/P2p.yaml (512², batchSize 1) for DP_STEPS
+# steps under {sp: 2} (four cards: {dp: 2, sp: 2}) on a seeded corpus of
+# SP_SLICES slice pairs, held as tp's (b) against one process at batchSize
+# dp and grad_accum dp on the layer route; (c) test() over the ranks of
+# the first SP_TEST slices a rank (the eval G whole, its configured route)
+SP_FORWARD_SIZE, SP_HALO, SP_FORWARD_SEED, SP_FORWARD_CALLS = 2048, 96, 13, 2
+SP_SLICES = 8
+
+
+def _sp_forward_g(torch, dev):
+    from ctagan_tpu_torch.models import Generator
+
+    return Generator(1, 1, fused_body=False).reset_parameters(
+        SP_FORWARD_SEED).to(dev)
+
+
+def _sp_forward_image():
+    import numpy as np
+
+    return np.random.default_rng(SP_FORWARD_SEED).uniform(
+        -1, 1, (SP_FORWARD_SIZE, SP_FORWARD_SIZE)).astype(np.float32)
+
+
+def _net_weights(trainer):
+    """Each net's weights on the host, by checkpoint key."""
+    return _state_weights(trainer.state, trainer._NETS)
+
+
+def _state_weights(state, nets):
+    return {key: {k: v.detach().cpu().clone()
+                  for k, v in getattr(state, attr).state_dict().items()}
+            for key, attr in nets}
+
+
+def _net_first_moments(trainer):
+    """Adam's first moment of each parameter, by checkpoint key."""
+    return _state_first_moments(trainer.state, trainer._NETS)
+
+
+def _state_first_moments(state, nets):
+    opt_of = {net: getattr(state, opt)
+              for opt, names in state.OPT_NETS.items() for net in names}
+    return {key: {k: opt_of[attr].state[p]["exp_avg"].detach().cpu()
+                  .clone()
+                  for k, p in getattr(state, attr).named_parameters()}
+            for key, attr in nets}
+
+
+def _net_digest(trainer):
+    """Every net's weights as one number, reduced on the device (as
+    :func:`_hd_digest`)."""
+    import torch
+
+    sums = []
+    for _, attr in trainer._NETS:
+        for v in getattr(trainer.state, attr).state_dict().values():
+            bits = v.detach().reshape(-1).view(torch.int32).long()
+            pos = torch.arange(1, bits.numel() + 1, device=bits.device)
+            sums.append((bits * pos).sum())
+    total = 0
+    for x in torch.stack(sums).tolist():
+        total = total * 1000003 + x
+    return total % (1 << 64)
+
+
+def _sp_expect(mesh, size, params):
+    """A rank's predicted bytes a P2p step under ``mesh`` (f32, one row a
+    dp column, no grad_accum), from the nets' shapes and parameter
+    counts (G, D): each conv's row exchange gathers every rank's edge rows
+    (its rows for the rank above and for the rank below, and one element of
+    its row count in the forward), and each InstanceNorm, D's pooled logit
+    and the L1 loss's count all-reduce their sums forward (and, but the
+    count, backward); G's gradient (with 3 losses) and D's (with 1) are
+    summed over the block, and with a dp column averaged across it. The
+    step: G forward and backward (its first conv's input takes no
+    gradient), D on the fake forward and backward; then G forward without
+    grad, D on fake and real forward and backward (D's first conv's input
+    takes no gradient)."""
+    n, dp, f = mesh["sp"], mesh.get("dp", 1), 64
+    # (W, C, rows from above, rows from below) of each conv's exchange
+    g_convs = ([(size, 1, 3, 3), (size, f, 1, 0), (size // 2, 2 * f, 1, 0)]
+               + [(size // 4, 4 * f, 1, 1)] * 18
+               + [(size // 4, 4 * f, 0, 1), (size // 2, 2 * f, 0, 1),
+                  (size, f, 3, 3)])
+    d_convs = [(size, 2, 1, 1), (size // 2, f, 1, 1),
+               (size // 4, 2 * f, 1, 1), (size // 8, 4 * f, 1, 2),
+               (size // 8 - 1, 8 * f, 1, 2)]
+
+    def gathered(convs, tag):
+        return sum(4 * n * ((t + b) * w * c + tag) for w, c, t, b in convs)
+
+    g_norms = [f, 2 * f, 4 * f] + [4 * f] * 18 + [2 * f, f]
+    g_norm = sum(4 * (2 * c + 1) for c in g_norms)
+    d_norm = sum(4 * (2 * c + 1) for c in (2 * f, 4 * f, 8 * f)) \
+        + 4 * 2  # the pooled logit and its count
+    g_params, d_params = params
+    gather = (gathered(g_convs, 1) + gathered(g_convs[1:], 0)
+              + gathered(d_convs, 1) + gathered(d_convs, 0)
+              + gathered(g_convs, 1) + 2 * gathered(d_convs, 1)
+              + 2 * gathered(d_convs[1:], 0))
+    grads = 4 * (g_params + 3) + 4 * (d_params + 1)
+    sums = 2 if dp > 1 else 1  # the block's sum, the column's mean
+    reduce = (2 * g_norm + 2 * d_norm + 4 + g_norm + 4 * d_norm
+              + grads * sums)
+    calls = {"gather_calls": 3 * len(g_convs) - 1 + 4 * len(d_convs)
+             + 2 * (len(d_convs) - 1),
+             "reduce_calls": 3 * len(g_norms) + 6 * 4 + 1 + 2 * sums}
+    return {"gather": gather, "reduce": reduce, **calls}
+
+
+def sp_worker(torch, tmp):
+    """One rank of the sp phase's world (two gloo ranks on one card; with
+    four or more cards four, a card each under NCCL), after the file
+    ``tmp``/sp_go appears: (a) SP_FORWARD_CALLS calls of
+    ``infer_spatial_sharded`` over every rank, timed, the peak memory
+    (the output in sp_fwd<r>.npy); (b) DP_STEPS steps of
+    ``tmp``/sp_train.yaml, each collective inside a step timed by CUDA
+    events and the host clock with its bytes, a digest of G and D after
+    every step, the peak memory, a checkpoint (rank 0 writes it); (c)
+    test() of ``tmp``/sp_test.yaml (the configured route). Results in
+    ``tmp``/sp_rank<r>.json, rank 0's weights in sp_rank0.pt."""
+    import numpy as np
+    import torch.distributed as tdist
+
+    from ctagan_tpu_torch.__main__ import test as run_test
+    from ctagan_tpu_torch.__main__ import train
+    from ctagan_tpu_torch.parallel import dist, halo, spatial
+    from ctagan_tpu_torch.train import trainers
+    from ctagan_tpu_torch.utils.config import load_config
+
+    marks = [time.time()]  # entry, the group, the go, (a), (b), (c)
+    dev = (dist.init(torch.device("cuda")) if torch.cuda.device_count() > 1
+           else dist.init(torch.device("cuda", 0), backend="gloo"))
+    marks.append(time.time())
+    while not os.path.exists(os.path.join(tmp, "sp_go")):
+        time.sleep(0.05)
+    marks.append(time.time())
+    rank, world = dist.rank(), dist.world()
+    res = {}
+    # (a) the sharded forward
+    g, img = _sp_forward_g(torch, dev), _sp_forward_image()
+    mesh = spatial.make_sp_mesh(1, world)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    calls = []
+    for _ in range(SP_FORWARD_CALLS):
+        t0 = time.perf_counter()
+        out = halo.infer_spatial_sharded(g, img, mesh, halo=SP_HALO)
+        torch.cuda.synchronize()
+        calls.append(time.perf_counter() - t0)
+    res.update(fwd_s=calls, fwd_peak=torch.cuda.max_memory_allocated(dev))
+    np.save(os.path.join(tmp, f"sp_fwd{rank}.npy"), out)
+    del g, out
+    torch.cuda.empty_cache()
+    marks.append(time.time())
+    # (b) the steps
+    digests, colls, done, in_step = [], [], [0], [False]
+    moved = {"all_reduce": 0, "all_gather_into_tensor": 0}
+    originals = {kind: getattr(tdist, kind) for kind in moved}
+
+    def timed(kind):
+        def call(*args, **kw):
+            if not in_step[0]:
+                return originals[kind](*args, **kw)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            h0 = time.perf_counter()
+            ev[0].record()
+            out_ = originals[kind](*args, **kw)
+            ev[1].record()
+            t = args[moved[kind]]
+            colls.append((kind, done[0], ev, t.numel() * t.element_size(),
+                          time.perf_counter() - h0))
+            return out_
+        return call
+
+    step = trainers.P2pTrainer._step
+    first = {}
+
+    def spy(self, batch, lr, lr_d):
+        in_step[0] = True
+        try:
+            out_ = step(self, batch, lr, lr_d)
+        finally:
+            in_step[0] = False
+        done[0] += 1
+        digests.append(_net_digest(self))
+        if not first:
+            first.update(w1=_net_weights(self), mu1=_net_first_moments(self))
+        return out_
+
+    for kind in moved:
+        setattr(tdist, kind, timed(kind))
+    trainers.P2pTrainer._step = spy
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        reset_counts()
+        trainer = train(load_config(os.path.join(tmp, "sp_train.yaml")), dev,
+                        max_steps=DP_STEPS)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    finally:
+        for kind, fn in originals.items():
+            setattr(tdist, kind, fn)
+        trainers.P2pTrainer._step = step
+    peak = torch.cuda.max_memory_allocated(dev)
+    per_step = {kind: [{"ms": 0.0, "host_ms": 0.0, "bytes": 0, "calls": 0}
+                       for _ in range(DP_STEPS)] for kind in moved}
+    for kind, i, ev, nb, host_s in colls:
+        s = per_step[kind][i]
+        s["ms"] += ev[0].elapsed_time(ev[1])
+        s["host_ms"] += host_s * 1e3
+        s["bytes"] += nb
+        s["calls"] += 1
+    res.update(digests=digests, losses=trainer.loss_history, counts=counts,
+               reduce=per_step["all_reduce"],
+               gather=per_step["all_gather_into_tensor"], peak=peak,
+               p50_ms=trainer.timer.summary(skip=1)["p50_ms"],
+               kind=trainer.plan.kind, sp=trainer.state.sp.n,
+               pt=trainer._save(trainer._current_epoch))
+    if rank == 0:
+        torch.save(dict(first, w=_net_weights(trainer),
+                        mu=_net_first_moments(trainer)),
+                   os.path.join(tmp, "sp_rank0.pt"))
+    del trainer
+    torch.cuda.empty_cache()
+    marks.append(time.time())
+    # (c) test() on the configured route
+    reset_counts()
+    _, agg, secs = run_test(load_config(os.path.join(tmp, "sp_test.yaml")),
+                            dev)
+    torch.cuda.synchronize()
+    marks.append(time.time())
+    res.update(test_counts=launch_counts(), agg=agg, test_s=secs,
+               marks=marks)
+    with open(os.path.join(tmp, f"sp_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.shutdown()
+    return 0
+
+
+def _sp_one(torch, config, dev, f64=False):
+    """One process's DP_STEPS steps of ``config``: the weights and first
+    moments after step 1 and after the run, the losses, the p50 step and
+    the peak memory; with ``f64`` also the same steps replayed in float64
+    (the nets' initial weights, the augmentation generator's state and the
+    batches each step took, in f64) under ``"f64"``."""
+    import torch as _torch
+
+    from ctagan_tpu_torch.__main__ import train
+    from ctagan_tpu_torch.train import steps, trainers
+
+    step, first, replay = trainers.P2pTrainer._step, {}, {"batches": []}
+
+    def spy(self, batch, lr, lr_d):
+        if f64 and "state" not in replay:
+            st = self.state
+            g64 = copy.deepcopy(st.g_model).double()
+            d64 = copy.deepcopy(st.d_model).double()
+            replay["state"] = steps.init_p2p_state(
+                g64, d64, ema=st.g_ema is not None)
+            replay["state"].gen.set_state(st.gen.get_state())
+            replay["cfg"] = self._step_cfg("P2P_lamda", "Adv_lamda")
+        if f64:
+            replay["batches"].append(
+                ({k: v.detach().double() for k, v in batch.items()}, lr))
+        out = step(self, batch, lr, lr_d)
+        if not first:
+            first.update(w1=_net_weights(self), mu1=_net_first_moments(self))
+        return out
+
+    trainers.P2pTrainer._step = spy
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        trainer = train(config, dev, max_steps=DP_STEPS)
+        torch.cuda.synchronize()
+    finally:
+        trainers.P2pTrainer._step = step
+    nets = trainer._NETS
+    out = dict(first, w=_net_weights(trainer), mu=_net_first_moments(trainer),
+               losses=trainer.loss_history,
+               p50=trainer.timer.summary(skip=1)["p50_ms"],
+               peak=torch.cuda.max_memory_allocated(dev))
+    del trainer
+    if f64:
+        st, res = replay["state"], {}
+        for i, (batch, lr) in enumerate(replay["batches"]):
+            steps.p2p_train_step(st, replay["cfg"], batch, lr)
+            if i == 0:
+                res.update(w1=_state_weights(st, nets),
+                           mu1=_state_first_moments(st, nets))
+        res.update(w=_state_weights(st, nets),
+                   mu=_state_first_moments(st, nets))
+        out["f64"] = res
+        del replay, st
+        _torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_sp(torch, card):
+    """Phase 21, a main path: the sp plan. Two gloo ranks share the card
+    (four or more cards: four ranks, a card each, under NCCL), started
+    first (:func:`sp_worker`); meanwhile one process's references. (a)
+    ``infer_spatial_sharded`` at SP_FORWARD_SIZE² over every rank against
+    one process's forward of the symmetric-extended slice, cropped, within
+    GEN_TOL, each rank's time and peak memory beside the one process's;
+    (b) P2p through the entry point's ``train()`` under ``{sp: 2}`` (four
+    cards: ``{dp: 2, sp: 2}``) for DP_STEPS steps against one process on
+    the layer route at batchSize dp and grad_accum dp (held as tp's (b)),
+    the weights bit-identical across the ranks after every step, the bytes
+    each rank gathers and all-reduces a step against :func:`_sp_expect`,
+    no kernel launched, the peak memory beside one process's, the ``.pt``
+    the ranks wrote read at world 1 bit-equal to rank 0's state; (c)
+    test() over the ranks, 18 K1 launches a forwarded slice. Returns the
+    ranks' launches."""
+    import math
+
+    import numpy as np
+
+    from ctagan_tpu_torch.data.fixtures import make_corpus
+    from ctagan_tpu_torch.models import Discriminator, Generator
+    from ctagan_tpu_torch.train.trainers import P2pTrainer
+    from ctagan_tpu_torch.utils.config import load_config
+
+    dev = torch.device("cuda")
+    cards = torch.cuda.device_count()
+    world = 4 if cards >= 4 else 2
+    nccl = cards > 1
+    mesh = {"dp": 2, "sp": 2} if world == 4 else {"sp": 2}
+    dp = mesh.get("dp", 1)
+    params = [sum(p.numel() for p in m.parameters())
+              for m in (Generator(1, 1), Discriminator(2))]
+    expect = _sp_expect(mesh, 512, params)
+    counts = dict.fromkeys(SOURCES, 0)
+    how = "a card each (NCCL)" if nccl else "on one card (gloo)"
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        train_list = make_corpus(tmp, n_patients=1,
+                                 slices_per_patient=SP_SLICES, size=512,
+                                 seed=0, lists=("train",))["train"]
+        paths = _read_list(train_list)
+        test_list = _write_list(os.path.join(tmp, "sp_test.txt"),
+                                paths[:world])
+        lists = {"train": train_list, "val": test_list, "test": test_list}
+        spec = "mesh: {" + ", ".join(f"{k}: {v}" for k, v in mesh.items()) \
+            + "}\n"
+
+        def yaml(name, extra):
+            path = _smoke_config(tmp, lists, f"save_root: '{tmp}/{name}/'\n"
+                                 f"image_save: '{tmp}/{name}_img/'\n"
+                                 "live_panels: false\n" + extra,
+                                 base="P2p.yaml")
+            shutil.move(path, os.path.join(tmp, f"{name}.yaml"))
+            return os.path.join(tmp, f"{name}.yaml")
+
+        yaml("sp_train", spec)
+        with open(os.path.join(tmp, "sp_test.yaml"), "w") as f:
+            with open(os.path.join(tmp, "sp_train.yaml")) as src:
+                f.write(src.read() + f"\neval_batch: {world}\n")
+        print(f"sp: the corpus {time.perf_counter() - t0:.1f} s; G, D "
+              f"parameters {params}; predicted a rank's step under {mesh}: "
+              f"{expect} [{card}]", flush=True)
+        t_wall = time.time()
+        ranks_proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             f"--nproc-per-node={world}", os.path.abspath(__file__),
+             "--dp-worker", tmp, "--dp-name", "sp"])
+        try:
+            # (a) one process: the extended slice's forward, cropped
+            g, img = _sp_forward_g(torch, dev), _sp_forward_image()
+            ext = np.pad(img, ((SP_HALO, SP_HALO), (0, 0)), mode="symmetric")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            one_s = []
+            with torch.no_grad():
+                for _ in range(SP_FORWARD_CALLS):
+                    t1 = time.perf_counter()
+                    want = g(torch.from_numpy(ext).to(dev)[None, :, :, None])
+                    torch.cuda.synchronize()
+                    one_s.append(time.perf_counter() - t1)
+            one_peak = torch.cuda.max_memory_allocated(dev)
+            want = want[0, SP_HALO:-SP_HALO, :, 0].cpu()
+            del g
+            torch.cuda.empty_cache()
+            # (b) one process on the layer route, twice
+            cfg_one = load_config(yaml(
+                "sp_one", f"batchSize: {dp}\ngrad_accum: {dp}\n"
+                "fused_body_grad: off\n"))
+            one, one2 = (_sp_one(torch, cfg_one, dev, f64=f) for f in
+                         (True, False))
+            open(os.path.join(tmp, "sp_go"), "w").close()
+            t1 = time.perf_counter()
+            rc = ranks_proc.wait()
+        finally:
+            if ranks_proc.poll() is None:
+                ranks_proc.terminate()
+                ranks_proc.wait()
+        wall = time.perf_counter() - t1
+        if rc != 0:
+            fail(f"sp {mesh}: a rank exited {rc}")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"sp_rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        # (a)
+        got = [torch.from_numpy(np.load(os.path.join(tmp, f"sp_fwd{r}.npy")))
+               for r in range(world)]
+        errs = [rel_err(torch, x, want) for x in got]
+        print(f"sp {{sp: {world}}} (a): infer_spatial_sharded at "
+              f"{SP_FORWARD_SIZE}^2, halo {SP_HALO}, {world} ranks {how}, "
+              f"vs one process's forward of the symmetric-extended "
+              f"{SP_FORWARD_SIZE + 2 * SP_HALO}x{SP_FORWARD_SIZE} slice, "
+              f"cropped: max error by rank {errs} (tol {GEN_TOL}); the ranks' "
+              f"outputs bit-equal {all(torch.equal(x, got[0]) for x in got)}; "
+              f"seconds of {SP_FORWARD_CALLS} calls by rank "
+              f"{[[round(t, 3) for t in r['fwd_s']] for r in ranks]} (one "
+              f"process {[round(t, 3) for t in one_s]}); peak memory by rank "
+              f"{[round(r['fwd_peak'] / 2**30, 3) for r in ranks]} GiB (one "
+              f"process {one_peak / 2**30:.3f} GiB) [{card}]", flush=True)
+        if any(tuple(x.shape) != tuple(want.shape) for x in got) or \
+                not max(errs) <= GEN_TOL:
+            fail(f"sp: the sharded forward differs from one process's")
+        # (b)
+        r0 = torch.load(os.path.join(tmp, "sp_rank0.pt"))
+        # held as the grad phase holds a route: against one process's
+        # float64 replay of the same steps, within GRAD_RATIO x one f32
+        # process's distance from it (+ GRAD_TOL x its norm); beside it,
+        # tp's figures against one f32 process and a repeat of it
+        exact = one["f64"]
+        grad_64, ok_g = _dp_held(r0["mu1"], exact["mu1"], one["mu1"])
+        dist_64, ok_2 = _dp_held(r0["w"], exact["w"], one["w"])
+        grad_2, _ = _dp_held(r0["mu1"], one["mu1"], one2["mu1"])
+        dist_2, _ = _dp_held(r0["w"], one["w"], one2["w"])
+        for r, res in enumerate(ranks):
+            step_bytes = {k: sorted({s["bytes"] for s in res[k]})
+                          for k in ("gather", "reduce")}
+            step_calls = {k: sorted({s["calls"] for s in res[k]})
+                          for k in ("gather", "reduce")}
+            print(f"sp {mesh} rank {r} of {world} {how}: {DP_STEPS} steps at "
+                  f"batchSize 1 (global batch {dp}), p50 step "
+                  f"{res['p50_ms']:.1f} ms (one process at batchSize {dp} "
+                  f"and grad_accum {dp} on the layer route: "
+                  f"{one['p50']:.1f} ms); a step's bytes gathered (the row "
+                  f"exchanges) {step_bytes['gather']} in "
+                  f"{step_calls['gather']} calls (expected "
+                  f"{expect['gather']} in {expect['gather_calls']}), "
+                  f"all-reduced {step_bytes['reduce']} in "
+                  f"{step_calls['reduce']} calls (expected "
+                  f"{expect['reduce']} in {expect['reduce_calls']}); gather "
+                  "ms a step " + ", ".join(
+                      f"{s['ms']:.2f} (host {s['host_ms']:.2f})"
+                      for s in res["gather"]) + "; all-reduce ms a step "
+                  + ", ".join(f"{s['ms']:.2f} (host {s['host_ms']:.2f})"
+                              for s in res["reduce"])
+                  + f"; peak memory {res['peak'] / 2**30:.3f} GiB (one "
+                  f"process {one['peak'] / 2**30:.3f} GiB); launches "
+                  f"{res['counts']} (expected none); losses {res['losses']}; "
+                  f"seconds from the launch to the rank's start, group, go, "
+                  f"(a), (b) and (c) done "
+                  f"{[round(m - t_wall, 1) for m in res['marks']]} [{card}]",
+                  flush=True)
+            if res["counts"] != counts_of():
+                fail(f"sp {mesh}: rank {r}'s steps launched {res['counts']}")
+            if (step_bytes != {"gather": [expect["gather"]],
+                               "reduce": [expect["reduce"]]}
+                    or (res["kind"], res["sp"]) != ("sp", 2)):
+                fail(f"sp {mesh}: rank {r}'s bytes {step_bytes}, expected "
+                     f"{expect}")
+        same = [len(set(d)) == 1
+                for d in zip(*(res["digests"] for res in ranks))]
+        if len(same) != DP_STEPS or not all(same):
+            fail(f"sp {mesh}: the ranks' weights differ after a step {same}")
+        loss_one = one["losses"]
+        first = [abs(ranks[0]["losses"][0][k] - loss_one[0][k])
+                 / max(abs(loss_one[0][k]), 1e-12) for k in loss_one[0]]
+        pt = ranks[0]["pt"]
+        back = P2pTrainer(load_config(yaml("sp_back", "")), dev, quiet=True)
+        back._load_state(torch.load(pt, weights_only=False)["state"])
+        portable = all(set(g_) == set(w_) and all(
+            _equal_state(g_[n], w_[n]) for n in w_)
+            for g_, w_ in ((_net_weights(back), r0["w"]),
+                           (_net_first_moments(back), r0["mu"])))
+        del back
+        torch.cuda.empty_cache()
+        print(f"sp {mesh} (b): the ranks' G and D bit-identical after each "
+              f"step {same}; against one process's float64 replay "
+              f"(||rank 0 - f64||, ||one f32 process - f64||, ||f64||; tol "
+              f"{GRAD_RATIO} x the f32 process's + {GRAD_TOL} x norm): step "
+              f"1's first moments by net {_dp_line(grad_64)}; the weights "
+              f"after {DP_STEPS} steps by net {_dp_line(dist_64)}; against "
+              f"one f32 process (||rank 0 - one||, ||a repeat of one - "
+              f"one||, ||one||): step 1 {_dp_line(grad_2)}; after "
+              f"{DP_STEPS} steps {_dp_line(dist_2)}; first-step losses "
+              f"{ranks[0]['losses'][0]} vs {loss_one[0]} (largest relative "
+              f"{max(first):.2e}); the .pt of the ranks "
+              f"({os.path.basename(pt)}) read at world 1 bit-equal to rank "
+              f"0's weights and first moments {portable}; the world's wall "
+              f"from the go {wall:.1f} s [{card}]", flush=True)
+        if not (ok_g and ok_2) or max(first) > FAMILY_ROUTE_TOL:
+            fail(f"sp {mesh} (b): the ranks moved off one process's steps")
+        if not portable:
+            fail(f"sp {mesh}: the ranks' .pt read at world 1 differs from "
+                 "their state")
+        # (c)
+        k1 = [res["test_counts"].get("conv3x3_reflect_stats", 0)
+              for res in ranks]
+        print(f"sp {mesh} (c): test() of {world} slices at eval_batch "
+              f"{world} over the ranks (the eval G whole, the configured "
+              f"route): launches by rank {[res['test_counts'] for res in ranks]}"
+              f" (18 K1 a slice); aggregates {ranks[0]['agg']} [{card}]",
+              flush=True)
+        if k1 != [18] * world or any(
+                res["test_counts"] != counts_of(conv3x3_reflect_stats=18)
+                for res in ranks) or not all(
+                math.isfinite(v) for v in ranks[0]["agg"].values()):
+            fail(f"sp {mesh} (c): test() launches {k1} or its metrics")
+        for res in ranks:
+            for k in counts:
+                counts[k] += res["counts"].get(k, 0) + \
+                    res["test_counts"].get(k, 0)
+    return counts
+
+
 def check_tensor_cores(lib_path):
     """K1's, K2's, K3's, K4's and K5's kernels (each instantiation, f32 and
     bf16 I/O) hold HGMMA (wgmma) instructions in the built library's SASS,
@@ -4245,7 +4772,8 @@ MAIN_PATHS = {"serving": check_serving,
               "corpus": check_corpus,
               "dp": check_dp,
               "fsdp": check_fsdp,
-              "tp": check_tp}
+              "tp": check_tp,
+              "sp": check_sp}
 
 
 def main():
@@ -4279,6 +4807,8 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.dp_worker:
+        if args.dp_name == "sp":
+            return sp_worker(torch, args.dp_worker)
         return dp_worker(torch, args.dp_worker, args.dp_name)
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} cuda "

@@ -46,13 +46,14 @@ of the trainer's prefix in ``save_root``, else seeded weights; its EMA with
 ``ema_decay`` > 0. Every mode runs on the CUDA card unless ``--device cpu``
 is given; with no card and no ``--device`` they stop with an error.
 
-Several cards (the dp, fsdp and tp plans, ``parallel/mesh.py``): with
+Several cards (the dp, fsdp, tp and sp plans, ``parallel/mesh.py``): with
 ``data_parallel: true`` (the default) and more than one visible card,
 ``train`` and ``train_test`` start one rank per card themselves through
-``torchrun`` (``mesh: {dp: M, fsdp: N}`` or ``{dp: M, tp: N}``: M × N
-ranks), after building the kernels once, and each rank trains
-``batchSize`` rows of every global batch (under tp the N ranks of a dp
-column the same rows). Under
+``torchrun`` (``mesh: {dp: M, fsdp: N}``, ``{dp: M, tp: N}`` or ``{dp: M,
+sp: N}``: M × N ranks), after building the kernels once, and each rank
+trains ``batchSize`` rows of every global batch (under tp and sp the N
+ranks of a dp column the same rows, under sp each its strip of them).
+Under
 ``torchrun`` (its env set) the process joins the launcher's group:
 ``torchrun --nproc-per-node N -m ctagan_tpu_torch ...``, with ``--device
 cpu`` a gloo group on the CPU. ``infer``, ``figures``, ``export`` and
@@ -299,8 +300,9 @@ def main(argv=None) -> int:
 def dp_ranks(config: Config, device: torch.device,
              device_arg: Optional[str]) -> int:
     """The ranks ``--mode train`` starts itself outside a launcher: one a
-    visible card under the dp, fsdp and tp plans (``mesh: {dp: M, fsdp:
-    N}`` or ``{dp: M, tp: N}``: M × N, which the cards must hold; else
+    visible card under the dp, fsdp, tp and sp plans (``mesh: {dp: M,
+    fsdp: N}``, ``{dp: M, tp: N}`` or ``{dp: M, sp: N}``: M × N, which the
+    cards must hold; else
     every card with ``data_parallel``), one on the CPU, on a named card or
     with ``data_parallel: false``."""
     if device.type != "cuda" or device_arg not in (None, "cuda"):
@@ -308,7 +310,7 @@ def dp_ranks(config: Config, device: torch.device,
     cards = torch.cuda.device_count()
     if config.mesh:
         n = 1
-        for axis in ("dp", "fsdp", "tp"):
+        for axis in ("dp", "fsdp", "tp", "sp"):
             n *= int(config.mesh.get(axis, 1))
         if n > cards:
             raise SystemExit(f"mesh {config.mesh} needs {n} devices, have "

@@ -35,7 +35,10 @@ outputs and their norm statistics).
 A body split over tensor-parallel ranks (``parallel/tensor.py``: its blocks
 hold slices) runs the layer route whatever the flags say, as JAX gates its
 kernels off under a model-sharded plan; gathered whole again (an eval
-forward), it takes the route the flags pick.
+forward), it takes the route the flags pick. So does a forward under the
+sp plan's context (``models/layers.py::sp_scope``: ``parallel/halo.py``'s
+sharded inference, ``parallel/spatial.py``'s sharded step), as JAX's gate
+leaves its kernels off under ``spatial_axis``.
 """
 from __future__ import annotations
 
@@ -53,6 +56,7 @@ from ctagan_tpu_torch.models.layers import (
     ResidualBlock,
     channel_stats,
     reflect_pad,
+    sp_context,
 )
 from ctagan_tpu_torch.ops._common import apply_norm
 from ctagan_tpu_torch.ops.fused_convt import convt2x_stats
@@ -124,6 +128,8 @@ class Generator(nn.Module):
         module's), on the same parameters: the trainer's eval forward."""
         if not all(getattr(blk, "whole", True) for blk in self.model_body):
             return self._forward_layers(x)  # split over tp ranks
+        if sp_context() is not None:
+            return self._forward_layers(x)  # a strip of sp ranks
         if self.fused_body if fused_body is None else fused_body:
             if self.pad_mode == "zero":
                 # the model's layer route, on every device: JAX's chain_ok

@@ -6,11 +6,20 @@ its parameters in PyTorch's own layouts (``Conv2d`` weight ``(O, I, kh, kw)``,
 ``ConvTranspose2d`` weight ``(I, O, kh, kw)``) so reference ``.pth`` state
 dicts load unchanged. ``dtype`` casts a conv's input and parameters (the
 JAX ``dtype=`` compute type); InstanceNorm statistics are always f32.
+
+The sp plan's context (:func:`sp_scope`): while a ``parallel/halo.py`` or
+``parallel/spatial.py`` context is set, every tensor's H axis is a strip of
+a larger image. The layers then ask it: :func:`instance_norm` for the
+statistics over the whole image (:meth:`norm`), and with a context that
+``exchanges`` rows (training) ``ReflectPad``, ``ConvTorch``,
+``ConvTransposeTorch`` and :func:`global_avg_pool_logit` for the rows their
+window reaches beyond the strip, from the neighbouring ranks.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional
+from typing import Iterator, Optional
 
 import torch
 import torch.nn.functional as F
@@ -37,6 +46,33 @@ def acc_dtype(dtype: torch.dtype) -> torch.dtype:
     """The statistics / accumulation type: f32 for f32 and bf16, f64 for f64
     (so gradient checks in float64 see no f32 rounding)."""
     return torch.promote_types(dtype, torch.float32)
+
+
+# the sp plan's context (``parallel/halo.py``, ``parallel/spatial.py``), or
+# None: set by :func:`sp_scope`
+_SP = None
+
+
+@contextlib.contextmanager
+def sp_scope(ctx) -> Iterator[None]:
+    """The layers run under the sp context ``ctx`` for the block (``None``:
+    as they are)."""
+    global _SP
+    prev, _SP = _SP, ctx
+    try:
+        yield
+    finally:
+        _SP = prev
+
+
+def sp_context():
+    """The sp context set by :func:`sp_scope`, or None."""
+    return _SP
+
+
+def _sp_rows():
+    """The context when it exchanges rows (sp training), else None."""
+    return _SP if _SP is not None and _SP.exchanges else None
 
 
 def channel_stats(x: torch.Tensor) -> torch.Tensor:
@@ -70,6 +106,9 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5,
     if activation not in (None, "relu"):
         raise ValueError(f"activation must be None or 'relu', got "
                          f"{activation!r}")
+    if _SP is not None:  # H is a strip: the sp plan's statistics
+        out = _SP.norm(x, eps)
+        return torch.relu(out) if activation == "relu" else out
     if pallas_norm_applies(x):
         from ctagan_tpu_torch.ops.pallas_kernels import instance_norm_pallas
 
@@ -97,7 +136,9 @@ class ReflectPad(nn.Module):
         self.pad = pad
 
     def forward(self, x):
-        return reflect_pad(x, self.pad)
+        sp = _sp_rows()
+        return reflect_pad(x, self.pad) if sp is None else sp.reflect_pad(
+            x, self.pad)
 
 
 class InstanceNorm(nn.Module):
@@ -128,6 +169,9 @@ class ConvTorch(nn.Module):
         return self.weight.permute(2, 3, 1, 0).contiguous()
 
     def forward(self, x):
+        sp = _sp_rows()
+        if sp is not None:
+            return sp.conv(self, x)
         y = F.conv2d(
             _cast(x, self.dtype).permute(0, 3, 1, 2),
             _cast(self.weight, self.dtype), _cast(self.bias, self.dtype),
@@ -154,6 +198,9 @@ class ConvTransposeTorch(nn.Module):
         _uniform_(self.bias, bound, gen)
 
     def forward(self, x):
+        sp = _sp_rows()
+        if sp is not None:
+            return sp.conv_transpose(self, x)
         y = F.conv_transpose2d(
             _cast(x, self.dtype).permute(0, 3, 1, 2),
             _cast(self.weight, self.dtype), _cast(self.bias, self.dtype),
@@ -221,8 +268,10 @@ def center_crop(x: torch.Tensor, size: int) -> torch.Tensor:
 
 
 def global_avg_pool_logit(x: torch.Tensor) -> torch.Tensor:
-    """avg_pool2d over the full spatial extent -> (N, C)."""
-    return x.mean(dim=(1, 2))
+    """avg_pool2d over the full spatial extent -> (N, C); of a strip under
+    sp training, over the whole image (every rank's rows)."""
+    sp = _sp_rows()
+    return x.mean(dim=(1, 2)) if sp is None else sp.pool_logit(x)
 
 
 def _normal_(t: torch.Tensor, std: float, gen: torch.Generator) -> None:

@@ -2,25 +2,39 @@
 smoothness term is ``ops/warp.py::smoothing_loss``): LSGAN on scalar logits
 (stage 1), and for stage 2 the multi-scale GAN loss with per-scale weights
 [1.8, 0.2] on globally pooled logits, pix2pixHD feature matching and the
-window-masked second correlation loss (SR_loss2)."""
+window-masked second correlation loss (SR_loss2).
+
+Under sp training (``parallel/spatial.py``: the context of
+``models/layers.py::sp_scope``) each rank's :func:`mse` and :func:`l1` are
+its part of the loss: of an NHWC strip, the sum over its rows divided by
+the whole image's element count; of a tensor every rank holds alike (the
+pooled logits), the mean divided by the block's size. The parts sum over
+the block to the loss of one process."""
 from __future__ import annotations
 
 from typing import Sequence
 
 import torch
 
+from ctagan_tpu_torch.models.layers import sp_context
 from ctagan_tpu_torch.ops.windowing import body_mask, mask_background_to_air
 
 # Per-scale weights of the multi-scale GAN loss (the reference's HdGan.py)
 MULTISCALE_WEIGHTS = (1.8, 0.2)
 
 
+def _mean(t: torch.Tensor) -> torch.Tensor:
+    """The mean of ``t``, or under sp training this rank's part of it."""
+    sp = sp_context()
+    return t.mean() if sp is None or not sp.exchanges else sp.mean(t)
+
+
 def mse(pred: torch.Tensor, target) -> torch.Tensor:
-    return ((pred - target) ** 2).mean()
+    return _mean((pred - target) ** 2)
 
 
 def l1(pred: torch.Tensor, target) -> torch.Tensor:
-    return (pred - target).abs().mean()
+    return _mean((pred - target).abs())
 
 
 def lsgan_loss(pred: torch.Tensor, target_is_real: bool) -> torch.Tensor:

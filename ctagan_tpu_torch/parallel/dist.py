@@ -23,7 +23,12 @@ through the host. The path is chosen by the group's backend. The tp plan
 columns, and reduces, sums and gathers rows within a group
 (:func:`all_reduce_mean_`, :func:`all_reduce_sum_`, :func:`gather_rows`
 with ``group``); a rank's column index (:func:`column_rank`) says which
-rows of the global batch it reads.
+rows of the global batch it reads. The sp plan (``parallel/spatial.py``,
+``parallel/halo.py``) takes the same mesh, its sp blocks and dp columns,
+and adds :func:`neighbour_rows` (each rank's edge rows to the ranks above
+and below it in its block: one ``all_gather_into_tensor`` of every rank's
+edges) and :class:`SumOverGroup` (a sum over the block that autograd
+differentiates as a sum over the block).
 """
 from __future__ import annotations
 
@@ -104,14 +109,15 @@ def shutdown() -> None:
     _coll_device = None
 
 
-def all_reduce_mean_(tensors: Sequence[torch.Tensor], group=None) -> None:
+def all_reduce_mean_(tensors: Sequence[torch.Tensor], group=None,
+                     mean: bool = True) -> None:
     """Replace each tensor by its mean over the ranks of ``group`` (default:
     every rank), in place: one flat buffer per dtype, one ``all_reduce`` SUM
-    each, divided by the group's size. In a group of one the values come
-    back bit for bit."""
+    each, divided by the group's size (with ``mean`` False: the sum). In a
+    group of one the values come back bit for bit."""
     if not initialized():
         return
-    n = tdist.get_world_size(group)
+    n = tdist.get_world_size(group) if mean else 1
     groups: Dict[tuple, List[torch.Tensor]] = {}
     for t in tensors:
         groups.setdefault((t.dtype, t.device), []).append(t)
@@ -231,3 +237,50 @@ def reduce_scatter_mean(flat: torch.Tensor, group,
     if dp_group is not None:
         tdist.all_reduce(out, op=tdist.ReduceOp.SUM, group=dp_group)
     return out.div_(world())
+
+
+class SumOverGroup(torch.autograd.Function):
+    """``x`` summed over the ranks of ``group``; its gradient summed over
+    them too. Each rank's loss is its part of one loss, the sum over the
+    block; a sum that every part reads (the sp plan's norm statistics and
+    pooled logits) takes its gradient from every part."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_sum_(x.clone(memory_format=torch.contiguous_format),
+                               group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum_(g.clone(memory_format=torch.contiguous_format),
+                               ctx.group), None
+
+
+def sum_over_group(x: torch.Tensor, group) -> torch.Tensor:
+    """:class:`SumOverGroup` of ``x`` (the identity without a group)."""
+    return SumOverGroup.apply(x, group) if initialized() else x
+
+
+def neighbour_rows(up: torch.Tensor, down: torch.Tensor, group,
+                   tag: Optional[torch.Tensor] = None):
+    """Each rank of ``group`` sends ``up`` (its first rows) to the rank
+    before it and ``down`` (its last rows) to the rank after it; returns
+    (the ``down`` of the rank before, the ``up`` of the rank after, every
+    rank's ``tag`` in rank order or None), the first two ``None`` at the end
+    of the group that has no such rank. Every rank's ``up`` has one shape
+    and every rank's ``down`` one shape: the two and the tag (one element
+    of their dtype) are packed into one flat buffer and gathered from every
+    rank at once (an ``all_gather_into_tensor``, through the host for a
+    CUDA tensor under gloo)."""
+    n, r = tdist.get_world_size(group), tdist.get_rank(group)
+    extra = [] if tag is None else [tag.reshape(-1)]
+    part = torch.cat([up.reshape(-1), down.reshape(-1), *extra])
+    flat = part.new_empty(n * part.numel())
+    all_gather_into(flat, part, group)
+    parts = flat.view(n, part.numel())
+    k, m = up.numel(), up.numel() + down.numel()
+    above = parts[r - 1, k:m].view(down.shape) if r > 0 else None
+    below = parts[r + 1, :k].view(up.shape) if r < n - 1 else None
+    tags = None if tag is None else parts[:, m].tolist()
+    return above, below, tags

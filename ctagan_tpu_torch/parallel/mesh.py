@@ -13,8 +13,13 @@ device ``rank`` holds under JAX's sharding of the global batch. The tp
 plan (``{tp: N}``, or ``{dp: M, tp: N}``): M × N ranks, each residual pair
 split over each block of N (``parallel/tensor.py``), the batch over the M
 dp columns alone, as JAX's ``P(data)`` replicates it over ``model``: the N
-ranks of a block read the same rows. The other model axes (sp, depth, pp)
-are validated as in JAX and raise naming their ROADMAP item.
+ranks of a block read the same rows. The sp plan (``{sp: N}``, or ``{dp:
+M, sp: N}``): M × N ranks, the rows of every activation split over each
+block of N (``parallel/spatial.py``), the batch over the M dp columns, as
+JAX's ``P(data, spatial)`` replicates the batch's rows over ``spatial``:
+the N ranks of a block read the same images and each trains on its strip.
+The other model axes (depth, pp) are validated as in JAX and raise naming
+their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -25,30 +30,32 @@ import numpy as np
 
 MODEL_AXES = ("fsdp", "tp", "sp", "depth", "pp")
 # the ROADMAP item of each model axis not ported yet
-_ITEMS = {"sp": "M12d", "pp": "M12e", "depth": "M12f"}
+_ITEMS = {"pp": "M12e", "depth": "M12f"}
 
 
 @dataclass(frozen=True)
 class MeshPlan:
-    """``kind`` names the plan (``"dp"``, ``"fsdp"`` or ``"tp"``);
-    ``batch_scale`` is how many ways the global batch splits: the number of
-    ranks, ``dp`` × ``fsdp``, or ``dp`` under tp."""
+    """``kind`` names the plan (``"dp"``, ``"fsdp"``, ``"tp"`` or
+    ``"sp"``); ``batch_scale`` is how many ways the global batch splits:
+    the number of ranks, ``dp`` × ``fsdp``, or ``dp`` under tp and sp."""
 
     kind: str
     batch_scale: int
     dp: int = 1
     fsdp: int = 1
     tp: int = 1
+    sp: int = 1
 
     def batch_rank(self, rank: int) -> int:
         """Which of the ``batch_scale`` blocks of a global batch rank
-        ``rank`` reads: its own, or under tp its dp column's."""
-        return rank // self.tp
+        ``rank`` reads: its own, or under tp and sp its dp column's."""
+        return rank // (self.tp * self.sp)
 
     def describe(self) -> str:
         """JAX's "mesh plan" line: the mesh's axes and extents; under tp
-        also that its step runs no kernel."""
-        model = {"fsdp": ("fsdp", self.fsdp), "tp": ("model", self.tp)}
+        and sp also that its step runs no kernel."""
+        model = {"fsdp": ("fsdp", self.fsdp), "tp": ("model", self.tp),
+                 "sp": ("spatial", self.sp)}
         if self.kind == "dp":
             axes = {"data": self.dp}
         else:
@@ -59,6 +66,9 @@ class MeshPlan:
         if self.kind == "tp":
             line += ("; the split residual pairs run the layer route, so "
                      "the tp step launches no kernel (JAX's gate)")
+        elif self.kind == "sp":
+            line += ("; the strips run the layer route, so the sp step "
+                     "launches no kernel (JAX's gate)")
         return line
 
 
@@ -66,11 +76,12 @@ def plan_from_spec(spec, world: int) -> MeshPlan:
     """A plan from a ``config.mesh`` dict (keys dp/fsdp/tp/sp/depth/pp, each
     an axis extent, default 1) for a group of ``world`` ranks, validated as
     JAX's: unknown axes, extents below 1 and more than one model axis above
-    1 raise ValueError. sp, depth or pp above 1 then raises
+    1 raise ValueError. depth or pp above 1 then raises
     NotImplementedError naming its ROADMAP item, whatever the world. ``{dp:
-    M}`` (or ``{}``, M = 1), ``{dp: M, fsdp: N}`` and ``{dp: M, tp: N}``
-    need exactly ``world`` = M × N ranks: more raise JAX's "needs M × N
-    devices", fewer that the group is larger than the plan."""
+    M}`` (or ``{}``, M = 1), ``{dp: M, fsdp: N}``, ``{dp: M, tp: N}`` and
+    ``{dp: M, sp: N}`` need exactly ``world`` = M × N ranks: more raise
+    JAX's "needs M × N devices", fewer that the group is larger than the
+    plan."""
     spec: Dict[str, int] = dict(spec or {})
     unknown = set(spec) - {"dp", *MODEL_AXES}
     if unknown:
@@ -88,9 +99,9 @@ def plan_from_spec(spec, world: int) -> MeshPlan:
         kind = model_axes[0]
         raise NotImplementedError(
             f"mesh {spec}: the {kind} plan is not ported yet (ROADMAP "
-            f"{_ITEMS[kind]}); the port runs the dp, fsdp and tp plans")
-    dp, fsdp, tp = sizes["dp"], sizes["fsdp"], sizes["tp"]
-    total = dp * fsdp * tp
+            f"{_ITEMS[kind]}); the port runs the dp, fsdp, tp and sp plans")
+    dp, fsdp, tp, sp = sizes["dp"], sizes["fsdp"], sizes["tp"], sizes["sp"]
+    total = dp * fsdp * tp * sp
     if total > world:
         raise ValueError(f"mesh {spec} needs {total} devices, have {world}")
     if total < world:
@@ -100,6 +111,8 @@ def plan_from_spec(spec, world: int) -> MeshPlan:
             f"{total})")
     if tp > 1:
         return MeshPlan("tp", dp, dp, tp=tp)
+    if sp > 1:
+        return MeshPlan("sp", dp, dp, sp=sp)
     return MeshPlan("fsdp" if fsdp > 1 else "dp", total, dp, fsdp)
 
 

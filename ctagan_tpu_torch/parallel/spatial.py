@@ -1,0 +1,368 @@
+"""Spatial (sp) parallelism of the port's training
+(``ctagan_tpu/parallel/spatial.py``): the rows of every activation split
+over the ranks of a block.
+
+Under ``mesh: {sp: N}`` (or the hybrid ``{dp: M, sp: N}``) the N ranks of
+an sp block (``dist.mesh_groups``: N consecutive ranks, the dp columns
+spaced by N) hold the same state, read the same rows of the global batch
+(their dp column's) and each trains on a strip of H / N rows of every
+image. JAX gets this from GSPMD: the batch is placed with H sharded and
+the plain step is jitted, so the partitioner inserts each conv's halo and
+turns each norm and loss reduction into a sum over the axis. torch has no
+partitioner, so the port writes those by hand, under the context the
+layers read (``models/layers.py::sp_scope``):
+
+- each conv takes the rows its window reaches beyond the strip from the
+  neighbouring ranks (:func:`halo_rows`, an autograd ``Function``: the
+  ghost rows' gradient goes back to their owner), and at the image's true
+  top and bottom a reflect fill (after ``ReflectPad``) or a zero fill (a
+  zero-padded conv). An output row belongs to the rank that holds its
+  anchor row ``stride · i``: the 3×3 stride-2 conv takes one row from
+  above, the transposed conv one from below, D's 4×4 stride-2 convs one
+  from each side and its two 4×4 stride-1 convs one from above and two
+  from below; those two shrink the map by a row each, so the last rank
+  owns fewer rows after them;
+- InstanceNorm sums its partial E[x] and E[x²] over the block with
+  ``dist.SumOverGroup`` and takes the one-pass clamped variance of the
+  plain norm, as GSPMD partitions it;
+- D's pooled logit is a ``SumOverGroup`` of the owned rows' sums over the
+  global count; ``ops/losses.py``'s ``l1`` and ``mse`` give each rank its
+  part of the loss, and the parts sum over the block to one process's
+  loss.
+
+So every rank's backward is of its part of one loss, and a parameter's
+gradient on a rank is the part its rows contribute: ``train/steps.py``
+sums it over the block and averages it over the dp column, and the
+logged losses likewise. The state stays replicated (:func:`shard_state_sp`
+records the mesh on the state, as ``state.tp`` records tp's), and the
+weights stay bit-identical on every rank.
+
+A strip shorter than the rows a layer needs from a neighbour raises
+``ValueError`` on every rank (exchanges are one hop). The step runs the
+layer route: JAX's gate leaves its kernels off under a spatial axis, so
+the sp step launches no kernel.
+"""
+from __future__ import annotations
+
+import contextlib
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ctagan_tpu_torch.models.layers import acc_dtype, sp_scope
+from ctagan_tpu_torch.parallel import dist
+
+
+@dataclass(frozen=True)
+class SpMesh:
+    """A rank's place in a ``dp`` × ``n`` mesh (``dist.mesh_groups``): the
+    ``n`` ranks of its sp block (``group``) split the rows, ``index`` is
+    its strip; ``column`` is its place in its dp column (``dp_group``, None
+    when ``dp`` is 1), the rows of the global batch it and its block
+    read."""
+
+    n: int
+    index: int
+    group: object
+    dp: int = 1
+    column: int = 0
+    dp_group: Optional[object] = None
+
+    def __deepcopy__(self, memo):  # process groups are handles, shared
+        return self
+
+
+def make_sp_mesh(dp: int, sp: int) -> SpMesh:
+    """This rank's mesh in the process group (or, without a group and with
+    ``dp`` × ``sp`` = 1, a mesh of one); every rank calls it, in the same
+    order."""
+    if not dist.initialized() and dp * sp == 1:
+        return SpMesh(1, 0, None)
+    group, column = dist.mesh_groups(dp, sp)
+    return SpMesh(sp, dist.rank() % sp, group, dp, dist.column_rank(sp),
+                  column)
+
+
+def strip(x: torch.Tensor, mesh: SpMesh, dim: int = 1) -> torch.Tensor:
+    """This rank's strip of ``x`` along ``dim`` (H of an NHWC tensor): the
+    ``index``-th of ``n`` equal blocks."""
+    h = x.shape[dim]
+    if h % mesh.n:
+        raise ValueError(
+            f"spatial parallelism needs H divisible by the spatial mesh "
+            f"extent: H={h} but sp={mesh.n}")
+    m = h // mesh.n
+    return x.narrow(dim, mesh.index * m, m)
+
+
+def shard_state_sp(state, mesh: SpMesh):
+    """The sp plan's state: replicated as it is (sp splits the
+    activations, not the state); ``state.sp`` records the mesh."""
+    state.sp = mesh
+    return state
+
+
+# -- the rows a window reaches beyond the strip ------------------------------
+
+def _fill(x: torch.Tensor, rows: int, top: bool, reflect: bool
+          ) -> torch.Tensor:
+    """``rows`` rows beyond the image's true top (or bottom): the reflection
+    of ``x``'s rows about its edge row (ReflectionPad2d), or zeros."""
+    h = x.shape[1]
+    if not reflect:
+        return x.new_zeros((x.shape[0], rows, *x.shape[2:]))
+    part = x[:, 1:rows + 1] if top else x[:, h - 1 - rows:h - 1]
+    return part.flip(1)
+
+
+def _fold(gx: torch.Tensor, g: torch.Tensor, top: bool) -> None:
+    """The reflect fill's gradient ``g`` added back to the rows it
+    reflects, in place."""
+    h, rows = gx.shape[1], g.shape[1]
+    if top:
+        gx[:, 1:rows + 1] += g.flip(1)
+    else:
+        gx[:, h - 1 - rows:h - 1] += g.flip(1)
+
+
+def _check(counts, mesh: SpMesh, top: int, below: int, bottom: int,
+           stride: int, reflect: bool) -> None:
+    """Every rank's rows (``counts``, alike on every rank) against what the
+    layer needs: a rank sends its first ``below`` and its last ``top``
+    rows to its neighbours, a reflect fill reads one row more than it
+    fills, and a strided conv's strips start on its stride."""
+    need = max(top, below)
+    short = [q for q, h in enumerate(counts) if h < need]
+    if reflect:
+        short += [0] * (counts[0] < top + 1) \
+            + [mesh.n - 1] * (counts[-1] < bottom + 1)
+    if short:
+        raise ValueError(
+            f"sp: a strip of {min(counts[q] for q in short)} rows is shorter "
+            f"than the rows a layer needs from a neighbour (top {top}, "
+            f"bottom {max(below, bottom)}; strips by rank {counts}): the "
+            f"exchange is one hop; use fewer sp ranks or larger images")
+    if any(h % stride for h in counts[:-1]):
+        raise ValueError(f"sp: strips of {counts[:-1]} rows do not start on "
+                         f"the stride {stride} of a conv")
+
+
+class _HaloRows(torch.autograd.Function):
+    """``x`` (N, h, W, C), this rank's strip, with ``top`` rows above it
+    and the rows below it: ``below`` from the next rank, or at the last
+    rank ``bottom`` rows of fill (reflect or zero, as at the first rank's
+    top). Backward: the ghost rows' gradient goes back to the rank that
+    owns them and is added to its rows, and a reflect fill's is folded
+    back onto the rows it reflects."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, top, below, bottom, stride, reflect):
+        first, last = mesh.index == 0, mesh.index == mesh.n - 1
+        ctx.mesh, ctx.rows, ctx.reflect = mesh, (top, below, bottom), reflect
+        h = x.shape[1]
+        above = under = None
+        if mesh.n > 1:
+            # each rank's row count rides on the exchange: every rank
+            # checks every strip, so all of them raise together
+            tag = x.new_full((1,), float(h))
+            send_up = x[:, :below] if h >= below else x.new_zeros(
+                (x.shape[0], below, *x.shape[2:]))
+            send_down = x[:, h - top:] if h >= top else x.new_zeros(
+                (x.shape[0], top, *x.shape[2:]))
+            above, under, tags = dist.neighbour_rows(
+                send_up, send_down, mesh.group, tag)
+            _check([int(t) for t in tags], mesh, top, below, bottom, stride,
+                   reflect)
+        else:
+            _check([h], mesh, top, below, bottom, stride, reflect)
+        parts = [_fill(x, top, True, reflect) if first else above, x,
+                 _fill(x, bottom, False, reflect) if last else under]
+        return torch.cat(parts, dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, (top, below, bottom) = ctx.mesh, ctx.rows
+        first, last = mesh.index == 0, mesh.index == mesh.n - 1
+        h = g.shape[1] - top - (bottom if last else below)
+        g_top, gx = g[:, :top], g[:, top:top + h].clone()
+        g_bot = g[:, top + h:]
+        if mesh.n > 1:
+            # the ghost rows' gradient to their owners: the top rows' to the
+            # rank above (its last rows), the bottom rows' to the rank below
+            # (its first rows); the ends send zeros of the same shape
+            up = g_top if not first else torch.zeros_like(g_top)
+            down = g_bot if not last else g.new_zeros(
+                (g.shape[0], below, *g.shape[2:]))
+            prev_bottom, next_top, _ = dist.neighbour_rows(
+                up, down, mesh.group)
+            if prev_bottom is not None:  # the rank above's bottom ghosts
+                gx[:, :below] += prev_bottom
+            if next_top is not None:  # the rank below's top ghosts
+                gx[:, h - top:] += next_top
+        if ctx.reflect:
+            if first:
+                _fold(gx, g_top, True)
+            if last:
+                _fold(gx, g_bot, False)
+        return gx, None, None, None, None, None, None
+
+
+def halo_rows(x: torch.Tensor, mesh: SpMesh, top: int, below: int,
+              bottom: int, stride: int = 1, reflect: bool = False
+              ) -> torch.Tensor:
+    """:class:`_HaloRows`: ``x`` with the rows a window reaches beyond this
+    rank's strip."""
+    return _HaloRows.apply(x, mesh, top, below, bottom, stride, reflect)
+
+
+def _last_bottom(h: int, k: int, s: int, p: int) -> int:
+    """The fill rows below the last rank's strip of ``h`` rows for a conv
+    (kernel ``k``, stride ``s``, padding ``p``): its owned outputs (their
+    anchors ``s·i`` in the strip, at most the image's last output) reach
+    that far below it. In the strip's own coordinates: its first row's
+    index divides by ``s``."""
+    owned = min(-(-h // s), (h + 2 * p - k) // s + 1)
+    return max(s * (owned - 1) - p + k - h, 0)
+
+
+def halo_conv(x: torch.Tensor, weight: torch.Tensor,
+              bias: Optional[torch.Tensor], mesh: SpMesh, stride: int = 1,
+              padding: int = 0, reflect: int = 0, transposed: bool = False
+              ) -> torch.Tensor:
+    """A conv of this rank's strip ``x`` (NHWC) over the sp block: this
+    rank's rows of the conv of the whole image.
+
+    - ``reflect`` = p > 0: ``ReflectPad(p)`` then the conv without padding
+      (p rows from each neighbour, a reflect fill at the true borders);
+    - ``padding`` = p > 0: the zero-padded conv (``padding`` p), which
+      takes p rows from above and k − s − p from below, zeros at the true
+      borders;
+    - ``transposed``: ``ConvTranspose2d(k=3, s=2, p=1,
+      output_padding=1)`` (``weight`` (I, O, 3, 3)), which takes one row
+      from below, zero at the true bottom;
+    - neither: a local conv (a 1×1, or the rows came with a
+      :func:`halo_rows` of their own).
+    ``weight`` is torch's (O, I, kh, kw), ``x`` already in its dtype."""
+    if transposed:
+        h = x.shape[1]
+        ext = halo_rows(x, mesh, 0, 1, 1)
+        y = F.conv_transpose2d(ext.permute(0, 3, 1, 2), weight, bias,
+                               stride=2, padding=1, output_padding=1)
+        return y[:, :, :2 * h].permute(0, 2, 3, 1).contiguous()
+    k = weight.shape[2]
+    if reflect:
+        if stride != 1 or k != 2 * reflect + 1:
+            raise ValueError(f"sp: a reflect-padded conv must keep H "
+                             f"(kernel {k}, stride {stride}, pad {reflect})")
+        ext = _pad_w(halo_rows(x, mesh, reflect, reflect, reflect,
+                               reflect=True), reflect)
+        pad = (0, 0)
+    elif padding:
+        below = k - stride - padding
+        ext = halo_rows(x, mesh, padding, below,
+                        _last_bottom(x.shape[1], k, stride, padding),
+                        stride=stride)
+        pad = (0, padding)
+    else:
+        ext, pad = x, (0, 0)
+    y = F.conv2d(ext.permute(0, 3, 1, 2), weight, bias, stride=stride,
+                 padding=pad)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def _operands(module, x: torch.Tensor):
+    """A conv module's input, weight and bias in its compute dtype."""
+    dtype = module.dtype
+    if dtype is None:
+        return x, module.weight, module.bias
+    return x.to(dtype), module.weight.to(dtype), module.bias.to(dtype)
+
+
+def _pad_w(x: torch.Tensor, p: int) -> torch.Tensor:
+    """ReflectionPad of W alone (NHWC)."""
+    y = F.pad(x.permute(0, 3, 1, 2), (p, p, 0, 0), mode="reflect")
+    return y.permute(0, 2, 3, 1)
+
+
+class _Training:
+    """The sp training context (``models/layers.py::sp_scope``): what each
+    layer does to a strip under GSPMD's partitioning of the plain step."""
+
+    exchanges = True
+
+    def __init__(self, mesh: SpMesh):
+        self.mesh = mesh
+
+    def _sum(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.mesh.n == 1 else dist.sum_over_group(
+            t, self.mesh.group)
+
+    def _count(self, x: torch.Tensor, per: int, dtype) -> torch.Tensor:
+        """This rank's ``per``-element rows of ``x`` as one element of
+        ``dtype``: appended to a buffer that is summed over the block."""
+        return torch.full((1,), float(x.shape[1] * per), dtype=dtype,
+                          device=x.device)
+
+    def norm(self, x: torch.Tensor, eps: float) -> torch.Tensor:
+        """The plain norm's one-pass clamped statistics over the whole
+        image: each rank's partial sums of x and x², and its count, summed
+        over the block (one ``SumOverGroup``)."""
+        xf = x.to(acc_dtype(x.dtype))
+        n, c = x.shape[0], x.shape[-1]
+        s = self._sum(torch.cat([xf.sum(dim=(1, 2)).reshape(-1),
+                                 (xf * xf).sum(dim=(1, 2)).reshape(-1),
+                                 self._count(x, x.shape[2], xf.dtype)]))
+        count = s[-1]
+        mean = (s[:n * c] / count).view(n, 1, 1, c)
+        m2 = (s[n * c:2 * n * c] / count).view(n, 1, 1, c)
+        var = torch.clamp(m2 - mean * mean, min=0.0)
+        return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+
+    def reflect_pad(self, x: torch.Tensor, pad: int) -> torch.Tensor:
+        """``ReflectPad``: ``pad`` rows from each neighbour (a reflect fill
+        at the true borders), W reflected locally; the conv after it runs
+        on the strip as it comes."""
+        return _pad_w(halo_rows(x, self.mesh, pad, pad, pad, reflect=True),
+                      pad).contiguous()
+
+    def conv(self, module, x: torch.Tensor) -> torch.Tensor:
+        """``ConvTorch``: zero-padded, through :func:`halo_conv`; without
+        padding, on the rows a ``ReflectPad`` before it fetched (a stride-1
+        conv)."""
+        if not module.padding and module.stride != 1:
+            raise ValueError("sp: an unpadded strided conv has no halo rule")
+        return halo_conv(*_operands(module, x), self.mesh,
+                         stride=module.stride, padding=module.padding)
+
+    def conv_transpose(self, module, x: torch.Tensor) -> torch.Tensor:
+        return halo_conv(*_operands(module, x), self.mesh, transposed=True)
+
+    def pool_logit(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean over the whole image's rows: the owned rows' sums and
+        count summed over the block, then divided."""
+        n, c = x.shape[0], x.shape[-1]
+        s = self._sum(torch.cat([x.sum(dim=(1, 2)).reshape(-1),
+                                 self._count(x, x.shape[2], x.dtype)]))
+        return (s[:-1] / s[-1]).view(n, c)
+
+    def mean(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's part of ``t``'s mean: of an NHWC strip the sum of
+        its rows over the whole image's element count (counted over the
+        block, outside autograd); of a tensor every rank holds alike, its
+        mean over the block's size."""
+        if t.dim() != 4:
+            return t.mean() / self.mesh.n
+        count = self._count(t, t.numel() // max(t.shape[1], 1), t.dtype)
+        if self.mesh.n > 1:
+            dist.all_reduce_sum_(count, self.mesh.group)
+        return t.sum() / count[0]
+
+
+def training_scope(mesh: Optional[SpMesh]):
+    """The layers' sp context for a step of ``mesh`` (a no-op context for
+    None)."""
+    if mesh is None:
+        return contextlib.nullcontext()
+    return sp_scope(_Training(mesh))

@@ -60,6 +60,14 @@ mean-reduced over the rank's dp column alone and every other over every
 rank (:func:`_value_and_grad`); the tp ranks of a dp column read its rows
 and draw its augmentation (:func:`_batch_ranks`), as JAX replicates its
 rng key over the model axis.
+
+The sp plan (``parallel/spatial.py``, the P2p family): the ranks of an sp
+block read their dp column's rows, warp the whole images with the
+column's draws (a rotation mixes rows) and keep their strips
+(:func:`_augment`); the step runs under the layers' sp context, on the
+layer route, and each rank's losses and parameter gradients are its
+rows' part: :func:`_value_and_grad` sums them over the block and averages
+them over the dp column, so the replicated state stays alike everywhere.
 """
 from __future__ import annotations
 
@@ -80,7 +88,7 @@ from ctagan_tpu_torch.ops.losses import (
 )
 from ctagan_tpu_torch.ops.resize import interpolate_bilinear
 from ctagan_tpu_torch.ops.warp import smoothing_loss, warp2d, warp2d_local
-from ctagan_tpu_torch.parallel import dist, fsdp, tensor
+from ctagan_tpu_torch.parallel import dist, fsdp, spatial, tensor
 from ctagan_tpu_torch.parallel.mesh import shard_rows
 from ctagan_tpu_torch.train.replay_buffer import ReplayBuffer, push_and_pop
 
@@ -145,7 +153,8 @@ LossFn = Callable[[Dict[str, torch.Tensor]],
 
 
 def _value_and_grad(loss_fn: LossFn, nets: Sequence[torch.nn.Module],
-                    batches: Dict[str, torch.Tensor], n: int = 1):
+                    batches: Dict[str, torch.Tensor], n: int = 1,
+                    sp: Optional[spatial.SpMesh] = None):
     """(loss, aux, grads) of ``loss_fn(mb) -> (loss, aux)`` by the
     parameters of ``nets``: with ``n`` > 1 the means over ``n`` equal
     microbatches of the batch's leading axis (summed in microbatch order,
@@ -156,7 +165,9 @@ def _value_and_grad(loss_fn: LossFn, nets: Sequence[torch.nn.Module],
     dtype, or under fsdp the losses so and each net's gradients by a
     reduce-scatter into its shard; under tp the gradients of split
     parameters over the rank's dp column alone (they differ between the
-    ranks of a tp block)."""
+    ranks of a tp block); under ``sp`` (the rank's sp mesh) all three,
+    each the part of this rank's rows, are summed over the sp block, then
+    averaged over the dp column."""
     per_net = [list(net.parameters()) for net in nets]
     params = [p for ps in per_net for p in ps]
     lead = next(iter(batches.values())).shape[0]
@@ -183,6 +194,12 @@ def _value_and_grad(loss_fn: LossFn, nets: Sequence[torch.nn.Module],
     for ps in per_net:
         by_net.append(grads[i:i + len(ps)])
         i += len(ps)
+    if sp is not None:
+        parts = [loss, *aux.values(), *grads]
+        dist.all_reduce_mean_(parts, sp.group, mean=False)
+        if sp.dp > 1:
+            dist.all_reduce_mean_(parts, sp.dp_group)
+        return loss, aux, by_net
     if fsdp.flat_of(nets[0]) is not None:
         dist.all_reduce_mean_([loss, *aux.values()])
         return loss, aux, [[fsdp.flat_of(net).reduce_grads(g)]
@@ -200,8 +217,9 @@ def _value_and_grad(loss_fn: LossFn, nets: Sequence[torch.nn.Module],
 def _batch_ranks(state) -> Tuple[int, int, Optional[object]]:
     """(this rank's place, their count, their group) among the ranks that
     split the global batch: every rank (the default group), or under tp
-    the rank's dp column; the tp ranks of a column read its rows."""
-    mesh = state.tp
+    and sp the rank's dp column; the tp and sp ranks of a column read its
+    rows."""
+    mesh = state.tp or getattr(state, "sp", None)
     if mesh is None:
         return dist.rank(), dist.world(), None
     return mesh.column, mesh.dp, mesh.dp_group
@@ -222,7 +240,8 @@ def _global_rows(state, x: torch.Tensor) -> torch.Tensor:
 
 def _augment(state, cfg, a: torch.Tensor, b: torch.Tensor):
     """A and B through independent affine draws (one shared draw with
-    ``aligned_aug``): the global batch's draws, this rank's rows of them."""
+    ``aligned_aug``): the global batch's draws, this rank's rows of them;
+    under sp the whole images warped, then this rank's strips of them."""
     n, h, w, _ = a.shape
     noise, rows = cfg["noise_level"], _rank_rows(state, n)
     count = n * _batch_ranks(state)[1]  # the global batch's rows
@@ -233,7 +252,11 @@ def _augment(state, cfg, a: torch.Tensor, b: torch.Tensor):
 
     params_a = draw()
     params_b = params_a if cfg.get("aligned_aug", False) else draw()
-    return affine_warp(a, *params_a), affine_warp(b, *params_b)
+    a, b = affine_warp(a, *params_a), affine_warp(b, *params_b)
+    sp = getattr(state, "sp", None)
+    if sp is not None:
+        a, b = spatial.strip(a, sp), spatial.strip(b, sp)
+    return a, b
 
 
 # ===========================================================================
@@ -249,6 +272,7 @@ class P2pState:
     gen: torch.Generator  # augmentation draws
     g_ema: Optional[torch.nn.Module] = None
     tp: Optional[tensor.TpMesh] = None  # set by tensor.shard_state_tp
+    sp: Optional[spatial.SpMesh] = None  # set by spatial.shard_state_sp
     # each optimizer's nets, in its parameter order, and the EMA shadows
     OPT_NETS: ClassVar = {"g_opt": ("g_model",), "d_opt": ("d_model",)}
     EMA_NETS: ClassVar = ("g_ema",)
@@ -269,7 +293,13 @@ def p2p_train_step(state: P2pState, cfg: Dict,
     """One pix2pix step on ``batch`` {A, B} (NHWC, [−1, 1]; A may hold
     ``context_slices`` channels). D is conditional on [A, ·]; its
     predictions are scaled by ``Adv_lamda`` before the MSE, as the
-    reference does."""
+    reference does. Under sp (``state.sp``) on this rank's strips."""
+    with spatial.training_scope(state.sp):
+        return _p2p_step(state, cfg, batch, lr)
+
+
+def _p2p_step(state: P2pState, cfg: Dict, batch: Dict[str, torch.Tensor],
+              lr: float) -> Dict[str, torch.Tensor]:
     g_model, d_model = state.g_model, state.d_model
     a, b = _augment(state, cfg, batch["A"], batch["B"])
     n_accum = int(cfg.get("grad_accum", 1))
@@ -286,7 +316,7 @@ def p2p_train_step(state: P2pState, cfg: Dict,
     ab = {"a": a, "b": b}
     fsdp.unshard(g_model, d_model)
     g_loss_v, g_aux, g_grads = _value_and_grad(g_loss, [g_model], ab,
-                                               n_accum)
+                                               n_accum, state.sp)
     _apply(state.g_opt, [g_model], g_grads, lr)
 
     def d_loss(mb):
@@ -297,7 +327,8 @@ def p2p_train_step(state: P2pState, cfg: Dict,
         return mse(pf, 0.0) + mse(pr, 1.0), {}
 
     fsdp.unshard(g_model)  # the updated G
-    d_loss_v, _, d_grads = _value_and_grad(d_loss, [d_model], ab, n_accum)
+    d_loss_v, _, d_grads = _value_and_grad(d_loss, [d_model], ab, n_accum,
+                                           state.sp)
     _apply(state.d_opt, [d_model], d_grads, lr)
     fsdp.reshard(g_model)
     _ema_update(state.g_ema, g_model, cfg.get("ema_decay", 0.999),

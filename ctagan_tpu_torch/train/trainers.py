@@ -78,6 +78,18 @@ gather the eval G whole on every rank and split their batches over all M
 × N ranks, as under fsdp; the emergency save is skipped alike. The split
 step runs no kernel (``Generator.forward``'s gate); the gathered eval G
 takes its configured route.
+
+The sp plan (``mesh: {sp: N}`` or ``{dp: M, sp: N}``, the P2p family
+alone) trains over M × N ranks with the rows of every activation split
+over each block of N (``parallel/spatial.py``); the N ranks of a block
+read their dp column's rows, and the state stays replicated, so
+checkpoints, loads, validate() and test() run as under dp (the whole
+model, its configured route, each eval batch split over all M × N
+ranks). The sp step runs no kernel (``Generator.forward``'s gate). The
+other families under sp raise naming ROADMAP M12d-iii: the ResUNet's deep
+levels fall below its halo at small strips, ``grid_sample`` reads other
+strips, the smoothness loss differences rows across the seam, the replay
+pools hold strips, and P3d is 3-D.
 """
 from __future__ import annotations
 
@@ -120,7 +132,7 @@ from ctagan_tpu_torch.models.convert import (
     regnet_state_dict,
 )
 from ctagan_tpu_torch.ops.lpips import make_lpips_fn
-from ctagan_tpu_torch.parallel import dist, fsdp, tensor
+from ctagan_tpu_torch.parallel import dist, fsdp, spatial, tensor
 from ctagan_tpu_torch.parallel.mesh import (
     MeshPlan,
     pad_batch_to,
@@ -229,6 +241,13 @@ class TrainerBase:
         if config.context_slices > 1 and self.family != "p2p":
             raise ValueError(
                 "context_slices > 1 is supported by the P2p family only")
+        if int(config.mesh.get("sp", 1)) > 1 and self.family != "p2p":
+            raise NotImplementedError(
+                f"mesh {config.mesh}: the sp plan trains the P2p family; "
+                f"{self.family} under sp is not ported yet (ROADMAP "
+                "M12d-iii: the ResUNet's deep levels, grid_sample, the "
+                "smoothness loss and the replay pools read across strips, "
+                "and P3d is 3-D)")
         self.plan = self._plan(config)
         self.config = config
         self.device = torch.device(device)
@@ -256,6 +275,9 @@ class TrainerBase:
         elif self.plan.kind == "tp":
             tensor.shard_state_tp(self.state, tensor.make_tp_mesh(
                 self.plan.dp, self.plan.tp))
+        elif self.plan.kind == "sp":
+            spatial.shard_state_sp(self.state, spatial.make_sp_mesh(
+                self.plan.dp, self.plan.sp))
         self.timer = StepTimer(self.device)
         if config.resume:
             self._try_resume()

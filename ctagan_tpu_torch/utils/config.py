@@ -12,15 +12,18 @@ lists or other flow collections. Keys that are not fields land in
 ``extras``, as in the JAX package (``serve_port``, ``serve_quantize``,
 ``max_batch`` and stage 2's ``num_d`` and ``pyramid`` are read from there).
 
-``mesh`` (the parallel plans) is validated as in JAX. The dp, fsdp and tp
-plans are ported (``parallel/mesh.py``): ``data_parallel: true`` (JAX's
+``mesh`` (the parallel plans) is validated as in JAX. The dp, fsdp, tp and
+sp plans are ported (``parallel/mesh.py``): ``data_parallel: true`` (JAX's
 default), ``mesh: {dp: N}``, ``{fsdp: N}``, ``{dp: M, fsdp: N}``, ``{tp:
-N}`` or ``{dp: M, tp: N}`` trains over the ranks of a process group, one
-card each, ``batchSize`` rows per rank, or per dp column under tp (under
-fsdp with the state sharded, ``parallel/fsdp.py``; under tp with the
-residual pairs split, ``parallel/tensor.py``). sp, depth or pp above 1
-raises naming its ROADMAP M12 item when a trainer is built, as
-``infer_depth_sharded: true`` does in ``infer_series``.
+N}``, ``{dp: M, tp: N}``, ``{sp: N}`` or ``{dp: M, sp: N}`` trains over the
+ranks of a process group, one card each, ``batchSize`` rows per rank, or
+per dp column under tp and sp (under fsdp with the state sharded,
+``parallel/fsdp.py``; under tp with the residual pairs split,
+``parallel/tensor.py``; under sp with the rows of every activation split,
+``parallel/spatial.py``, the P2p family alone). depth or pp above 1 raises
+naming its ROADMAP M12 item when a trainer is built, as
+``infer_depth_sharded: true`` does in ``infer_series``. ``pp_microbatches``
+and ``pp_schedule`` are validated as in JAX whatever the mesh.
 
 The keys of the JAX package's TPU workarounds are accepted and ignored:
 ``checkpoint_backend`` (validated as in JAX, but it picks a JAX serialiser;
@@ -119,9 +122,14 @@ class Config:
     # train over every rank of the process group (--mode train starts one a
     # card), batchSize rows each; without ``mesh``
     data_parallel: bool = True
-    # the parallel plan, e.g. {dp: 2}, {fsdp: 2} or {tp: 2}; sp, depth or
-    # pp > 1 raises (ROADMAP M12)
+    # the parallel plan, e.g. {dp: 2}, {fsdp: 2}, {tp: 2} or {sp: 2};
+    # depth or pp > 1 raises (ROADMAP M12)
     mesh: Dict[str, int] = field(default_factory=dict)
+    # mesh.pp > 1: the microbatches a step's pipeline schedule runs
+    # (batchSize must divide by them) and the schedule, 'gpipe' or '1f1b';
+    # validated as in JAX, read by the pp plan (not ported: ROADMAP M12e)
+    pp_microbatches: int = 2
+    pp_schedule: str = "gpipe"
     extras: Dict[str, Any] = field(default_factory=dict)
 
     @property
@@ -189,6 +197,18 @@ class Config:
                 raise ValueError(
                     "at most one of mesh.fsdp/tp/sp/depth/pp may exceed 1 "
                     "(dp composes with any single one)")
+            if int(self.mesh.get("pp", 1)) > 1:
+                # each data-parallel pipeline group splits its own
+                # batchSize rows into microbatches
+                if self.batchSize % self.pp_microbatches != 0:
+                    raise ValueError(
+                        f"batchSize {self.batchSize} must divide into "
+                        f"pp_microbatches {self.pp_microbatches}")
+        if self.pp_microbatches < 1:
+            raise ValueError("pp_microbatches must be an int >= 1")
+        if self.pp_schedule not in ("gpipe", "1f1b"):
+            raise ValueError(f"pp_schedule must be 'gpipe' or '1f1b', got "
+                             f"{self.pp_schedule!r}")
         if self.depth_downsample not in (1, 2, 4):
             raise ValueError("depth_downsample must be 1, 2 or 4")
         if self.patch_depth % self.depth_downsample != 0:

@@ -173,11 +173,37 @@ def test_config_mesh_refused_as_jax(mesh):
         load_config({"mesh": mesh})
 
 
+@pytest.mark.parametrize("raw,match", [
+    ({"pp_microbatches": 0}, "pp_microbatches must be an int >= 1"),
+    ({"pp_schedule": "bogus"}, "pp_schedule must be 'gpipe' or '1f1b'"),
+    ({"batchSize": 3, "mesh": {"pp": 2}, "pp_microbatches": 2},
+     "batchSize 3 must divide into pp_microbatches 2"),
+], ids=["microbatches", "schedule", "batch"])
+def test_config_pp_keys_checked_as_jax(raw, match):
+    """The pp keys are fields, checked whatever the mesh with JAX's
+    messages (the pp plan itself is not ported), and never extras."""
+    with pytest.raises(ValueError, match=match):
+        jax_load_config(raw)
+    with pytest.raises(ValueError, match=match):
+        load_config(raw)
+    ok = load_config({k: v for k, v in raw.items() if k != "mesh"}
+                     | {"pp_microbatches": 4, "pp_schedule": "1f1b"})
+    assert (ok.pp_microbatches, ok.pp_schedule) == (4, "1f1b")
+    assert not {"pp_microbatches", "pp_schedule"} & set(ok.extras)
+
+
 @pytest.mark.parametrize("spec,item", [
     ({"dp": 2, "sp": 2}, "M12d"), ({"depth": 4}, "M12f"), ({"sp": 2}, "M12d"),
     ({"pp": 3}, "M12e"), ({"dp": 2, "pp": 4}, "M12e"), ({"depth": 2}, "M12f"),
 ], ids=str)
 def test_model_axis_names_its_roadmap_item(spec, item):
+    if item == "M12d":  # the sp plan, ported: it needs dp × sp ranks
+        world = spec.get("dp", 1) * spec["sp"]
+        plan = plan_from_spec(spec, world)
+        assert (plan.kind, plan.batch_scale) == ("sp", spec.get("dp", 1))
+        with pytest.raises(ValueError, match=f"needs {world} devices"):
+            plan_from_spec(spec, 1)
+        return
     for world in (1, 8):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             plan_from_spec(spec, world)

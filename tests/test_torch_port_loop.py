@@ -431,7 +431,9 @@ def test_yaml_mesh_reaches_the_m12_refusal(tmp_path, text):
     plans are ported, and ``{dp: 2}`` or ``{dp: 1, tp: 4}`` in one process
     reaches JAX's "needs N devices"."""
     path = tmp_path / "c.yaml"
-    path.write_text(f"name: P2p\nsize: {SIZE}\n{text}\n")
+    # pp_microbatches 1: a pp mesh needs batchSize (1) to divide into it
+    # (JAX's check, default 2)
+    path.write_text(f"name: P2p\nsize: {SIZE}\npp_microbatches: 1\n{text}\n")
     cfg = load_config(str(path))
     err, match = ((ValueError, "needs 2 devices, have 1") if "dp: 2" in text
                   else (ValueError, "needs 4 devices, have 1")

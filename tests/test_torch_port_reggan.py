@@ -215,6 +215,9 @@ def test_context_slices_is_refused_outside_p2p(tmp_path, cls):
 
 @pytest.mark.parametrize("cls", [P2pTrainer, RegTrainer, HdTrainerStage1])
 def test_pipeline_mesh_raises_naming_m12(tmp_path, cls):
-    cfg = load_config(dict(_cfg(tmp_path, "unused.txt"), mesh={"pp": 2}))
+    # a pp mesh needs batchSize to divide into pp_microbatches (JAX's
+    # check, default 2): one microbatch of the one row
+    cfg = load_config(dict(_cfg(tmp_path, "unused.txt"), mesh={"pp": 2},
+                           pp_microbatches=1))
     with pytest.raises(NotImplementedError, match="M12"):
         cls(cfg, torch.device("cpu"), quiet=True)
