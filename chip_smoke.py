@@ -4185,6 +4185,36 @@ def check_tp(torch, card):
 # the first SP_TEST slices a rank (the eval G whole, its configured route)
 SP_FORWARD_SIZE, SP_HALO, SP_FORWARD_SEED, SP_FORWARD_CALLS = 2048, 96, 13, 2
 SP_SLICES = 8
+# (d) HD stage 1's steps, (e) each other family's
+SP_HD_STEPS, SP_FAMILY_STEPS = 4, 2
+
+
+def _mesh_spec(mesh):
+    return "mesh: {" + ", ".join(f"{k}: {v}" for k, v in mesh.items()) \
+        + "}\n"
+
+
+def _sp_runs(world):
+    """The sp phase's runs of the other families: (d) HD stage 1 for
+    SP_HD_STEPS steps under ``{sp: 2}`` on one card, under ``{sp: 4}``
+    (the ResUNet's bottleneck gathered whole) and ``{dp: 2, sp: 2}`` on
+    four; (e) on one card RegGAN, HD stage 2 and CycleGAN under ``{sp:
+    2}`` for SP_FAMILY_STEPS steps."""
+    def run(name, base, cls, mesh, steps):
+        return {"name": name, "base": base, "cls": cls, "mesh": mesh,
+                "steps": steps}
+
+    hd1 = ("HdGan.yaml", "HdTrainerStage1")
+    if world == 4:
+        return [run("sp_hd1_sp4", *hd1, {"sp": 4}, SP_HD_STEPS),
+                run("sp_hd1_dp2", *hd1, {"dp": 2, "sp": 2}, SP_HD_STEPS)]
+    return [run("sp_hd1", *hd1, {"sp": 2}, SP_HD_STEPS),
+            run("sp_reg", "RegGan.yaml", "RegTrainer", {"sp": 2},
+                SP_FAMILY_STEPS),
+            run("sp_hd2", "HdGan2.yaml", "HdTrainerStage2", {"sp": 2},
+                SP_FAMILY_STEPS),
+            run("sp_cyc", "CycleGan.yaml", "CycTrainer", {"sp": 2},
+                SP_FAMILY_STEPS)]
 
 
 def _sp_forward_g(torch, dev):
@@ -4243,49 +4273,205 @@ def _net_digest(trainer):
     return total % (1 << 64)
 
 
-def _sp_expect(mesh, size, params):
-    """A rank's predicted bytes a P2p step under ``mesh`` (f32, one row a
-    dp column, no grad_accum), from the nets' shapes and parameter
-    counts (G, D): each conv's row exchange gathers every rank's edge rows
-    (its rows for the rank above and for the rank below, and one element of
-    its row count in the forward), and each InstanceNorm, D's pooled logit
-    and the L1 loss's count all-reduce their sums forward (and, but the
-    count, backward); G's gradient (with 3 losses) and D's (with 1) are
-    summed over the block, and with a dp column averaged across it. The
-    step: G forward and backward (its first conv's input takes no
-    gradient), D on the fake forward and backward; then G forward without
-    grad, D on fake and real forward and backward (D's first conv's input
-    takes no gradient)."""
-    n, dp, f = mesh["sp"], mesh.get("dp", 1), 64
-    # (W, C, rows from above, rows from below) of each conv's exchange
-    g_convs = ([(size, 1, 3, 3), (size, f, 1, 0), (size // 2, 2 * f, 1, 0)]
-               + [(size // 4, 4 * f, 1, 1)] * 18
-               + [(size // 4, 4 * f, 0, 1), (size // 2, 2 * f, 0, 1),
-                  (size, f, 3, 3)])
-    d_convs = [(size, 2, 1, 1), (size // 2, f, 1, 1),
-               (size // 4, 2 * f, 1, 1), (size // 8, 4 * f, 1, 2),
-               (size // 8 - 1, 8 * f, 1, 2)]
+# the ResUNet's widths (``ctagan_tpu_torch/models/reg.py``)
+SP_NDF = (32, 64, 64, 64, 64, 64, 64)
+SP_NUF = (64, 64, 64, 64, 64, 64, 32)
 
-    def gathered(convs, tag):
-        return sum(4 * n * ((t + b) * w * c + tag) for w, c, t, b in convs)
 
-    g_norms = [f, 2 * f, 4 * f] + [4 * f] * 18 + [2 * f, f]
-    g_norm = sum(4 * (2 * c + 1) for c in g_norms)
-    d_norm = sum(4 * (2 * c + 1) for c in (2 * f, 4 * f, 8 * f)) \
-        + 4 * 2  # the pooled logit and its count
-    g_params, d_params = params
-    gather = (gathered(g_convs, 1) + gathered(g_convs[1:], 0)
-              + gathered(d_convs, 1) + gathered(d_convs, 0)
-              + gathered(g_convs, 1) + 2 * gathered(d_convs, 1)
-              + 2 * gathered(d_convs[1:], 0))
-    grads = 4 * (g_params + 3) + 4 * (d_params + 1)
-    sums = 2 if dp > 1 else 1  # the block's sum, the column's mean
-    reduce = (2 * g_norm + 2 * d_norm + 4 + g_norm + 4 * d_norm
-              + grads * sums)
-    calls = {"gather_calls": 3 * len(g_convs) - 1 + 4 * len(d_convs)
-             + 2 * (len(d_convs) - 1),
-             "reduce_calls": 3 * len(g_norms) + 6 * 4 + 1 + 2 * sums}
-    return {"gather": gather, "reduce": reduce, **calls}
+class _SpTally:
+    """A rank's predicted collectives of one sp step (f32, one row a rank),
+    tallied layer by layer: bytes and calls gathered (the row exchanges
+    and the whole-image gathers), all-reduced (the sums) and
+    reduce-scattered (a gather's gradient)."""
+
+    def __init__(self, n, dp):
+        self.n, self.dp = n, dp
+        self.bytes = {"gather": 0, "reduce": 0, "scatter": 0}
+        self.calls = dict.fromkeys(self.bytes, 0)
+
+    def _add(self, kind, elems):
+        self.bytes[kind] += 4 * elems
+        self.calls[kind] += 1
+
+    def rows(self, w, c, top, below, back):
+        """A halo exchange of a map ``w`` wide of ``c`` channels: every
+        rank's ``top`` and ``below`` edge rows and its row count gathered;
+        with ``back`` the ghost rows' gradient, without the count."""
+        self._add("gather", self.n * ((top + below) * w * c + 1))
+        if back:
+            self._add("gather", self.n * (top + below) * w * c)
+
+    def sums(self, elems, back):
+        """A ``SumOverGroup`` of ``elems`` elements, and of its
+        gradient."""
+        self._add("reduce", elems)
+        if back:
+            self._add("reduce", elems)
+
+    def norm(self, c, back):
+        self.sums(2 * c + 1, back)  # Σx, Σx², the row count
+
+    def count(self):
+        self._add("reduce", 1)  # an L1's element count
+
+    def whole(self, elems, back):
+        """A strip gathered whole (``elems`` the whole map's), and the
+        reduce-scatter of its gradient."""
+        self._add("gather", elems)
+        if back:
+            self._add("scatter", elems)
+
+    def grads(self, elems):
+        """The step's losses and gradients: summed over the block, and
+        with a dp column averaged across it."""
+        self._add("reduce", elems)
+        if self.dp > 1:
+            self._add("reduce", elems)
+
+
+def _sp_g(t, s, grad_in, back, f=64, blocks=9):
+    """G (reflect pads, ``blocks`` residual blocks, base ``f``) on a 1-channel
+    image ``s`` wide: its input's exchange backward only with
+    ``grad_in``, the rest with ``back`` (a forward with grad)."""
+    t.rows(s, 1, 3, 3, grad_in)
+    t.norm(f, back)
+    t.rows(s, f, 1, 0, back)
+    t.norm(2 * f, back)
+    t.rows(s // 2, 2 * f, 1, 0, back)
+    t.norm(4 * f, back)
+    for _ in range(2 * blocks):
+        t.rows(s // 4, 4 * f, 1, 1, back)
+        t.norm(4 * f, back)
+    t.rows(s // 4, 4 * f, 0, 1, back)
+    t.norm(2 * f, back)
+    t.rows(s // 2, 2 * f, 0, 1, back)
+    t.norm(f, back)
+    t.rows(s, f, 3, 3, back)
+
+
+def _sp_d(t, s, grad_in, back=True, cin=1):
+    """The PatchGAN D (stage 1's scalar one, or one scale of stage 2's):
+    four 4×4 stride-2 / stride-1 stages and the head, then the pooled
+    logit's sum (of the map and its count)."""
+    t.rows(s, cin, 1, 1, grad_in)
+    t.rows(s // 2, 64, 1, 1, back)
+    t.norm(128, back)
+    t.rows(s // 4, 128, 1, 1, back)
+    t.norm(256, back)
+    t.rows(s // 8, 256, 1, 2, back)
+    t.norm(512, back)
+    t.rows(s // 8 - 1, 512, 1, 2, back)
+    t.sums(2, back or grad_in)
+
+
+def _sp_reg_cut(rows):
+    """The first ResUNet level (1-7 the downs, 8 the bottleneck) that runs
+    whole at a strip of ``rows``: under 2 rows, or odd before a pool; 9
+    for none."""
+    for level in range(1, 8):
+        if rows < 2 or rows % 2:
+            return level
+        rows //= 2
+    return 8 if rows < 2 else 9
+
+
+def _sp_r(t, s, n):
+    """The ResUNet on [fake, real] (2 channels, its input with grad) at
+    ``s``² under ``n`` ranks: each level's 3×3 conv and resnet block on
+    strips down to the rule's cut, gathered whole there (its gradient
+    reduce-scattered), the up path's resizes (one row from each neighbour)
+    and convs back on strips, the refine block and the flow head."""
+    cut = _sp_reg_cut(s // n)
+    cin, w = 2, s
+    for level, c in enumerate(SP_NDF, 1):
+        if level == cut:
+            t.whole(w * w * cin, True)
+        if level < cut:
+            t.rows(w, cin, 1, 1, True)
+            for _ in range(2):
+                t.rows(w, c, 1, 1, True)
+                t.norm(c, True)
+        cin, w = c, w // 2
+    if cut == 8:
+        t.whole(w * w * cin, True)
+    if cut > 8:
+        for _ in range(6):  # three resnet blocks of 128
+            t.rows(w, 2 * cin, 1, 1, True)
+            t.norm(2 * cin, True)
+    prev = SP_NDF[-1]
+    for i, level in enumerate(range(7, 0, -1)):
+        w = s >> (level - 1)
+        if level < cut:
+            if level + 1 < cut:  # a strip's resize
+                t.rows(w // 2, prev, 1, 1, True)
+            t.rows(w, prev + SP_NDF[level - 1], 1, 1, True)
+        prev = SP_NUF[i]
+    if cut > 1:
+        for _ in range(2):
+            t.rows(s, prev, 1, 1, True)
+            t.norm(prev, True)
+        t.rows(s, prev, 1, 1, True)
+
+
+def _sp_family_expect(cls, mesh, size, params):
+    """A rank's predicted bytes and calls of one step of the trainer
+    ``cls`` (its config's defaults: b=1, no ``grad_accum``, ``d_refwd``,
+    ``reg_downsample`` 1, stage 2 with one scale and no feature matching)
+    under ``mesh`` at ``size``², f32, from the nets' shapes and
+    ``params`` (parameter counts: G, R, D; P2p and CycleGAN G, D).
+    P2p: G forward and backward (its first exchange's input takes no
+    gradient), the conditional D on [A, fake] forward and backward, the
+    L1's count, G's gradient with 3 losses; then G forward without grad,
+    D on fake and real (its first exchange's input takes no gradient), D's
+    gradient with its loss."""
+    n, dp = mesh["sp"], mesh.get("dp", 1)
+    t = _SpTally(n, dp)
+    s = size
+    if cls == "P2pTrainer":
+        g, d = params
+        _sp_g(t, s, False, True)
+        _sp_d(t, s, True, cin=2)
+        t.count()
+        t.grads(g + 3)
+        _sp_g(t, s, False, False)
+        _sp_d(t, s, False, cin=2)
+        _sp_d(t, s, False, cin=2)
+        t.grads(d + 1)
+        return {**t.bytes, **{f"{k}_calls": v for k, v in t.calls.items()}}
+    if cls == "CycTrainer":
+        g, d = params
+        for _ in range(2):  # ga(a), db(fake_b); gb(b), da(fake_a)
+            _sp_g(t, s, False, True)
+            _sp_d(t, s, True)
+        for _ in range(2):  # the cycles, each an L1
+            _sp_g(t, s, True, True)
+            t.count()
+        t.grads(1 + 2 + 2 * g)
+        for _ in range(2):  # the pools take the whole fakes
+            t.whole(s * s, False)
+            if dp > 1:
+                t.sums(dp * s * s, False)
+        for _ in range(2):  # D_A, D_B on the real and the pooled fake
+            _sp_d(t, s, False)
+            _sp_d(t, s, False)
+            t.grads(1 + d)
+        return {**t.bytes, **{f"{k}_calls": v for k, v in t.calls.items()}}
+    stage2 = cls == "HdTrainerStage2"
+    g, r, d = params
+    _sp_g(t, s, False, True)
+    _sp_r(t, s, n)
+    t.whole(s * s, True)  # the warp's moving image
+    t.rows(s, 2, 0, 1, True)  # the smoothness loss: a row from below
+    t.count()  # SR_loss
+    _sp_d(t, s, True)
+    if stage2:
+        t.count()  # SR_loss2
+    t.grads(1 + (4 if stage2 else 3) + g + r)
+    _sp_g(t, s, False, False)  # D's fresh forward of the updated G
+    _sp_d(t, s, False)
+    _sp_d(t, s, False)
+    t.grads(1 + d)
+    return {**t.bytes, **{f"{k}_calls": v for k, v in t.calls.items()}}
 
 
 def sp_worker(torch, tmp):
@@ -4296,19 +4482,19 @@ def sp_worker(torch, tmp):
     (the output in sp_fwd<r>.npy); (b) DP_STEPS steps of
     ``tmp``/sp_train.yaml, each collective inside a step timed by CUDA
     events and the host clock with its bytes, a digest of G and D after
-    every step, the peak memory, a checkpoint (rank 0 writes it); (c)
-    test() of ``tmp``/sp_test.yaml (the configured route). Results in
-    ``tmp``/sp_rank<r>.json, rank 0's weights in sp_rank0.pt."""
+    every step, the peak memory, a checkpoint (rank 0 writes it)
+    (:func:`_sp_rank_train`); (c) test() of ``tmp``/sp_test.yaml (the
+    configured route); (d), (e) each run of ``tmp``/sp_runs.json (the
+    other families) as (b), then test() of its checkpoint. Results in
+    ``tmp``/sp_rank<r>.json, rank 0's weights in <run>_rank0.pt."""
     import numpy as np
-    import torch.distributed as tdist
 
     from ctagan_tpu_torch.__main__ import test as run_test
-    from ctagan_tpu_torch.__main__ import train
     from ctagan_tpu_torch.parallel import dist, halo, spatial
-    from ctagan_tpu_torch.train import trainers
     from ctagan_tpu_torch.utils.config import load_config
 
-    marks = [time.time()]  # entry, the group, the go, (a), (b), (c)
+    # entry, the group, the go, (a), (b), (c), each run
+    marks = [time.time()]
     dev = (dist.init(torch.device("cuda")) if torch.cuda.device_count() > 1
            else dist.init(torch.device("cuda", 0), backend="gloo"))
     marks.append(time.time())
@@ -4334,8 +4520,62 @@ def sp_worker(torch, tmp):
     torch.cuda.empty_cache()
     marks.append(time.time())
     # (b) the steps
+    res.update(_sp_rank_train(torch, dev, tmp, "sp", "P2pTrainer", DP_STEPS,
+                              "sp_train.yaml"))
+    torch.cuda.empty_cache()
+    marks.append(time.time())
+    # (c) test() on the configured route
+    reset_counts()
+    _, agg, secs = run_test(load_config(os.path.join(tmp, "sp_test.yaml")),
+                            dev)
+    torch.cuda.synchronize()
+    marks.append(time.time())
+    res.update(test_counts=launch_counts(), agg=agg, test_s=secs)
+    # (d), (e) the other families, as the parent lists them: their steps,
+    # then test() of their checkpoint
+    with open(os.path.join(tmp, "sp_runs.json")) as f:
+        runs = json.load(f)
+    res["runs"] = {}
+    for run in runs:
+        out = _sp_rank_train(torch, dev, tmp, run["name"], run["cls"],
+                             run["steps"])
+        torch.cuda.empty_cache()
+        reset_counts()
+        _, agg, secs = run_test(load_config(os.path.join(
+            tmp, f"{run['name']}_test.yaml")), dev)
+        torch.cuda.synchronize()
+        out.update(test_counts=launch_counts(), agg=agg, test_s=secs)
+        res["runs"][run["name"]] = out
+        marks.append(time.time())
+    res["marks"] = marks
+    with open(os.path.join(tmp, f"sp_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.shutdown()
+    return 0
+
+
+def _sp_rank_train(torch, dev, tmp, name, cls_name, n_steps, yaml=None):
+    """One rank's ``n_steps`` steps of ``tmp``/``yaml`` (<name>.yaml)
+    through the entry point's ``train()`` (the trainer ``cls_name``): each
+    collective
+    inside a step timed by CUDA events and the host clock with its bytes,
+    a digest of the nets after every step, the launches, the peak memory,
+    a checkpoint (rank 0 writes it). Rank 0's weights and first moments
+    after step 1 and after the run (and CycleGAN's pools) go to
+    ``tmp``/<name>_rank0.pt. Returns the rank's results."""
+    import torch.distributed as tdist
+
+    from ctagan_tpu_torch.__main__ import train
+    from ctagan_tpu_torch.parallel import dist
+    from ctagan_tpu_torch.train import trainers
+    from ctagan_tpu_torch.utils.config import load_config
+
     digests, colls, done, in_step = [], [], [0], [False]
-    moved = {"all_reduce": 0, "all_gather_into_tensor": 0}
+    # each collective's kind, and which argument holds the bytes it moves
+    moved = {"all_reduce": 0, "all_gather_into_tensor": 0,
+             "reduce_scatter_tensor": 1}
+    kinds = {"all_reduce": "reduce", "all_gather_into_tensor": "gather",
+             "reduce_scatter_tensor": "scatter"}
     originals = {kind: getattr(tdist, kind) for kind in moved}
 
     def timed(kind):
@@ -4348,12 +4588,14 @@ def sp_worker(torch, tmp):
             out_ = originals[kind](*args, **kw)
             ev[1].record()
             t = args[moved[kind]]
-            colls.append((kind, done[0], ev, t.numel() * t.element_size(),
+            colls.append((kinds[kind], done[0], ev,
+                          t.numel() * t.element_size(),
                           time.perf_counter() - h0))
             return out_
         return call
 
-    step = trainers.P2pTrainer._step
+    cls = getattr(trainers, cls_name)
+    own, step = cls.__dict__.get("_step"), cls._step
     first = {}
 
     def spy(self, batch, lr, lr_d):
@@ -4370,108 +4612,138 @@ def sp_worker(torch, tmp):
 
     for kind in moved:
         setattr(tdist, kind, timed(kind))
-    trainers.P2pTrainer._step = spy
+    cls._step = spy
     torch.cuda.reset_peak_memory_stats(dev)
     try:
         reset_counts()
-        trainer = train(load_config(os.path.join(tmp, "sp_train.yaml")), dev,
-                        max_steps=DP_STEPS)
+        trainer = train(load_config(os.path.join(tmp, yaml or f"{name}.yaml")),
+                        dev, max_steps=n_steps)
         torch.cuda.synchronize()
         counts = launch_counts()
     finally:
         for kind, fn in originals.items():
             setattr(tdist, kind, fn)
-        trainers.P2pTrainer._step = step
+        if own is None:
+            del cls._step
+        else:
+            cls._step = own
     peak = torch.cuda.max_memory_allocated(dev)
     per_step = {kind: [{"ms": 0.0, "host_ms": 0.0, "bytes": 0, "calls": 0}
-                       for _ in range(DP_STEPS)] for kind in moved}
+                       for _ in range(n_steps)] for kind in kinds.values()}
     for kind, i, ev, nb, host_s in colls:
         s = per_step[kind][i]
         s["ms"] += ev[0].elapsed_time(ev[1])
         s["host_ms"] += host_s * 1e3
         s["bytes"] += nb
         s["calls"] += 1
-    res.update(digests=digests, losses=trainer.loss_history, counts=counts,
-               reduce=per_step["all_reduce"],
-               gather=per_step["all_gather_into_tensor"], peak=peak,
-               p50_ms=trainer.timer.summary(skip=1)["p50_ms"],
+    timer = trainer.timer.summary(skip=1 if n_steps > 2 else 0)
+    res = dict(digests=digests, losses=trainer.loss_history, counts=counts,
+               peak=peak, p50_ms=timer.get("p50_ms", float("nan")),
                kind=trainer.plan.kind, sp=trainer.state.sp.n,
-               pt=trainer._save(trainer._current_epoch))
-    if rank == 0:
+               pt=trainer._save(trainer._current_epoch), **per_step)
+    if dist.rank() == 0:
         torch.save(dict(first, w=_net_weights(trainer),
-                        mu=_net_first_moments(trainer)),
-                   os.path.join(tmp, "sp_rank0.pt"))
+                        mu=_net_first_moments(trainer),
+                        pools=_pools(trainer.state)),
+                   os.path.join(tmp, f"{name}_rank0.pt"))
     del trainer
-    torch.cuda.empty_cache()
-    marks.append(time.time())
-    # (c) test() on the configured route
-    reset_counts()
-    _, agg, secs = run_test(load_config(os.path.join(tmp, "sp_test.yaml")),
-                            dev)
-    torch.cuda.synchronize()
-    marks.append(time.time())
-    res.update(test_counts=launch_counts(), agg=agg, test_s=secs,
-               marks=marks)
-    with open(os.path.join(tmp, f"sp_rank{rank}.json"), "w") as f:
-        json.dump(res, f)
-    dist.shutdown()
-    return 0
+    return res
 
 
-def _sp_one(torch, config, dev, f64=False):
-    """One process's DP_STEPS steps of ``config``: the weights and first
-    moments after step 1 and after the run, the losses, the p50 step and
-    the peak memory; with ``f64`` also the same steps replayed in float64
-    (the nets' initial weights, the augmentation generator's state and the
-    batches each step took, in f64) under ``"f64"``."""
+def _pools(state):
+    """A CycleGAN state's history pools on the host (None for the other
+    families)."""
+    if not hasattr(state, "fake_a_buffer"):
+        return None
+    return [(b.data.detach().cpu().clone(), b.size)
+            for b in (state.fake_a_buffer, state.fake_b_buffer)]
+
+
+def _state64(state):
+    """A float64 copy of a state as its first step finds it: its nets and
+    EMAs in f64, fresh optimizers over the copies (in the state's
+    parameter order), its generator's state and (CycleGAN) its pools."""
+    import torch
+
+    from ctagan_tpu_torch.train import steps
+
+    new = copy.copy(state)
+    for names in state.OPT_NETS.values():
+        for attr in names:
+            setattr(new, attr, copy.deepcopy(getattr(state, attr)).double())
+    for opt, names in state.OPT_NETS.items():
+        setattr(new, opt, steps.make_optimizer(
+            [p for attr in names for p in getattr(new, attr).parameters()]))
+    for attr in state.EMA_NETS:
+        if getattr(state, attr) is not None:
+            setattr(new, attr, copy.deepcopy(getattr(state, attr)).double())
+    new.gen = torch.Generator()
+    new.gen.set_state(state.gen.get_state())
+    for key in ("fake_a_buffer", "fake_b_buffer"):
+        if hasattr(state, key):
+            buf = getattr(state, key)
+            setattr(new, key, type(buf)(buf.data.double().clone(), buf.size))
+    return new
+
+
+def _sp_one(torch, config, dev, f64=False, cls_name="P2pTrainer",
+            n_steps=DP_STEPS):
+    """One process's ``n_steps`` steps of ``config`` (the trainer
+    ``cls_name``): the weights and first moments after step 1 and after
+    the run, the losses, the p50 step and the peak memory; with ``f64``
+    also the same steps replayed in float64 (:func:`_state64` of the state
+    the first step found, and the batches each step took, in f64, through
+    the trainer's own step) under ``"f64"``."""
     import torch as _torch
 
     from ctagan_tpu_torch.__main__ import train
-    from ctagan_tpu_torch.train import steps, trainers
+    from ctagan_tpu_torch.train import trainers
 
-    step, first, replay = trainers.P2pTrainer._step, {}, {"batches": []}
+    cls = getattr(trainers, cls_name)
+    own, step = cls.__dict__.get("_step"), cls._step
+    first, replay = {}, {"batches": []}
 
     def spy(self, batch, lr, lr_d):
-        if f64 and "state" not in replay:
-            st = self.state
-            g64 = copy.deepcopy(st.g_model).double()
-            d64 = copy.deepcopy(st.d_model).double()
-            replay["state"] = steps.init_p2p_state(
-                g64, d64, ema=st.g_ema is not None)
-            replay["state"].gen.set_state(st.gen.get_state())
-            replay["cfg"] = self._step_cfg("P2P_lamda", "Adv_lamda")
+        if f64 and "shim" not in replay:
+            replay["shim"] = copy.copy(self)
+            replay["shim"].state = _state64(self.state)
         if f64:
             replay["batches"].append(
-                ({k: v.detach().double() for k, v in batch.items()}, lr))
+                ({k: v.detach().double() for k, v in batch.items()}, lr,
+                 lr_d))
         out = step(self, batch, lr, lr_d)
         if not first:
             first.update(w1=_net_weights(self), mu1=_net_first_moments(self))
         return out
 
-    trainers.P2pTrainer._step = spy
+    cls._step = spy
     torch.cuda.reset_peak_memory_stats(dev)
     try:
-        trainer = train(config, dev, max_steps=DP_STEPS)
+        trainer = train(config, dev, max_steps=n_steps)
         torch.cuda.synchronize()
     finally:
-        trainers.P2pTrainer._step = step
+        if own is None:
+            del cls._step
+        else:
+            cls._step = own
     nets = trainer._NETS
+    timer = trainer.timer.summary(skip=1 if n_steps > 2 else 0)
     out = dict(first, w=_net_weights(trainer), mu=_net_first_moments(trainer),
                losses=trainer.loss_history,
-               p50=trainer.timer.summary(skip=1)["p50_ms"],
+               p50=timer.get("p50_ms", float("nan")),
                peak=torch.cuda.max_memory_allocated(dev))
     del trainer
     if f64:
-        st, res = replay["state"], {}
-        for i, (batch, lr) in enumerate(replay["batches"]):
-            steps.p2p_train_step(st, replay["cfg"], batch, lr)
+        shim, res = replay["shim"], {}
+        for i, (batch, lr, lr_d) in enumerate(replay["batches"]):
+            step(shim, batch, lr, lr_d)
             if i == 0:
-                res.update(w1=_state_weights(st, nets),
-                           mu1=_state_first_moments(st, nets))
-        res.update(w=_state_weights(st, nets),
-                   mu=_state_first_moments(st, nets))
+                res.update(w1=_state_weights(shim.state, nets),
+                           mu1=_state_first_moments(shim.state, nets))
+        res.update(w=_state_weights(shim.state, nets),
+                   mu=_state_first_moments(shim.state, nets))
         out["f64"] = res
-        del replay, st
+        del replay, shim
         _torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return out
@@ -4488,17 +4760,18 @@ def check_sp(torch, card):
     cards: ``{dp: 2, sp: 2}``) for DP_STEPS steps against one process on
     the layer route at batchSize dp and grad_accum dp (held as tp's (b)),
     the weights bit-identical across the ranks after every step, the bytes
-    each rank gathers and all-reduces a step against :func:`_sp_expect`,
-    no kernel launched, the peak memory beside one process's, the ``.pt``
-    the ranks wrote read at world 1 bit-equal to rank 0's state; (c)
-    test() over the ranks, 18 K1 launches a forwarded slice. Returns the
-    ranks' launches."""
+    each rank gathers and all-reduces a step against
+    :func:`_sp_family_expect`, no kernel launched, the peak memory beside
+    one process's, the ``.pt`` the ranks wrote read at world 1 bit-equal to
+    rank 0's state; (c) test() over the ranks, 18 K1 launches a forwarded
+    slice; (d), (e) the other families' runs (:func:`_sp_runs`), each held
+    by :func:`_sp_run_held`. Returns the ranks' launches."""
     import math
 
     import numpy as np
 
     from ctagan_tpu_torch.data.fixtures import make_corpus
-    from ctagan_tpu_torch.models import Discriminator, Generator
+    from ctagan_tpu_torch.models import Discriminator, Generator, RegNet
     from ctagan_tpu_torch.train.trainers import P2pTrainer
     from ctagan_tpu_torch.utils.config import load_config
 
@@ -4508,9 +4781,15 @@ def check_sp(torch, card):
     nccl = cards > 1
     mesh = {"dp": 2, "sp": 2} if world == 4 else {"sp": 2}
     dp = mesh.get("dp", 1)
-    params = [sum(p.numel() for p in m.parameters())
-              for m in (Generator(1, 1), Discriminator(2))]
-    expect = _sp_expect(mesh, 512, params)
+    n_g, n_r, n_d2, n_d = (sum(p.numel() for p in m.parameters()) for m in (
+        Generator(1, 1), RegNet(), Discriminator(2), Discriminator(1)))
+    params = [n_g, n_d2]
+    expect = _sp_family_expect("P2pTrainer", mesh, 512, params)
+    runs = _sp_runs(world)
+    for run in runs:
+        run["expect"] = _sp_family_expect(
+            run["cls"], run["mesh"], 512,
+            [n_g, n_d] if run["cls"] == "CycTrainer" else [n_g, n_r, n_d])
     counts = dict.fromkeys(SOURCES, 0)
     how = "a card each (NCCL)" if nccl else "on one card (gloo)"
     with tempfile.TemporaryDirectory() as tmp:
@@ -4525,21 +4804,36 @@ def check_sp(torch, card):
         spec = "mesh: {" + ", ".join(f"{k}: {v}" for k, v in mesh.items()) \
             + "}\n"
 
-        def yaml(name, extra):
+        def yaml(name, extra, base="P2p.yaml"):
             path = _smoke_config(tmp, lists, f"save_root: '{tmp}/{name}/'\n"
                                  f"image_save: '{tmp}/{name}_img/'\n"
                                  "live_panels: false\n" + extra,
-                                 base="P2p.yaml")
+                                 base=base)
             shutil.move(path, os.path.join(tmp, f"{name}.yaml"))
             return os.path.join(tmp, f"{name}.yaml")
+
+        def with_test(name, extra, base="P2p.yaml"):
+            # <name>.yaml and <name>_test.yaml, test() split over the ranks
+            yaml(name, extra, base)
+            with open(os.path.join(tmp, f"{name}_test.yaml"), "w") as f:
+                with open(os.path.join(tmp, f"{name}.yaml")) as src:
+                    f.write(src.read() + f"\neval_batch: {world}\n")
 
         yaml("sp_train", spec)
         with open(os.path.join(tmp, "sp_test.yaml"), "w") as f:
             with open(os.path.join(tmp, "sp_train.yaml")) as src:
                 f.write(src.read() + f"\neval_batch: {world}\n")
+        for run in runs:
+            with_test(run["name"], _mesh_spec(run["mesh"]), run["base"])
+        with open(os.path.join(tmp, "sp_runs.json"), "w") as f:
+            json.dump(runs, f)
         print(f"sp: the corpus {time.perf_counter() - t0:.1f} s; G, D "
               f"parameters {params}; predicted a rank's step under {mesh}: "
-              f"{expect} [{card}]", flush=True)
+              f"{expect}; G, R, D, 1-channel D parameters "
+              f"{[n_g, n_r, n_d]}; predicted a rank's step of "
+              + "; ".join(f"{r['name']} ({r['cls']}, {r['mesh']}): "
+                          f"{r['expect']}" for r in runs)
+              + f" [{card}]", flush=True)
         t_wall = time.time()
         ranks_proc = subprocess.Popen(
             [sys.executable, "-m", "torch.distributed.run", "--standalone",
@@ -4568,6 +4862,16 @@ def check_sp(torch, card):
                 "fused_body_grad: off\n"))
             one, one2 = (_sp_one(torch, cfg_one, dev, f64=f) for f in
                          (True, False))
+            # (d), (e) one process of each run on the layer route, its
+            # float64 replay
+            refs = {}
+            for run in runs:
+                r_dp = run["mesh"].get("dp", 1)
+                refs[run["name"]] = _sp_one(torch, load_config(yaml(
+                    f"{run['name']}_one", f"batchSize: {r_dp}\n"
+                    f"grad_accum: {r_dp}\nfused_body_grad: off\n",
+                    run["base"])), dev, f64=True, cls_name=run["cls"],
+                    n_steps=run["steps"])
             open(os.path.join(tmp, "sp_go"), "w").close()
             t1 = time.perf_counter()
             rc = ranks_proc.wait()
@@ -4698,6 +5002,114 @@ def check_sp(torch, card):
             for k in counts:
                 counts[k] += res["counts"].get(k, 0) + \
                     res["test_counts"].get(k, 0)
+        # (d), (e)
+        for run in runs:
+            for k, n in _sp_run_held(torch, card, tmp, run, refs[run["name"]],
+                                     [res["runs"][run["name"]]
+                                      for res in ranks], world, how,
+                                     yaml, dev).items():
+                counts[k] += n
+    return counts
+
+
+def _sp_run_held(torch, card, tmp, run, one, ranks, world, how, yaml, dev):
+    """(d), (e): one run of the other families held as (b) and (c) hold
+    P2p's: each step's bytes gathered, all-reduced and reduce-scattered
+    against :func:`_sp_family_expect` exactly, no launch in the steps, the
+    replicas bit-identical after every step, rank 0 against one process's
+    float64 replay by the GRAD_RATIO rule and its first-step losses within
+    FAMILY_ROUTE_TOL, the ``.pt`` read at world 1 bit-equal (CycleGAN's
+    pools too), test() 18 K1 a slice on each rank. Returns the ranks'
+    launches."""
+    import math
+
+    from ctagan_tpu_torch.train import trainers
+    from ctagan_tpu_torch.utils.config import load_config
+
+    name, mesh, expect = run["name"], run["mesh"], run["expect"]
+    label = f"sp {name} ({run['cls']}, {run['base']}, {mesh})"
+    r0 = torch.load(os.path.join(tmp, f"{name}_rank0.pt"))
+    exact = one["f64"]
+    grad_64, ok_g = _dp_held(r0["mu1"], exact["mu1"], one["mu1"])
+    dist_64, ok_w = _dp_held(r0["w"], exact["w"], one["w"])
+    kinds = ("gather", "reduce", "scatter")
+    for r, res in enumerate(ranks):
+        step_bytes = {k: sorted({s["bytes"] for s in res[k]}) for k in kinds}
+        step_calls = {k: sorted({s["calls"] for s in res[k]}) for k in kinds}
+        print(f"{label} rank {r} of {world} {how}: {run['steps']} steps at "
+              f"512^2, p50 step {res['p50_ms']:.1f} ms (one process on the "
+              f"layer route {one['p50']:.1f} ms); a step's bytes and calls "
+              + ", ".join(f"{k} {step_bytes[k]} in {step_calls[k]} "
+                          f"(expected {expect[k]} in {expect[k + '_calls']})"
+                          for k in kinds)
+              + "; ms a step " + ", ".join(
+                  f"{k} " + "/".join(f"{s['ms']:.1f} (host "
+                                     f"{s['host_ms']:.1f})" for s in res[k])
+                  for k in kinds)
+              + f"; peak memory {res['peak'] / 2**30:.3f} GiB (one process "
+              f"{one['peak'] / 2**30:.3f} GiB); launches {res['counts']} "
+              f"(expected none); losses {res['losses']} [{card}]",
+              flush=True)
+        if res["counts"] != counts_of():
+            fail(f"{label}: rank {r}'s steps launched {res['counts']}")
+        if (any(step_bytes[k] != [expect[k]] or step_calls[k]
+                != [expect[k + "_calls"]] for k in kinds)
+                or (res["kind"], res["sp"]) != ("sp", mesh["sp"])):
+            fail(f"{label}: rank {r}'s bytes {step_bytes} in {step_calls}, "
+                 f"expected {expect}")
+    same = [len(set(d)) == 1 for d in zip(*(res["digests"] for res in ranks))]
+    if len(same) != run["steps"] or not all(same):
+        fail(f"{label}: the ranks' weights differ after a step {same}")
+    loss_one = one["losses"]
+    first = [abs(ranks[0]["losses"][0][k] - loss_one[0][k])
+             / max(abs(loss_one[0][k]), 1e-12) for k in loss_one[0]]
+    pt = ranks[0]["pt"]
+    cls = getattr(trainers, run["cls"])
+    back = cls(load_config(yaml(f"{name}_back", "", run["base"])), dev,
+               quiet=True)
+    back._load_state(torch.load(pt, weights_only=False)["state"])
+    portable = all(set(g_) == set(w_) and all(
+        _equal_state(g_[n], w_[n]) for n in w_)
+        for g_, w_ in ((_net_weights(back), r0["w"]),
+                       (_net_first_moments(back), r0["mu"])))
+    pools = _pools(back.state)
+    if pools is not None:
+        portable = portable and all(
+            a[1] == b[1] and torch.equal(a[0], b[0])
+            for a, b in zip(pools, r0["pools"]))
+    del back
+    torch.cuda.empty_cache()
+    k1 = [res["test_counts"].get("conv3x3_reflect_stats", 0)
+          for res in ranks]
+    print(f"{label}: the ranks' nets bit-identical after each step {same}; "
+          f"against one process's float64 replay (||rank 0 - f64||, ||one "
+          f"f32 process - f64||, ||f64||; tol {GRAD_RATIO} x the f32 "
+          f"process's + {GRAD_TOL} x norm): step 1's first moments by net "
+          f"{_dp_line(grad_64)}; the weights after {run['steps']} steps by "
+          f"net {_dp_line(dist_64)}; first-step losses "
+          f"{ranks[0]['losses'][0]} vs {loss_one[0]} (largest relative "
+          f"{max(first):.2e}); the .pt of the ranks ({os.path.basename(pt)}) "
+          f"read at world 1 bit-equal to rank 0's weights, first moments"
+          f"{' and pools' if pools is not None else ''} {portable}; test() "
+          f"of {world} slices over the ranks: launches by rank "
+          f"{[res['test_counts'] for res in ranks]} (18 K1 a slice), "
+          f"{[round(res['test_s'], 2) for res in ranks]} s; aggregates "
+          f"{ranks[0]['agg']} [{card}]", flush=True)
+    if not (ok_g and ok_w) or max(first) > FAMILY_ROUTE_TOL:
+        fail(f"{label}: the ranks moved off one process's steps")
+    if not portable:
+        fail(f"{label}: the ranks' .pt read at world 1 differs from their "
+             "state")
+    if k1 != [18] * world or any(
+            res["test_counts"] != counts_of(conv3x3_reflect_stats=18)
+            for res in ranks) or not all(
+            math.isfinite(v) for v in ranks[0]["agg"].values()):
+        fail(f"{label}: test() launches {k1} or its metrics")
+    counts = dict.fromkeys(SOURCES, 0)
+    for res in ranks:
+        for k in counts:
+            counts[k] += res["counts"].get(k, 0) + \
+                res["test_counts"].get(k, 0)
     return counts
 
 

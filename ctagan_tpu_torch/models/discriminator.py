@@ -28,6 +28,7 @@ from ctagan_tpu_torch.models.layers import (
     avg_pool_same,
     center_crop,
     global_avg_pool_logit,
+    image_rows,
 )
 
 
@@ -122,6 +123,6 @@ class MultiScaleDiscriminator(_SeededConvs):
         for i in range(self.num_d):
             results.append(getattr(self, f"scale{self.num_d - 1 - i}")(x))
             if i != self.num_d - 1:
-                x = (center_crop(x, int(x.shape[1] / 2))
+                x = (center_crop(x, int(image_rows(x) / 2))
                      if self.pyramid == "center_crop" else avg_pool_same(x))
         return results

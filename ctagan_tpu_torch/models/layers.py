@@ -12,8 +12,10 @@ The sp plan's context (:func:`sp_scope`): while a ``parallel/halo.py`` or
 a larger image. The layers then ask it: :func:`instance_norm` for the
 statistics over the whole image (:meth:`norm`), and with a context that
 ``exchanges`` rows (training) ``ReflectPad``, ``ConvTorch``,
-``ConvTransposeTorch`` and :func:`global_avg_pool_logit` for the rows their
-window reaches beyond the strip, from the neighbouring ranks.
+``ConvTransposeTorch``, :func:`global_avg_pool_logit` and
+:func:`avg_pool_same` for the rows their window reaches beyond the strip,
+from the neighbouring ranks, and :func:`center_crop` for the whole image;
+:func:`max_pool` raises where a strip would crop a row.
 """
 from __future__ import annotations
 
@@ -70,7 +72,7 @@ def sp_context():
     return _SP
 
 
-def _sp_rows():
+def sp_rows():
     """The context when it exchanges rows (sp training), else None."""
     return _SP if _SP is not None and _SP.exchanges else None
 
@@ -136,7 +138,7 @@ class ReflectPad(nn.Module):
         self.pad = pad
 
     def forward(self, x):
-        sp = _sp_rows()
+        sp = sp_rows()
         return reflect_pad(x, self.pad) if sp is None else sp.reflect_pad(
             x, self.pad)
 
@@ -169,7 +171,7 @@ class ConvTorch(nn.Module):
         return self.weight.permute(2, 3, 1, 0).contiguous()
 
     def forward(self, x):
-        sp = _sp_rows()
+        sp = sp_rows()
         if sp is not None:
             return sp.conv(self, x)
         y = F.conv2d(
@@ -198,7 +200,7 @@ class ConvTransposeTorch(nn.Module):
         _uniform_(self.bias, bound, gen)
 
     def forward(self, x):
-        sp = _sp_rows()
+        sp = sp_rows()
         if sp is not None:
             return sp.conv_transpose(self, x)
         y = F.conv_transpose2d(
@@ -242,6 +244,11 @@ def max_pool(x: torch.Tensor, window: int = 2) -> torch.Tensor:
     max, as ``ctagan_tpu/models/layers.py::max_pool``: tied maxima share the
     gradient (``amax``), where ``F.max_pool2d`` routes it to one of them."""
     n, h, w, c = x.shape
+    if h % window and sp_rows() is not None:
+        # the strips are equal, so every rank raises alike
+        raise ValueError(
+            f"sp: a max pool of a strip of {h} rows would crop a row that "
+            f"one process keeps: gather the level whole first")
     if h % window or w % window:
         x = x[:, : h - h % window, : w - w % window]
         h, w = x.shape[1], x.shape[2]
@@ -253,15 +260,30 @@ def avg_pool_same(x: torch.Tensor, window: int = 3,
                   stride: int = 2) -> torch.Tensor:
     """AvgPool2d(3, stride 2, padding 1, count_include_pad=False) on NHWC:
     the pix2pixHD pyramid downsampler (``ctagan_tpu/models/layers.py::
-    avg_pool_same``)."""
+    avg_pool_same``); of a strip under sp training, this rank's rows of
+    the whole image's pool."""
+    sp = sp_rows()
+    if sp is not None:
+        return sp.avg_pool(x, window, stride)
     y = F.avg_pool2d(x.permute(0, 3, 1, 2), window, stride,
                      padding=window // 2, count_include_pad=False)
     return y.permute(0, 2, 3, 1)
 
 
+def image_rows(x: torch.Tensor) -> int:
+    """The rows of the whole image of which ``x`` is a strip under sp
+    training (equal strips), else ``x``'s."""
+    sp = sp_rows()
+    return x.shape[1] if sp is None else sp.rows(x)
+
+
 def center_crop(x: torch.Tensor, size: int) -> torch.Tensor:
     """torchvision's center_crop on NHWC: the HD stage-2 multi-scale
-    transition."""
+    transition. Of a strip under sp training, this rank's strip of the
+    whole image's crop (``size`` the whole crop's)."""
+    sp = sp_rows()
+    if sp is not None:
+        return sp.center_crop(x, size)
     h, w = x.shape[1], x.shape[2]
     top, left = (h - size) // 2, (w - size) // 2
     return x[:, top: top + size, left: left + size, :]
@@ -270,7 +292,7 @@ def center_crop(x: torch.Tensor, size: int) -> torch.Tensor:
 def global_avg_pool_logit(x: torch.Tensor) -> torch.Tensor:
     """avg_pool2d over the full spatial extent -> (N, C); of a strip under
     sp training, over the whole image (every rank's rows)."""
-    sp = _sp_rows()
+    sp = sp_rows()
     return x.mean(dim=(1, 2)) if sp is None else sp.pool_logit(x)
 
 

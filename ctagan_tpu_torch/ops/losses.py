@@ -16,7 +16,7 @@ from typing import Sequence
 
 import torch
 
-from ctagan_tpu_torch.models.layers import sp_context
+from ctagan_tpu_torch.models.layers import global_avg_pool_logit, sp_context
 from ctagan_tpu_torch.ops.windowing import body_mask, mask_background_to_air
 
 # Per-scale weights of the multi-scale GAN loss (the reference's HdGan.py)
@@ -43,8 +43,9 @@ def lsgan_loss(pred: torch.Tensor, target_is_real: bool) -> torch.Tensor:
 
 
 def _pool_logit(feat: torch.Tensor) -> torch.Tensor:
-    """Global-average-pool a (N, H, W, 1) map to (N, 1) logits."""
-    return feat.mean(dim=(1, 2))
+    """Global-average-pool a (N, H, W, 1) map to (N, 1) logits (under sp
+    training over the whole image: ``global_avg_pool_logit``)."""
+    return global_avg_pool_logit(feat)
 
 
 def gan_loss_multiscale(scale_features: Sequence[Sequence[torch.Tensor]],

@@ -9,6 +9,7 @@ from ctagan_tpu_torch.parallel.halo import infer_spatial_sharded
 from ctagan_tpu_torch.parallel.spatial import (
     SpMesh,
     halo_conv,
+    halo_resize,
     halo_rows,
     make_sp_mesh,
     shard_state_sp,

@@ -27,8 +27,11 @@ rows of the global batch it reads. The sp plan (``parallel/spatial.py``,
 ``parallel/halo.py``) takes the same mesh, its sp blocks and dp columns,
 and adds :func:`neighbour_rows` (each rank's edge rows to the ranks above
 and below it in its block: one ``all_gather_into_tensor`` of every rank's
-edges) and :class:`SumOverGroup` (a sum over the block that autograd
-differentiates as a sum over the block).
+edges), :class:`SumOverGroup` (a sum over the block that autograd
+differentiates as a sum over the block) and the strips' gather
+(:func:`gather_whole`, whose backward reduce-scatters), for the layers
+that read a whole image; ``spatial.strip`` takes a rank's strip back (a
+slice, whose gradient autograd writes into zeros with no communication).
 """
 from __future__ import annotations
 
@@ -219,12 +222,9 @@ def all_gather_into(out: torch.Tensor, shard: torch.Tensor, group) -> None:
         tdist.all_gather_into_tensor(out, shard, group=group)
 
 
-def reduce_scatter_mean(flat: torch.Tensor, group,
-                        dp_group=None) -> torch.Tensor:
-    """This rank's block of ``flat`` (1 / the group's size of it) averaged
-    over every rank: a ``reduce_scatter_tensor`` SUM in ``group``, then
-    with ``dp_group`` an ``all_reduce`` SUM of the block across it, then
-    divided by the world, as :func:`all_reduce_mean_` divides."""
+def reduce_scatter_sum(flat: torch.Tensor, group) -> torch.Tensor:
+    """This rank's block of ``flat`` (1 / the group's size of it) summed
+    over the ranks of ``group``: a ``reduce_scatter_tensor`` SUM."""
     out = flat.new_empty(flat.numel() // tdist.get_world_size(group))
     if _through_host(flat, group):
         host = torch.empty(out.shape, dtype=out.dtype)
@@ -234,6 +234,16 @@ def reduce_scatter_mean(flat: torch.Tensor, group,
     else:
         tdist.reduce_scatter_tensor(out, flat, op=tdist.ReduceOp.SUM,
                                     group=group)
+    return out
+
+
+def reduce_scatter_mean(flat: torch.Tensor, group,
+                        dp_group=None) -> torch.Tensor:
+    """This rank's block of ``flat`` (1 / the group's size of it) averaged
+    over every rank: a ``reduce_scatter_tensor`` SUM in ``group``, then
+    with ``dp_group`` an ``all_reduce`` SUM of the block across it, then
+    divided by the world, as :func:`all_reduce_mean_` divides."""
+    out = reduce_scatter_sum(flat, group)
     if dp_group is not None:
         tdist.all_reduce(out, op=tdist.ReduceOp.SUM, group=dp_group)
     return out.div_(world())
@@ -243,7 +253,8 @@ class SumOverGroup(torch.autograd.Function):
     """``x`` summed over the ranks of ``group``; its gradient summed over
     them too. Each rank's loss is its part of one loss, the sum over the
     block; a sum that every part reads (the sp plan's norm statistics and
-    pooled logits) takes its gradient from every part."""
+    pooled logits) takes its gradient from every part. The backward is the
+    Function itself, so it differentiates twice (the R1 penalty)."""
 
     @staticmethod
     def forward(ctx, x, group):
@@ -253,8 +264,65 @@ class SumOverGroup(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce_sum_(g.clone(memory_format=torch.contiguous_format),
-                               ctx.group), None
+        return SumOverGroup.apply(g, ctx.group), None
+
+
+def _gather_strips(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's (N, h, ...) strip of ``group`` joined along dim 1, in
+    rank order: one ``all_gather_into_tensor``."""
+    n = tdist.get_world_size(group)
+    x = x.contiguous()
+    flat = x.new_empty(n * x.numel())
+    all_gather_into(flat, x.reshape(-1), group)
+    parts = flat.view(n, *x.shape)
+    return parts.movedim(0, 1).reshape(x.shape[0], n * x.shape[1],
+                                       *x.shape[2:])
+
+
+def _scatter_sum(g: torch.Tensor, group) -> torch.Tensor:
+    """The adjoint of :func:`_gather_strips`: ``g`` (N, n·h, ...) summed
+    over the ranks of ``group``, this rank's rows of the sum (one
+    ``reduce_scatter_tensor``)."""
+    n = tdist.get_world_size(group)
+    h = g.shape[1] // n
+    parts = g.reshape(g.shape[0], n, h, *g.shape[2:]).movedim(1, 0)
+    out = reduce_scatter_sum(parts.contiguous().reshape(-1), group)
+    return out.view(g.shape[0], h, *g.shape[2:])
+
+
+class GatherWhole(torch.autograd.Function):
+    """The whole tensor of which every rank of ``group`` holds a strip of
+    equal rows (dim 1). Backward: :class:`ScatterSum`, each rank's rows of
+    the gradient summed over the ranks that read them."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _gather_strips(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ScatterSum.apply(g, ctx.group), None
+
+
+class ScatterSum(torch.autograd.Function):
+    """``x`` (every rank's whole tensor) summed over ``group``, this rank's
+    strip of the sum. Backward: :class:`GatherWhole`; so the pair
+    differentiates any number of times."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _scatter_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return GatherWhole.apply(g, ctx.group), None
+
+
+def gather_whole(x: torch.Tensor, group) -> torch.Tensor:
+    """:class:`GatherWhole` of ``x`` (``x`` itself without a group)."""
+    return GatherWhole.apply(x, group) if initialized() else x
 
 
 def sum_over_group(x: torch.Tensor, group) -> torch.Tensor:

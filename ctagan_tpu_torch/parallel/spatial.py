@@ -28,7 +28,16 @@ layers read (``models/layers.py::sp_scope``):
 - D's pooled logit is a ``SumOverGroup`` of the owned rows' sums over the
   global count; ``ops/losses.py``'s ``l1`` and ``mse`` give each rank its
   part of the loss, and the parts sum over the block to one process's
-  loss.
+  loss;
+- the layers that read across the seam (RegGAN, HD and CycleGAN): the
+  half-pixel bilinear resize takes a row from each neighbour with an edge
+  fill and crops (:func:`halo_resize`; a downsampling by 2 or 4 is
+  local), stage 2's avg-pool pyramid a row from above, the flow's
+  smoothness loss a row from below; the warp, stage 2's centre crop, the
+  ResUNet's deepest levels and CycleGAN's pools read the whole image,
+  gathered from the strips (``dist.gather_whole``, whose backward
+  reduce-scatters). Every exchange differentiates twice (the R1
+  penalty).
 
 So every rank's backward is of its part of one loss, and a parameter's
 gradient on a rank is the part its rows contribute: ``train/steps.py``
@@ -106,36 +115,44 @@ def shard_state_sp(state, mesh: SpMesh):
 
 # -- the rows a window reaches beyond the strip ------------------------------
 
-def _fill(x: torch.Tensor, rows: int, top: bool, reflect: bool
-          ) -> torch.Tensor:
-    """``rows`` rows beyond the image's true top (or bottom): the reflection
-    of ``x``'s rows about its edge row (ReflectionPad2d), or zeros."""
+def _fill(x: torch.Tensor, rows: int, top: bool, fill: str) -> torch.Tensor:
+    """``rows`` rows beyond the image's true top (or bottom): zeros, the
+    reflection of ``x``'s rows about its edge row (ReflectionPad2d), or
+    the edge row repeated (a replicate pad: the clamp of a resize's sample
+    points)."""
     h = x.shape[1]
-    if not reflect:
+    if fill == "zero":
         return x.new_zeros((x.shape[0], rows, *x.shape[2:]))
+    if fill == "edge":
+        edge = x[:, :1] if top else x[:, h - 1:]
+        return edge.expand(x.shape[0], rows, *x.shape[2:])
     part = x[:, 1:rows + 1] if top else x[:, h - 1 - rows:h - 1]
     return part.flip(1)
 
 
-def _fold(gx: torch.Tensor, g: torch.Tensor, top: bool) -> None:
-    """The reflect fill's gradient ``g`` added back to the rows it
-    reflects, in place."""
+def _fold(gx: torch.Tensor, g: torch.Tensor, top: bool, fill: str) -> None:
+    """The fill's gradient ``g`` added back to the rows it copies, in
+    place (nothing for a zero fill)."""
     h, rows = gx.shape[1], g.shape[1]
-    if top:
-        gx[:, 1:rows + 1] += g.flip(1)
-    else:
-        gx[:, h - 1 - rows:h - 1] += g.flip(1)
+    if fill == "edge":
+        edge = slice(0, 1) if top else slice(h - 1, h)
+        gx[:, edge] += g.sum(dim=1, keepdim=True)
+    elif fill == "reflect":
+        if top:
+            gx[:, 1:rows + 1] += g.flip(1)
+        else:
+            gx[:, h - 1 - rows:h - 1] += g.flip(1)
 
 
 def _check(counts, mesh: SpMesh, top: int, below: int, bottom: int,
-           stride: int, reflect: bool) -> None:
+           stride: int, fill: str) -> None:
     """Every rank's rows (``counts``, alike on every rank) against what the
     layer needs: a rank sends its first ``below`` and its last ``top``
     rows to its neighbours, a reflect fill reads one row more than it
     fills, and a strided conv's strips start on its stride."""
     need = max(top, below)
     short = [q for q, h in enumerate(counts) if h < need]
-    if reflect:
+    if fill == "reflect":
         short += [0] * (counts[0] < top + 1) \
             + [mesh.n - 1] * (counts[-1] < bottom + 1)
     if short:
@@ -149,72 +166,138 @@ def _check(counts, mesh: SpMesh, top: int, below: int, bottom: int,
                          f"the stride {stride} of a conv")
 
 
+def _halo(x, mesh, top, below, bottom, stride, fill):
+    """:class:`_HaloRows`' forward."""
+    first, last = mesh.index == 0, mesh.index == mesh.n - 1
+    h = x.shape[1]
+    above = under = None
+    if mesh.n > 1:
+        # each rank's row count rides on the exchange: every rank checks
+        # every strip, so all of them raise together
+        tag = x.new_full((1,), float(h))
+        send_up = x[:, :below] if h >= below else x.new_zeros(
+            (x.shape[0], below, *x.shape[2:]))
+        send_down = x[:, h - top:] if h >= top else x.new_zeros(
+            (x.shape[0], top, *x.shape[2:]))
+        above, under, tags = dist.neighbour_rows(send_up, send_down,
+                                                 mesh.group, tag)
+        _check([int(t) for t in tags], mesh, top, below, bottom, stride,
+               fill)
+    else:
+        _check([h], mesh, top, below, bottom, stride, fill)
+    parts = [_fill(x, top, True, fill) if first else above, x,
+             _fill(x, bottom, False, fill) if last else under]
+    return torch.cat(parts, dim=1)
+
+
+def _halo_adjoint(g, mesh, top, below, bottom, fill):
+    """:class:`_HaloRows`' backward: the ghost rows' gradient goes back to
+    the rank that owns them and is added to its rows, and a fill's is
+    folded back onto the rows it copies."""
+    first, last = mesh.index == 0, mesh.index == mesh.n - 1
+    h = g.shape[1] - top - (bottom if last else below)
+    g_top, gx = g[:, :top], g[:, top:top + h].clone()
+    g_bot = g[:, top + h:]
+    if mesh.n > 1:
+        # the ghost rows' gradient to their owners: the top rows' to the
+        # rank above (its last rows), the bottom rows' to the rank below
+        # (its first rows); the ends send zeros of the same shape
+        up = g_top if not first else torch.zeros_like(g_top)
+        down = g_bot if not last else g.new_zeros(
+            (g.shape[0], below, *g.shape[2:]))
+        prev_bottom, next_top, _ = dist.neighbour_rows(up, down, mesh.group)
+        if prev_bottom is not None:  # the rank above's bottom ghosts
+            gx[:, :below] += prev_bottom
+        if next_top is not None:  # the rank below's top ghosts
+            gx[:, h - top:] += next_top
+    if first:
+        _fold(gx, g_top, True, fill)
+    if last:
+        _fold(gx, g_bot, False, fill)
+    return gx
+
+
 class _HaloRows(torch.autograd.Function):
     """``x`` (N, h, W, C), this rank's strip, with ``top`` rows above it
     and the rows below it: ``below`` from the next rank, or at the last
-    rank ``bottom`` rows of fill (reflect or zero, as at the first rank's
-    top). Backward: the ghost rows' gradient goes back to the rank that
-    owns them and is added to its rows, and a reflect fill's is folded
-    back onto the rows it reflects."""
+    rank ``bottom`` rows of fill (zero, reflect or edge, as at the first
+    rank's top). Backward: :class:`_HaloAdjoint`, whose backward is this
+    Function again, so the exchange differentiates twice (the R1
+    penalty)."""
 
     @staticmethod
-    def forward(ctx, x, mesh, top, below, bottom, stride, reflect):
-        first, last = mesh.index == 0, mesh.index == mesh.n - 1
-        ctx.mesh, ctx.rows, ctx.reflect = mesh, (top, below, bottom), reflect
-        h = x.shape[1]
-        above = under = None
-        if mesh.n > 1:
-            # each rank's row count rides on the exchange: every rank
-            # checks every strip, so all of them raise together
-            tag = x.new_full((1,), float(h))
-            send_up = x[:, :below] if h >= below else x.new_zeros(
-                (x.shape[0], below, *x.shape[2:]))
-            send_down = x[:, h - top:] if h >= top else x.new_zeros(
-                (x.shape[0], top, *x.shape[2:]))
-            above, under, tags = dist.neighbour_rows(
-                send_up, send_down, mesh.group, tag)
-            _check([int(t) for t in tags], mesh, top, below, bottom, stride,
-                   reflect)
-        else:
-            _check([h], mesh, top, below, bottom, stride, reflect)
-        parts = [_fill(x, top, True, reflect) if first else above, x,
-                 _fill(x, bottom, False, reflect) if last else under]
-        return torch.cat(parts, dim=1)
+    def forward(ctx, x, mesh, top, below, bottom, stride, fill):
+        ctx.args = (mesh, top, below, bottom, stride, fill)
+        return _halo(x, mesh, top, below, bottom, stride, fill)
 
     @staticmethod
     def backward(ctx, g):
-        mesh, (top, below, bottom) = ctx.mesh, ctx.rows
-        first, last = mesh.index == 0, mesh.index == mesh.n - 1
-        h = g.shape[1] - top - (bottom if last else below)
-        g_top, gx = g[:, :top], g[:, top:top + h].clone()
-        g_bot = g[:, top + h:]
-        if mesh.n > 1:
-            # the ghost rows' gradient to their owners: the top rows' to the
-            # rank above (its last rows), the bottom rows' to the rank below
-            # (its first rows); the ends send zeros of the same shape
-            up = g_top if not first else torch.zeros_like(g_top)
-            down = g_bot if not last else g.new_zeros(
-                (g.shape[0], below, *g.shape[2:]))
-            prev_bottom, next_top, _ = dist.neighbour_rows(
-                up, down, mesh.group)
-            if prev_bottom is not None:  # the rank above's bottom ghosts
-                gx[:, :below] += prev_bottom
-            if next_top is not None:  # the rank below's top ghosts
-                gx[:, h - top:] += next_top
-        if ctx.reflect:
-            if first:
-                _fold(gx, g_top, True)
-            if last:
-                _fold(gx, g_bot, False)
-        return gx, None, None, None, None, None, None
+        return (_HaloAdjoint.apply(g, *ctx.args),) + (None,) * 6
+
+
+class _HaloAdjoint(torch.autograd.Function):
+    """The adjoint of :class:`_HaloRows` (:func:`_halo_adjoint`); its
+    backward is :class:`_HaloRows`."""
+
+    @staticmethod
+    def forward(ctx, g, mesh, top, below, bottom, stride, fill):
+        ctx.args = (mesh, top, below, bottom, stride, fill)
+        return _halo_adjoint(g, mesh, top, below, bottom, fill)
+
+    @staticmethod
+    def backward(ctx, gg):
+        return (_HaloRows.apply(gg, *ctx.args),) + (None,) * 6
 
 
 def halo_rows(x: torch.Tensor, mesh: SpMesh, top: int, below: int,
-              bottom: int, stride: int = 1, reflect: bool = False
+              bottom: int, stride: int = 1, fill: str = "zero"
               ) -> torch.Tensor:
     """:class:`_HaloRows`: ``x`` with the rows a window reaches beyond this
-    rank's strip."""
-    return _HaloRows.apply(x, mesh, top, below, bottom, stride, reflect)
+    rank's strip; ``fill`` ("zero", "reflect" or "edge") at the image's
+    true borders."""
+    return _HaloRows.apply(x, mesh, top, below, bottom, stride, fill)
+
+
+def _power_of_two(f: int) -> bool:
+    return f >= 1 and f & (f - 1) == 0
+
+
+def halo_resize(x: torch.Tensor, mesh: SpMesh, size) -> torch.Tensor:
+    """The half-pixel bilinear resize (``F.interpolate(mode='bilinear',
+    align_corners=False)``, ``jax.image.resize(method='linear')``) of this
+    rank's strip ``x`` (NHWC, equal strips) to ``size`` (the strip's rows,
+    the whole W): this rank's rows of the whole image's resize.
+
+    - up by a power-of-two factor f: the strip with one row from each
+      neighbour (the edge row repeated at the true borders, the clamp of
+      the sample points), resized to f times its rows, its middle f·h rows
+      kept; with an exact factor and half-pixel centres those are one
+      process's rows;
+    - down by 2 or 4: local, as each output row reads the rows f·i + f/2
+      − 1 and f·i + f/2 of its strip, when the strip's first global row
+      divides by f (checked: it raises otherwise);
+    - the same rows: W alone, local."""
+    h, (oh, ow) = x.shape[1], (int(size[0]), int(size[1]))
+    y = x.permute(0, 3, 1, 2)
+    if oh > h:
+        f = oh // h
+        if f * h != oh or not _power_of_two(f):
+            raise ValueError(f"sp: a resize of a strip of {h} rows to {oh} "
+                             f"needs a power-of-two factor")
+        y = halo_rows(x, mesh, 1, 1, 1, fill="edge").permute(0, 3, 1, 2)
+        y = F.interpolate(y, size=(f * (h + 2), ow), mode="bilinear",
+                          align_corners=False, antialias=False)
+        y = y[:, :, f:f + oh]
+    else:
+        f = h // oh
+        if f * oh != h or f not in (1, 2, 4) or (mesh.index * h) % f:
+            raise ValueError(
+                f"sp: a strip of {h} rows from row {mesh.index * h} cannot "
+                f"be resized to {oh} locally: the downsampling factor must "
+                f"be 2 or 4 and divide the strip's first row")
+        y = F.interpolate(y, size=(oh, ow), mode="bilinear",
+                          align_corners=False, antialias=False)
+    return y.permute(0, 2, 3, 1)
 
 
 def _last_bottom(h: int, k: int, s: int, p: int) -> int:
@@ -257,7 +340,7 @@ def halo_conv(x: torch.Tensor, weight: torch.Tensor,
             raise ValueError(f"sp: a reflect-padded conv must keep H "
                              f"(kernel {k}, stride {stride}, pad {reflect})")
         ext = _pad_w(halo_rows(x, mesh, reflect, reflect, reflect,
-                               reflect=True), reflect)
+                               fill="reflect"), reflect)
         pad = (0, 0)
     elif padding:
         below = k - stride - padding
@@ -324,8 +407,8 @@ class _Training:
         """``ReflectPad``: ``pad`` rows from each neighbour (a reflect fill
         at the true borders), W reflected locally; the conv after it runs
         on the strip as it comes."""
-        return _pad_w(halo_rows(x, self.mesh, pad, pad, pad, reflect=True),
-                      pad).contiguous()
+        return _pad_w(halo_rows(x, self.mesh, pad, pad, pad,
+                                fill="reflect"), pad).contiguous()
 
     def conv(self, module, x: torch.Tensor) -> torch.Tensor:
         """``ConvTorch``: zero-padded, through :func:`halo_conv`; without
@@ -358,6 +441,71 @@ class _Training:
         if self.mesh.n > 1:
             dist.all_reduce_sum_(count, self.mesh.group)
         return t.sum() / count[0]
+
+
+    # -- the layers that read a whole image, or rows across the seam ------
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole image of the block's equal strips ``x``
+        (``dist.gather_whole``: its backward reduce-scatters)."""
+        return x if self.mesh.n == 1 else dist.gather_whole(x,
+                                                            self.mesh.group)
+
+    def keep(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's strip of ``x``, which every rank holds whole."""
+        return strip(x, self.mesh)
+
+    def rows(self, x: torch.Tensor) -> int:
+        """The whole image's rows of the equal strips ``x``."""
+        return x.shape[1] * self.mesh.n
+
+    def resize(self, x: torch.Tensor, size) -> torch.Tensor:
+        """``ops/resize.py::interpolate_bilinear`` of a strip
+        (:func:`halo_resize`)."""
+        return halo_resize(x, self.mesh, size)
+
+    def avg_pool(self, x: torch.Tensor, window: int, stride: int
+                 ) -> torch.Tensor:
+        """``avg_pool_same`` (3×3, stride 2, padding 1,
+        ``count_include_pad=False``) of a strip that starts on the stride:
+        an output row reads the row above its anchor, so one row comes from
+        the rank above; the first rank pads its top, which the count
+        leaves out, as one process's pad."""
+        if (window, stride) != (3, 2):
+            raise ValueError(f"sp: avg_pool_same({window}, {stride}) has no "
+                             "halo rule (the pyramid's is 3, 2)")
+        ext = halo_rows(x, self.mesh, 1, 0, 0, stride=2)
+        first = self.mesh.index == 0
+        y = F.avg_pool2d((ext[:, 1:] if first else ext).permute(0, 3, 1, 2),
+                         3, 2, padding=(int(first), 1),
+                         count_include_pad=False)
+        return y.permute(0, 2, 3, 1)
+
+    def center_crop(self, x: torch.Tensor, size: int) -> torch.Tensor:
+        """torchvision's center crop of the whole image to ``size`` (its
+        rows and columns), this rank's strip of it: the strips gathered
+        whole (a few channels), cropped, the strip kept; a centre crop may
+        hold no row of an outer rank's strip."""
+        if size % self.mesh.n:
+            raise ValueError(f"sp: a center crop to {size} rows does not "
+                             f"split over {self.mesh.n} ranks")
+        whole = self.gather(x)
+        h, w = whole.shape[1], whole.shape[2]
+        top, left = (h - size) // 2, (w - size) // 2
+        return self.keep(whole[:, top:top + size, left:left + size])
+
+    def smoothing(self, flow: torch.Tensor) -> torch.Tensor:
+        """This rank's part of ``mean(dx²) + mean(dy²)`` of the flow's
+        forward differences: dy takes the first row of the rank below
+        (none below the last rank), and each sum is over the whole
+        image's count (N·(H − 1)·W·C for dy, N·H·(W − 1)·C for dx)."""
+        n, h, w, c = flow.shape
+        ext = halo_rows(flow, self.mesh, 0, 1, 0)
+        dy = ext[:, 1:] - ext[:, :-1]
+        dx = flow[:, :, 1:] - flow[:, :, :-1]
+        rows = self.rows(flow)
+        return ((dx * dx).sum() / (n * rows * (w - 1) * c)
+                + (dy * dy).sum() / (n * (rows - 1) * w * c))
 
 
 def training_scope(mesh: Optional[SpMesh]):

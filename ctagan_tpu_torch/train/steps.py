@@ -61,13 +61,17 @@ rank (:func:`_value_and_grad`); the tp ranks of a dp column read its rows
 and draw its augmentation (:func:`_batch_ranks`), as JAX replicates its
 rng key over the model axis.
 
-The sp plan (``parallel/spatial.py``, the P2p family): the ranks of an sp
-block read their dp column's rows, warp the whole images with the
-column's draws (a rotation mixes rows) and keep their strips
+The sp plan (``parallel/spatial.py``; P2p, CycleGAN, RegGAN and HD): the
+ranks of an sp block read their dp column's rows, warp the whole images
+with the column's draws (a rotation mixes rows) and keep their strips
 (:func:`_augment`); the step runs under the layers' sp context, on the
 layer route, and each rank's losses and parameter gradients are its
 rows' part: :func:`_value_and_grad` sums them over the block and averages
 them over the dp column, so the replicated state stays alike everywhere.
+R's resizes, the warp and the flow smoothness read across the strips'
+seams through the context (``ops/resize.py``, ``ops/warp.py``); the R1
+penalty's score is pooled over the whole image (:func:`_r1_score`); the
+CycleGAN pools hold the whole fakes of one process (:func:`_pool`).
 """
 from __future__ import annotations
 
@@ -78,6 +82,7 @@ from typing import (Callable, ClassVar, Dict, List, Optional, Sequence,
 
 import torch
 
+from ctagan_tpu_torch.models.layers import global_avg_pool_logit
 from ctagan_tpu_torch.ops.augment import affine_warp, sample_affine_params
 from ctagan_tpu_torch.ops.losses import (
     feature_matching_loss,
@@ -423,6 +428,7 @@ class CycState:
     g_ema: Optional[torch.nn.Module] = None  # of G_A2B, the eval model
     g_ema_b2a: Optional[torch.nn.Module] = None
     tp: Optional[tensor.TpMesh] = None
+    sp: Optional[spatial.SpMesh] = None  # set by spatial.shard_state_sp
     OPT_NETS: ClassVar = {"g_opt": ("g_a2b", "g_b2a"), "d_a_opt": ("d_a",),
                           "d_b_opt": ("d_b",)}
     EMA_NETS: ClassVar = ("g_ema", "g_ema_b2a")
@@ -445,12 +451,33 @@ def init_cyc_state(g_a2b, g_b2a, d_a, d_b, size: int, input_nc: int = 1,
         make_ema(g_b2a) if ema else None)
 
 
+def _pool(state, buf: ReplayBuffer, fake: torch.Tensor) -> torch.Tensor:
+    """D's fakes through the history pool ``buf``: the global batch's
+    whole fakes (under sp the block's strips gathered, then the dp
+    column's rows) offered to the one pool of one process, with the draws
+    every rank makes alike from ``state.gen``; this rank's rows, and
+    strip, of what it passes on."""
+    sp = state.sp
+    if sp is not None and sp.n > 1:
+        fake = dist.gather_whole(fake, sp.group)
+    out = push_and_pop(buf, _global_rows(state, fake), state.gen)[
+        _rank_rows(state, fake.shape[0])]
+    return out if sp is None else spatial.strip(out, sp)
+
+
 def cyc_train_step(state: CycState, cfg: Dict,
                    batch: Dict[str, torch.Tensor], lr: float
                    ) -> Dict[str, torch.Tensor]:
     """One CycleGAN step on ``batch`` {A, B}. Under ``grad_accum`` the
     pools' fakes come from one extra no-grad forward of both generators
-    over the whole batch at the pre-update weights."""
+    over the whole batch at the pre-update weights. Under sp
+    (``state.sp``) on this rank's strips."""
+    with spatial.training_scope(state.sp):
+        return _cyc_step(state, cfg, batch, lr)
+
+
+def _cyc_step(state: CycState, cfg: Dict, batch: Dict[str, torch.Tensor],
+              lr: float) -> Dict[str, torch.Tensor]:
     ga, gb, da, db = state.g_a2b, state.g_b2a, state.d_a, state.d_b
     real_a, real_b = _augment(state, cfg, batch["A"], batch["B"])
     adv_w, cyc_w = cfg["Adv_lamda"], cfg["Cyc_lamda"]
@@ -473,20 +500,15 @@ def cyc_train_step(state: CycState, cfg: Dict,
     # the Ds' steps read neither G again
     fsdp.unshard(ga, gb, da, db)
     g_loss_v, g_aux, g_grads = _value_and_grad(
-        g_loss, [ga, gb], {"a": real_a, "b": real_b}, n_accum)
+        g_loss, [ga, gb], {"a": real_a, "b": real_b}, n_accum, state.sp)
     if n_accum > 1:
         with torch.no_grad():
             fakes.update(b=ga(real_a), a=gb(real_b))
     _apply(state.g_opt, [ga, gb], g_grads, lr)
 
-    # the Ds train on the pre-update fakes, through the history pools: the
-    # global batch's fakes through one pool, this rank's rows of what it
-    # passes on
-    rows = _rank_rows(state, real_a.shape[0])
-    fake_a_d = push_and_pop(state.fake_a_buffer,
-                            _global_rows(state, fakes["a"]), state.gen)[rows]
-    fake_b_d = push_and_pop(state.fake_b_buffer,
-                            _global_rows(state, fakes["b"]), state.gen)[rows]
+    # the Ds train on the pre-update fakes, through the history pools
+    fake_a_d = _pool(state, state.fake_a_buffer, fakes["a"])
+    fake_b_d = _pool(state, state.fake_b_buffer, fakes["b"])
 
     def d_update(d_model, opt, real, fake):
         def d_loss(mb):
@@ -495,7 +517,8 @@ def cyc_train_step(state: CycState, cfg: Dict,
             return loss_real + loss_fake, {}
 
         loss, _, grads = _value_and_grad(
-            d_loss, [d_model], {"real": real, "fake": fake}, n_accum)
+            d_loss, [d_model], {"real": real, "fake": fake}, n_accum,
+            state.sp)
         _apply(opt, [d_model], grads, lr)
         return loss
 
@@ -523,6 +546,7 @@ class RegState:
     gen: torch.Generator  # augmentation draws
     g_ema: Optional[torch.nn.Module] = None
     tp: Optional[tensor.TpMesh] = None
+    sp: Optional[spatial.SpMesh] = None  # set by spatial.shard_state_sp
     OPT_NETS: ClassVar = {"g_opt": ("g_model",), "r_opt": ("r_model",),
                           "d_opt": ("d_model",)}
     EMA_NETS: ClassVar = ("g_ema",)
@@ -553,12 +577,20 @@ def _predict_flow(r_model, moving, fixed, ds: int) -> torch.Tensor:
     return interpolate_bilinear(flow, (h, w)) * float(ds)
 
 
-def _r1_score(out, stage2: bool) -> torch.Tensor:
+def _r1_score(out, stage2: bool,
+              sp: Optional[spatial.SpMesh] = None) -> torch.Tensor:
     """Σ over the batch of D's f32 score: the mean of each scale's last map,
-    summed over scales (stage 2), or the mean logit."""
-    maps = [feats[-1] for feats in out] if stage2 else [out]
-    return sum(m.float().mean(dim=tuple(range(1, m.dim()))) for m in maps
-               ).sum()
+    summed over scales (stage 2), or the mean logit. Under sp this rank's
+    part of it: each map pooled over the whole image (every rank holds the
+    score), over the block's size, so that the parts' gradients sum to the
+    score's."""
+    if sp is None:
+        maps = [feats[-1] for feats in out] if stage2 else [out]
+        return sum(m.float().mean(dim=tuple(range(1, m.dim())))
+                   for m in maps).sum()
+    maps = ([global_avg_pool_logit(feats[-1].float()) for feats in out]
+            if stage2 else [out.float()])
+    return sum(m.mean(dim=1) for m in maps).sum() / sp.n
 
 
 def reg_train_step(state: RegState, cfg: Dict, batch: Dict[str, torch.Tensor],
@@ -569,10 +601,19 @@ def reg_train_step(state: RegState, cfg: Dict, batch: Dict[str, torch.Tensor],
     HD step on {A1, A2, B1, B2} (NHWC, [−1, 1]): stage 1, or stage 2 with
     ``stage2``. Updates the state's nets and optimizers in place; returns
     the detached losses under the JAX step's keys and in its order
-    (``toal_loss`` as spelled there)."""
+    (``toal_loss`` as spelled there). Under sp (``state.sp``) on this
+    rank's strips."""
     if pipeline_1f1b is not None:
         raise NotImplementedError(
             "reg_train_step: pipeline_1f1b is not ported yet (ROADMAP M12e)")
+    with spatial.training_scope(state.sp):
+        return _reg_step(state, cfg, batch, lr, lr_d, dual_window_mode,
+                         stage2)
+
+
+def _reg_step(state: RegState, cfg: Dict, batch: Dict[str, torch.Tensor],
+              lr: float, lr_d: Optional[float], dual_window_mode: bool,
+              stage2: bool) -> Dict[str, torch.Tensor]:
     g_model, r_model, d_model = state.g_model, state.r_model, state.d_model
     if dual_window_mode:
         # B2 and B1 warp as channels of one gather with the same parameters
@@ -630,7 +671,7 @@ def reg_train_step(state: RegState, cfg: Dict, batch: Dict[str, torch.Tensor],
         mbs["b1"] = real_b1
     fsdp.unshard(g_model, r_model, d_model)
     total, aux, grads = _value_and_grad(gr_loss, [g_model, r_model], mbs,
-                                        n_accum)
+                                        n_accum, state.sp)
     _apply(state.g_opt, [g_model], grads[:1], lr)
     _apply(state.r_opt, [r_model], grads[1:], lr)
 
@@ -651,8 +692,8 @@ def reg_train_step(state: RegState, cfg: Dict, batch: Dict[str, torch.Tensor],
             loss = adv_w * mse(pf, 0.0) + adv_w * mse(pr, 1.0)
         if r1_w <= 0.0:
             return loss, {}
-        (gx,) = torch.autograd.grad(_r1_score(pr, stage2), real_d,
-                                    create_graph=True)
+        (gx,) = torch.autograd.grad(_r1_score(pr, stage2, state.sp),
+                                    real_d, create_graph=True)
         gx = gx.float()
         r1 = 0.5 * r1_w * (gx * gx).sum(dim=tuple(range(1, gx.dim()))).mean()
         return loss + r1.to(loss.dtype), {"R1_loss": r1}
@@ -665,7 +706,7 @@ def reg_train_step(state: RegState, cfg: Dict, batch: Dict[str, torch.Tensor],
     else:
         fsdp.unshard(g_model)  # D's fresh forward of the updated G
     d_loss_v, d_aux, d_grads = _value_and_grad(d_loss, [d_model], d_batch,
-                                               n_accum)
+                                               n_accum, state.sp)
     _apply(state.d_opt, [d_model], d_grads, lr_d)
     fsdp.reshard(g_model)
     _ema_update(state.g_ema, g_model, cfg.get("ema_decay", 0.999),

@@ -66,7 +66,7 @@ the stage-2 bootstrap go through the one-process layout
 under any plan and any plan resumes from it, or from a JAX ``.ckpt``.
 validate() and test() gather the eval G for their pass, the panels for
 theirs. An emergency save is skipped: a rank that another rank's failure
-stopped may never reach the gather. sp, depth and pp raise naming
+stopped may never reach the gather. depth and pp raise naming
 their ROADMAP M12 item.
 
 The tp plan (``mesh: {tp: N}`` or ``{dp: M, tp: N}``) trains over M × N
@@ -79,17 +79,16 @@ gather the eval G whole on every rank and split their batches over all M
 step runs no kernel (``Generator.forward``'s gate); the gathered eval G
 takes its configured route.
 
-The sp plan (``mesh: {sp: N}`` or ``{dp: M, sp: N}``, the P2p family
-alone) trains over M × N ranks with the rows of every activation split
-over each block of N (``parallel/spatial.py``); the N ranks of a block
-read their dp column's rows, and the state stays replicated, so
-checkpoints, loads, validate() and test() run as under dp (the whole
-model, its configured route, each eval batch split over all M × N
-ranks). The sp step runs no kernel (``Generator.forward``'s gate). The
-other families under sp raise naming ROADMAP M12d-iii: the ResUNet's deep
-levels fall below its halo at small strips, ``grid_sample`` reads other
-strips, the smoothness loss differences rows across the seam, the replay
-pools hold strips, and P3d is 3-D.
+The sp plan (``mesh: {sp: N}`` or ``{dp: M, sp: N}``: P2p, CycleGAN,
+RegGAN and HD stage 1 and 2) trains over M × N ranks with the rows of
+every activation split over each block of N (``parallel/spatial.py``);
+the N ranks of a block read their dp column's rows, and the state stays
+replicated, so checkpoints, loads, validate() and test() run as under dp
+(the whole model, its configured route, each eval batch split over all M
+× N ranks). CycleGAN's pools hold one process's whole fakes, so its
+``.pt`` is one process's too. The sp step runs no kernel
+(``Generator.forward``'s gate). P3d under sp raises naming ROADMAP M12f:
+JAX's sp placement shards a volume's depth, the depth plan's step.
 """
 from __future__ import annotations
 
@@ -241,13 +240,12 @@ class TrainerBase:
         if config.context_slices > 1 and self.family != "p2p":
             raise ValueError(
                 "context_slices > 1 is supported by the P2p family only")
-        if int(config.mesh.get("sp", 1)) > 1 and self.family != "p2p":
+        if int(config.mesh.get("sp", 1)) > 1 and self.family == "p3d":
             raise NotImplementedError(
-                f"mesh {config.mesh}: the sp plan trains the P2p family; "
-                f"{self.family} under sp is not ported yet (ROADMAP "
-                "M12d-iii: the ResUNet's deep levels, grid_sample, the "
-                "smoothness loss and the replay pools read across strips, "
-                "and P3d is 3-D)")
+                f"mesh {config.mesh}: P3d under sp is not ported yet "
+                "(ROADMAP M12f): JAX's sp placement P(data, spatial) shards "
+                "axis 1 of the (N, D, H, W, 1) batch, a volume's depth, so "
+                "P3d under sp is the depth plan's step")
         self.plan = self._plan(config)
         self.config = config
         self.device = torch.device(device)

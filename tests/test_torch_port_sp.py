@@ -7,7 +7,8 @@ conftest's virtual devices in a child process.
 
 - (a) ``plan_from_spec``: ``{sp: 2}`` at world 2 and ``{dp: 2, sp: 2}`` at
   world 4 give JAX's kind, ``batch_scale`` and mesh axes; ``--mode train``
-  starts dp × sp ranks; every family but P2p raises naming M12d-iii.
+  starts dp × sp ranks; Cyc, Reg and HD reach the plan's world check,
+  P3d raises naming M12f.
 - (b) ``halo_conv`` (each kind of conv of G and D) and ``SumOverGroup``
   pass ``gradcheck`` on two ranks, as functions of an input every rank
   holds, and each conv's rows equal the whole image's conv; a strip too
@@ -333,9 +334,16 @@ def test_train_starts_dp_times_sp_ranks(monkeypatch):
 @pytest.mark.parametrize("cls", ["CycTrainer", "RegTrainer",
                                  "HdTrainerStage1", "HdTrainerStage2",
                                  "P3dTrainer"])
-def test_other_families_under_sp_name_m12d_iii(cls, tmp_path):
+def test_families_under_sp_reach_the_plan_or_name_m12f(cls, tmp_path):
+    """Cyc, Reg and HD build under the sp plan, which at world 1 refuses
+    as JAX's does; P3d under sp names M12f (the sp placement shards a
+    volume's depth)."""
     cfg = load_config(_p2p_cfg(tmp_path, "unused.txt", mesh={"sp": 2}))
-    with pytest.raises(NotImplementedError, match="ROADMAP M12d-iii"):
+    if cls == "P3dTrainer":
+        with pytest.raises(NotImplementedError, match="ROADMAP M12f"):
+            getattr(trainers, cls)(cfg, torch.device("cpu"), quiet=True)
+        return
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         getattr(trainers, cls)(cfg, torch.device("cpu"), quiet=True)
 
 
