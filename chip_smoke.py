@@ -243,9 +243,23 @@ card, ``nvcc`` and no network, and imports nothing of JAX. Phases:
    holds it (the eval G gathered, K1 18 a forward on the kernel route);
    ``infer_tensor_sharded`` of a seeded G at 2 × 512² within GEN_TOL of
    one process's forward. With four cards or more, also ``{tp: 4}`` and
-   ``{dp: 2, tp: 2}``, a rank a card.
+   ``{dp: 2, tp: 2}``, a rank a card;
+21. ``sp``, a main path: the sp plan (``parallel/spatial.py``,
+   ``parallel/halo.py``): ``infer_spatial_sharded`` at 2048² and P2p, HD
+   stage 1, RegGAN, HD stage 2 and CycleGAN under ``{sp: 2}`` on two gloo
+   ranks sharing the card (:func:`check_sp`);
+22. ``depth``, a main path: the depth plan (``parallel/volume.py``):
+   ``infer_volume_depth_sharded`` of the shipped Generator3D on a 40-slice
+   512² series over two gloo ranks in f32 and bf16 against one process's
+   forward of the symmetric-extended series; P3d (``configs/P3d.yaml`` in
+   f32) under ``{depth: 2}`` for 4 steps and ``{sp: 2}`` for 2, held
+   against one process's float64 replay with every step's bytes exact,
+   and one step at ``patch_depth`` 32 beside one process's peak memory;
+   ``--mode infer`` with ``infer_depth_sharded: true`` at world 1; with
+   four cards ``{depth: 4}``, ``{dp: 2, depth: 2}`` and the forward over
+   four ranks, NCCL (:func:`check_depth`).
 
-The launch counts of the fourteen main paths (each counted from zero) are the
+The launch counts of the main paths (each counted from zero) are the
 ``launches`` of the kernels line. ``--phases a,b`` runs a subset and stops
 before the result lines; ``--cases K2,K3`` keeps only the kernel phase's
 cases and timing lines of those kernels (and stops there too). Any failure
@@ -468,7 +482,7 @@ DP_KERNEL_METRIC_TOL, DP_KERNEL_PIXELS = 3e-5, 1
 ALL_PHASES = ("kernels", "generator", "int8", "grad", "serving",
               "int8_serving", "training", "test", "stage2", "families",
               "infer", "export", "figures", "loop", "p3d", "corpus", "dp",
-              "fsdp", "tp", "sp")
+              "fsdp", "tp", "sp", "depth")
 
 
 def fail(msg):
@@ -4187,6 +4201,24 @@ SP_FORWARD_SIZE, SP_HALO, SP_FORWARD_SEED, SP_FORWARD_CALLS = 2048, 96, 13, 2
 SP_SLICES = 8
 # (d) HD stage 1's steps, (e) each other family's
 SP_HD_STEPS, SP_FAMILY_STEPS = 4, 2
+# the depth phase: (a) infer_volume_depth_sharded of the shipped
+# Generator3D (6 blocks, base 32, seeded) on a seeded DEPTH_SERIES-slice
+# 512² series (four cards: 2 × DEPTH_SERIES over four ranks), halo 18, in
+# f32 (held within GEN_TOL of one process's forward of the
+# symmetric-extended series, cropped) and in bf16 (timed), DEPTH_FWD_CALLS
+# calls each; (b) configs/P3d.yaml at 512² in f32 (TF32 off) on a corpus of
+# DEPTH_PATIENTS series of DEPTH_SLICES slices: DEPTH_STEPS steps at
+# patch_depth 8 under {depth: 2}, DEPTH_SP_STEPS under {sp: 2} (four
+# cards: {depth: 4} and {dp: 2, depth: 2} on twice the series), held as
+# the sp phase's runs;
+# DEPTH_DEEP_STEPS step at patch_depth DEPTH_DEEP under {depth: 2} on a
+# series of as many slices, its losses within FAMILY_ROUTE_TOL of one
+# process's; (c) --mode infer with
+# infer_depth_sharded at world 1 on a seeded DEPTH_SERIES-slice DICOM
+# series
+DEPTH_SERIES, DEPTH_HALO, DEPTH_SEED, DEPTH_FWD_CALLS = 40, 18, 17, 2
+DEPTH_PATIENTS, DEPTH_SLICES, DEPTH_STEPS, DEPTH_SP_STEPS = 4, 12, 4, 2
+DEPTH_DEEP, DEPTH_DEEP_STEPS = 32, 1
 
 
 def _mesh_spec(mesh):
@@ -4571,6 +4603,7 @@ def _sp_rank_train(torch, dev, tmp, name, cls_name, n_steps, yaml=None):
     from ctagan_tpu_torch.utils.config import load_config
 
     digests, colls, done, in_step = [], [], [0], [False]
+    step_s = []  # each step's wall to its digest (which reads the device)
     # each collective's kind, and which argument holds the bytes it moves
     moved = {"all_reduce": 0, "all_gather_into_tensor": 0,
              "reduce_scatter_tensor": 1}
@@ -4600,12 +4633,14 @@ def _sp_rank_train(torch, dev, tmp, name, cls_name, n_steps, yaml=None):
 
     def spy(self, batch, lr, lr_d):
         in_step[0] = True
+        t_step = time.perf_counter()
         try:
             out_ = step(self, batch, lr, lr_d)
         finally:
             in_step[0] = False
         done[0] += 1
         digests.append(_net_digest(self))
+        step_s.append(time.perf_counter() - t_step)
         if not first:
             first.update(w1=_net_weights(self), mu1=_net_first_moments(self))
         return out_
@@ -4637,9 +4672,11 @@ def _sp_rank_train(torch, dev, tmp, name, cls_name, n_steps, yaml=None):
         s["bytes"] += nb
         s["calls"] += 1
     timer = trainer.timer.summary(skip=1 if n_steps > 2 else 0)
+    mesh = trainer.state.sp or getattr(trainer.state, "depth", None)
     res = dict(digests=digests, losses=trainer.loss_history, counts=counts,
                peak=peak, p50_ms=timer.get("p50_ms", float("nan")),
-               kind=trainer.plan.kind, sp=trainer.state.sp.n,
+               step_s=step_s,
+               kind=trainer.plan.kind, sp=mesh.n,
                pt=trainer._save(trainer._current_epoch), **per_step)
     if dist.rank() == 0:
         torch.save(dict(first, w=_net_weights(trainer),
@@ -4701,7 +4738,7 @@ def _sp_one(torch, config, dev, f64=False, cls_name="P2pTrainer",
 
     cls = getattr(trainers, cls_name)
     own, step = cls.__dict__.get("_step"), cls._step
-    first, replay = {}, {"batches": []}
+    first, replay, step_s = {}, {"batches": []}, []
 
     def spy(self, batch, lr, lr_d):
         if f64 and "shim" not in replay:
@@ -4711,7 +4748,10 @@ def _sp_one(torch, config, dev, f64=False, cls_name="P2pTrainer",
             replay["batches"].append(
                 ({k: v.detach().double() for k, v in batch.items()}, lr,
                  lr_d))
+        t_step = time.perf_counter()
         out = step(self, batch, lr, lr_d)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t_step)
         if not first:
             first.update(w1=_net_weights(self), mu1=_net_first_moments(self))
         return out
@@ -4730,7 +4770,7 @@ def _sp_one(torch, config, dev, f64=False, cls_name="P2pTrainer",
     timer = trainer.timer.summary(skip=1 if n_steps > 2 else 0)
     out = dict(first, w=_net_weights(trainer), mu=_net_first_moments(trainer),
                losses=trainer.loss_history,
-               p50=timer.get("p50_ms", float("nan")),
+               p50=timer.get("p50_ms", float("nan")), step_s=step_s,
                peak=torch.cuda.max_memory_allocated(dev))
     del trainer
     if f64:
@@ -5012,14 +5052,22 @@ def check_sp(torch, card):
     return counts
 
 
+def _mesh_kind(mesh):
+    """A mesh dict's plan and its model axis' extent: ("sp", N) or
+    ("depth", N)."""
+    kind = "depth" if "depth" in mesh else "sp"
+    return kind, mesh[kind]
+
+
 def _sp_run_held(torch, card, tmp, run, one, ranks, world, how, yaml, dev):
     """(d), (e): one run of the other families held as (b) and (c) hold
     P2p's: each step's bytes gathered, all-reduced and reduce-scattered
-    against :func:`_sp_family_expect` exactly, no launch in the steps, the
+    against the run's prediction exactly, no launch in the steps, the
     replicas bit-identical after every step, rank 0 against one process's
     float64 replay by the GRAD_RATIO rule and its first-step losses within
     FAMILY_ROUTE_TOL, the ``.pt`` read at world 1 bit-equal (CycleGAN's
-    pools too), test() 18 K1 a slice on each rank. Returns the ranks'
+    pools too), test() 18 K1 a slice on each rank (where the ranks ran
+    it: the depth phase's runs, held alike, run none). Returns the ranks'
     launches."""
     import math
 
@@ -5027,7 +5075,9 @@ def _sp_run_held(torch, card, tmp, run, one, ranks, world, how, yaml, dev):
     from ctagan_tpu_torch.utils.config import load_config
 
     name, mesh, expect = run["name"], run["mesh"], run["expect"]
-    label = f"sp {name} ({run['cls']}, {run['base']}, {mesh})"
+    kind, n_model = _mesh_kind(mesh)
+    tested = "test_counts" in ranks[0]
+    label = f"{kind} {name} ({run['cls']}, {run['base']}, {mesh})"
     r0 = torch.load(os.path.join(tmp, f"{name}_rank0.pt"))
     exact = one["f64"]
     grad_64, ok_g = _dp_held(r0["mu1"], exact["mu1"], one["mu1"])
@@ -5054,7 +5104,7 @@ def _sp_run_held(torch, card, tmp, run, one, ranks, world, how, yaml, dev):
             fail(f"{label}: rank {r}'s steps launched {res['counts']}")
         if (any(step_bytes[k] != [expect[k]] or step_calls[k]
                 != [expect[k + "_calls"]] for k in kinds)
-                or (res["kind"], res["sp"]) != ("sp", mesh["sp"])):
+                or (res["kind"], res["sp"]) != (kind, n_model)):
             fail(f"{label}: rank {r}'s bytes {step_bytes} in {step_calls}, "
                  f"expected {expect}")
     same = [len(set(d)) == 1 for d in zip(*(res["digests"] for res in ranks))]
@@ -5080,7 +5130,7 @@ def _sp_run_held(torch, card, tmp, run, one, ranks, world, how, yaml, dev):
     del back
     torch.cuda.empty_cache()
     k1 = [res["test_counts"].get("conv3x3_reflect_stats", 0)
-          for res in ranks]
+          for res in ranks] if tested else None
     print(f"{label}: the ranks' nets bit-identical after each step {same}; "
           f"against one process's float64 replay (||rank 0 - f64||, ||one "
           f"f32 process - f64||, ||f64||; tol {GRAD_RATIO} x the f32 "
@@ -5090,26 +5140,446 @@ def _sp_run_held(torch, card, tmp, run, one, ranks, world, how, yaml, dev):
           f"{ranks[0]['losses'][0]} vs {loss_one[0]} (largest relative "
           f"{max(first):.2e}); the .pt of the ranks ({os.path.basename(pt)}) "
           f"read at world 1 bit-equal to rank 0's weights, first moments"
-          f"{' and pools' if pools is not None else ''} {portable}; test() "
-          f"of {world} slices over the ranks: launches by rank "
-          f"{[res['test_counts'] for res in ranks]} (18 K1 a slice), "
-          f"{[round(res['test_s'], 2) for res in ranks]} s; aggregates "
-          f"{ranks[0]['agg']} [{card}]", flush=True)
+          f"{' and pools' if pools is not None else ''} {portable}"
+          + (f"; test() of {world} slices over the ranks: launches by rank "
+             f"{[res['test_counts'] for res in ranks]} (18 K1 a slice), "
+             f"{[round(res['test_s'], 2) for res in ranks]} s; aggregates "
+             f"{ranks[0]['agg']}" if tested else "") + f" [{card}]",
+          flush=True)
     if not (ok_g and ok_w) or max(first) > FAMILY_ROUTE_TOL:
         fail(f"{label}: the ranks moved off one process's steps")
     if not portable:
         fail(f"{label}: the ranks' .pt read at world 1 differs from their "
              "state")
-    if k1 != [18] * world or any(
+    if tested and (k1 != [18] * world or any(
             res["test_counts"] != counts_of(conv3x3_reflect_stats=18)
             for res in ranks) or not all(
-            math.isfinite(v) for v in ranks[0]["agg"].values()):
+            math.isfinite(v) for v in ranks[0]["agg"].values())):
         fail(f"{label}: test() launches {k1} or its metrics")
     counts = dict.fromkeys(SOURCES, 0)
     for res in ranks:
         for k in counts:
             counts[k] += res["counts"].get(k, 0) + \
-                res["test_counts"].get(k, 0)
+                res.get("test_counts", {}).get(k, 0)
+    return counts
+
+
+def _depth_g(torch, dev, dtype=None):
+    """The depth phase's forward G: the shipped Generator3D, seeded."""
+    from ctagan_tpu_torch.models.volumetric import Generator3D
+
+    return Generator3D(1, 1, dtype=dtype).reset_parameters(DEPTH_SEED).to(dev)
+
+
+def _depth_series(world):
+    """The sharded forward's seeded series: DEPTH_SERIES slices of 512²
+    (DEPTH_SERIES × 2 over four ranks, a slab of 20 each)."""
+    import numpy as np
+
+    slices = DEPTH_SERIES * (2 if world == 4 else 1)
+    return np.random.default_rng(DEPTH_SEED).uniform(
+        -1, 1, (slices, 512, 512)).astype(np.float32)
+
+
+def _depth_runs(world):
+    """The depth phase's P3d runs: on one card {depth: 2} for DEPTH_STEPS
+    steps and {sp: 2} for DEPTH_SP_STEPS at patch_depth 8, then
+    DEPTH_DEEP_STEPS at DEPTH_DEEP; on four {depth: 4} and {dp: 2, depth:
+    2}."""
+    def run(name, mesh, steps, patch=8):
+        return {"name": name, "base": "P3d.yaml", "cls": "P3dTrainer",
+                "mesh": mesh, "steps": steps, "patch": patch}
+
+    if world == 4:
+        return [run("depth_d4", {"depth": 4}, DEPTH_STEPS),
+                run("depth_dp2", {"dp": 2, "depth": 2}, DEPTH_STEPS)]
+    return [run("depth_d2", {"depth": 2}, DEPTH_STEPS),
+            run("depth_sp2", {"sp": 2}, DEPTH_SP_STEPS),
+            run("depth_deep", {"depth": 2}, DEPTH_DEEP_STEPS, DEPTH_DEEP)]
+
+
+def _depth_expect(mesh, size, params, f=32, blocks=6):
+    """A rank's predicted bytes and calls of one P3d step under ``mesh``
+    ({depth: N}, {sp: N} or with dp) at ``size``², f32, b=1, from the nets'
+    shapes and ``params`` (G's and D's parameter counts). Every conv of
+    the family takes one slice from each neighbour (a gather of every
+    rank's two edge slices and its slice count; its gradient's without
+    the count), every InstanceNorm3d sums its mean and then its centred
+    second moment over the block (two all-reduces of N·C, and two of
+    their gradients), D's logit its sum (one, and its gradient); the
+    losses' counts are local. G's phase: G's forward and backward (its
+    input's exchange takes no gradient), D on [A, fake] forward and
+    backward, G's gradient with 3 losses; D's phase: G forward without
+    grad, D on fake and real (their input's exchanges take no gradient),
+    D's gradient with its loss. The count of slices a rank holds does
+    not enter: each exchange moves one slice of each side."""
+    _, n = _mesh_kind(mesh)
+    t = _SpTally(n, mesh.get("dp", 1))
+    s = size
+
+    def norm(c, back):
+        t.sums(c, back)
+        t.sums(c, back)
+
+    def g_pass(back):
+        t.rows(s * s, 1, 1, 1, False)  # the head's input: the batch
+        norm(f, back)
+        for w, c, out in ((s, f, 2 * f), (s // 2, 2 * f, 4 * f)):
+            t.rows(w * w, c, 1, 1, back)  # the downs
+            norm(out, back)
+        for _ in range(2 * blocks):
+            t.rows((s // 4) ** 2, 4 * f, 1, 1, back)
+            norm(4 * f, back)
+        for w, c, out in ((s // 4, 4 * f, 2 * f), (s // 2, 2 * f, f)):
+            t.rows(w * w, c, 1, 1, back)  # the transposed ups
+            norm(out, back)
+        t.rows(s * s, f, 1, 1, back)  # the tail
+
+    def d_pass(grad_in):
+        t.rows(s * s, 2, 1, 1, grad_in)
+        for w, c, out in ((s // 2, 32, 64), (s // 4, 64, 128),
+                          (s // 8, 128, 256)):
+            t.rows(w * w, c, 1, 1, True)
+            norm(out, True)
+        t.rows((s // 8 - 1) ** 2, 256, 1, 1, True)
+        t.sums(1, True)  # the logit
+
+    g, d = params
+    g_pass(True)
+    d_pass(True)
+    t.grads(g + 3)
+    g_pass(False)
+    d_pass(False)
+    d_pass(False)
+    t.grads(d + 1)
+    return {**t.bytes, **{f"{k}_calls": v for k, v in t.calls.items()}}
+
+
+def depth_worker(torch, tmp):
+    """One rank of the depth phase's world (two gloo ranks on one card; with
+    four or more cards four, a card each under NCCL), after the file
+    ``tmp``/depth_go appears: (a) DEPTH_FWD_CALLS calls of
+    ``infer_volume_depth_sharded`` over every rank in f32 and in bf16,
+    timed, each with its peak memory (the outputs in
+    depth_fwd_<dtype><r>.npy); (b) each run of ``tmp``/depth_runs.json
+    through :func:`_sp_rank_train`. Results in ``tmp``/depth_rank<r>.json,
+    rank 0's weights in <run>_rank0.pt."""
+    import numpy as np
+
+    from ctagan_tpu_torch.parallel import dist, volume
+
+    # entry, the group, the go, (a), each run
+    marks = [time.time()]
+    dev = (dist.init(torch.device("cuda")) if torch.cuda.device_count() > 1
+           else dist.init(torch.device("cuda", 0), backend="gloo"))
+    marks.append(time.time())
+    while not os.path.exists(os.path.join(tmp, "depth_go")):
+        time.sleep(0.05)
+    marks.append(time.time())
+    rank = dist.rank()
+    res = {"forward": {}}
+    vol = _depth_series(dist.world())
+    mesh = volume.make_depth_mesh()
+    for name, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+        g = _depth_g(torch, dev, dtype)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        calls = []
+        for _ in range(DEPTH_FWD_CALLS):
+            t0 = time.perf_counter()
+            out = volume.infer_volume_depth_sharded(g, vol, mesh,
+                                                    halo=DEPTH_HALO)
+            torch.cuda.synchronize()
+            calls.append(time.perf_counter() - t0)
+        res["forward"][name] = {"s": calls,
+                                "peak": torch.cuda.max_memory_allocated(dev)}
+        np.save(os.path.join(tmp, f"depth_fwd_{name}{rank}.npy"), out)
+        del g, out
+        torch.cuda.empty_cache()
+    marks.append(time.time())
+    with open(os.path.join(tmp, "depth_runs.json")) as f:
+        runs = json.load(f)
+    res["runs"] = {}
+    for run in runs:
+        res["runs"][run["name"]] = _sp_rank_train(
+            torch, dev, tmp, run["name"], run["cls"], run["steps"])
+        torch.cuda.empty_cache()
+        marks.append(time.time())
+    res["marks"] = marks
+    with open(os.path.join(tmp, f"depth_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.shutdown()
+    return 0
+
+
+def _depth_forward_one(torch, dev, world):
+    """One process's forwards of the symmetric-extended series, cropped,
+    f32 and bf16: {dtype: (the output, seconds by call, peak bytes)}."""
+    import numpy as np
+
+    ext = np.pad(_depth_series(world), ((DEPTH_HALO, DEPTH_HALO), (0, 0),
+                                        (0, 0)), mode="symmetric")
+    x = torch.from_numpy(ext).to(dev)[None, ..., None]
+    out = {}
+    for name, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+        g = _depth_g(torch, dev, dtype)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        secs = []
+        with torch.no_grad():
+            for _ in range(DEPTH_FWD_CALLS):
+                t0 = time.perf_counter()
+                y = g(x)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated(dev)
+        out[name] = (y[0, DEPTH_HALO:-DEPTH_HALO, :, :, 0].float().cpu(),
+                     secs, peak)
+        del g, y
+        torch.cuda.empty_cache()
+    del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def _depth_infer(torch, dev, tmp, card):
+    """(c) ``--mode infer``'s ``infer()`` on a copy of configs/P3d.yaml in
+    f32 with ``infer_depth_sharded: true`` at world 1 (seeded weights: no
+    checkpoint in its save_root) over a seeded DEPTH_SERIES-slice DICOM
+    series: every SE2 file named as its source, within INFER_PIXEL_TOL of
+    the direct forward of the symmetric-extended series, cropped."""
+    import numpy as np
+
+    from ctagan_tpu_torch.__main__ import infer
+    from ctagan_tpu_torch.data.fixtures import make_corpus
+    from ctagan_tpu_torch.models.volumetric import Generator3D
+    from ctagan_tpu_torch.parallel.serve import load_series_fullrange
+    from ctagan_tpu_torch.utils.config import load_config
+
+    root = os.path.join(tmp, "infer")
+    make_corpus(root, n_patients=1, slices_per_patient=DEPTH_SERIES,
+                size=512, seed=9, lists=("train",))
+    series = os.path.join(root, "patient0", "ST0", "SE0")
+    config = load_config(_smoke_config(
+        root, os.path.join(root, "unused.txt"),
+        f"image_save: '{root}/img/'\ncompute_dtype: float32\n"
+        "infer_depth_sharded: true\n", base="P3d.yaml"))
+    reset_counts()
+    times = {}
+    t0 = time.perf_counter()
+    out_dir = infer(config, dev, series, times)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    px = _se2_series(torch, out_dir, series)
+    volume, paths = load_series_fullrange(series, size=config.size)
+    ext = np.pad(volume, ((DEPTH_HALO, DEPTH_HALO), (0, 0), (0, 0)),
+                 mode="symmetric")
+    g = Generator3D(1, 1).reset_parameters(config.seed).to(dev)
+    with torch.no_grad():
+        direct = g(torch.from_numpy(ext).to(dev)[None, ..., None])[
+            0, DEPTH_HALO:-DEPTH_HALO, :, :, 0].float().cpu().numpy()
+    del g
+    torch.cuda.empty_cache()
+    # the writeback's own f32 arithmetic and truncation: a slice within
+    # one stored unit of it
+    worst = max(int(np.abs(px[os.path.basename(p)] - (
+        (direct[i] + 1.0) * 0.5 * 4095.0).astype(np.int16)).max())
+        for i, p in enumerate(paths))
+    print(f"depth (c): --mode infer, infer_depth_sharded at world 1, P3d.yaml "
+          f"in f32 (seeded G), a {DEPTH_SERIES}-slice 512^2 series: "
+          f"{secs:.3f} s = {DEPTH_SERIES / secs:.2f} slices/s; "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in times.items())
+          + f"; launches {counts}; {len(px)} SE2 files vs the direct forward "
+          f"of the symmetric-extended series (halo {DEPTH_HALO}), cropped, "
+          f"stored as the writeback stores it: max {worst} stored units "
+          f"(tol {INFER_PIXEL_TOL}) [{card}]",
+          flush=True)
+    if counts != counts_of() or len(px) != DEPTH_SERIES \
+            or worst > INFER_PIXEL_TOL:
+        fail(f"depth (c): the sharded infer's series is {worst} stored units "
+             f"from the direct forward ({len(px)} files, launches {counts})")
+
+
+def check_depth(torch, card):
+    """Phase 22, a main path: the depth plan (``parallel/volume.py``). Two
+    gloo ranks share the card (four or more cards: four ranks, a card each,
+    under NCCL), started first (:func:`depth_worker`); meanwhile one
+    process's references and (c). (a) ``infer_volume_depth_sharded`` over
+    every rank against one process's forward of the symmetric-extended
+    series, cropped, within GEN_TOL (f32), the bf16 run's error printed,
+    each rank's seconds and peak memory beside the one process's; (b) the
+    P3d runs (:func:`_depth_runs`) through the entry point's ``train()``,
+    each held by :func:`_sp_run_held` against one process's float64 replay
+    (the bytes each rank gathers and all-reduces a step exactly as
+    :func:`_depth_expect` predicts, no launch, the replicas bit-identical,
+    the ``.pt`` bit-equal at world 1), the DEPTH_DEEP step against one
+    f32 process, its peak memory per rank beside one process's; (c)
+    :func:`_depth_infer`. Returns the ranks' launches (none: the 3-D convs
+    are cuDNN's)."""
+    import numpy as np
+
+    from ctagan_tpu_torch.data.fixtures import make_corpus
+    from ctagan_tpu_torch.models.volumetric import Discriminator3D, Generator3D
+    from ctagan_tpu_torch.utils.config import load_config
+
+    dev = torch.device("cuda")
+    cards = torch.cuda.device_count()
+    world = 4 if cards >= 4 else 2
+    how = "a card each (NCCL)" if cards > 1 else "on one card (gloo)"
+    params = [sum(p.numel() for p in m.parameters())
+              for m in (Generator3D(1, 1), Discriminator3D(2))]
+    runs = _depth_runs(world)
+    for run in runs:
+        run["expect"] = _depth_expect(run["mesh"], 512, params)
+    counts = dict.fromkeys(SOURCES, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        lists = {}
+        # an epoch of DEPTH_STEPS global batches for every run's dp
+        n_train = DEPTH_PATIENTS * max(r["mesh"].get("dp", 1) for r in runs)
+        for name, n_pat, n_sl in (("train", n_train, DEPTH_SLICES),
+                                  ("deep", DEPTH_DEEP_STEPS, DEPTH_DEEP)):
+            lst = make_corpus(os.path.join(tmp, name), n_patients=n_pat,
+                              slices_per_patient=n_sl, size=512, seed=0,
+                              lists=("train",))["train"]
+            first = _write_list(os.path.join(tmp, f"{name}_val.txt"),
+                                _read_list(lst)[:n_sl])
+            lists[name] = {"train": lst, "val": first, "test": first}
+
+        def yaml(name, extra, base="P3d.yaml", patch=8):
+            path = _smoke_config(
+                tmp, lists["deep" if patch == DEPTH_DEEP else "train"],
+                f"save_root: '{tmp}/{name}/'\nimage_save: '{tmp}/{name}_img/'"
+                f"\nlive_panels: false\ncompute_dtype: float32\nn_epochs: 1\n"
+                f"decay_epoch: 0\npatch_depth: {patch}\n" + extra, base=base)
+            shutil.move(path, os.path.join(tmp, f"{name}.yaml"))
+            return os.path.join(tmp, f"{name}.yaml")
+
+        for run in runs:
+            yaml(run["name"], _mesh_spec(run["mesh"]), patch=run["patch"])
+        with open(os.path.join(tmp, "depth_runs.json"), "w") as f:
+            json.dump(runs, f)
+        print(f"depth: the corpora {time.perf_counter() - t0:.1f} s; G, D "
+              f"parameters {params}; predicted a rank's step of "
+              + "; ".join(f"{r['name']} ({r['mesh']}, patch_depth "
+                          f"{r['patch']}): {r['expect']}" for r in runs)
+              + f" [{card}]", flush=True)
+        t_wall = time.time()
+        ranks_proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             f"--nproc-per-node={world}", os.path.abspath(__file__),
+             "--dp-worker", tmp, "--dp-name", "depth"])
+        try:
+            # (a) one process: the extended series' forwards
+            one_fwd = _depth_forward_one(torch, dev, world)
+            # (b) one process of each run (at batchSize dp and grad_accum
+            # dp), its float64 replay at patch_depth 8
+            refs = {}
+            for run in runs:
+                r_dp = run["mesh"].get("dp", 1)
+                refs[run["name"]] = _sp_one(torch, load_config(yaml(
+                    f"{run['name']}_one", f"batchSize: {r_dp}\n"
+                    f"grad_accum: {r_dp}\n", patch=run["patch"])), dev,
+                    f64=run["patch"] != DEPTH_DEEP, cls_name=run["cls"],
+                    n_steps=run["steps"])
+            # (c) the sharded infer at world 1
+            _depth_infer(torch, dev, tmp, card)
+            open(os.path.join(tmp, "depth_go"), "w").close()
+            t1 = time.perf_counter()
+            rc = ranks_proc.wait()
+        finally:
+            if ranks_proc.poll() is None:
+                ranks_proc.terminate()
+                ranks_proc.wait()
+        wall = time.perf_counter() - t1
+        if rc != 0:
+            fail(f"depth: a rank exited {rc}")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"depth_rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        # (a)
+        for name, (want, one_s, one_peak) in one_fwd.items():
+            got = [torch.from_numpy(np.load(os.path.join(
+                tmp, f"depth_fwd_{name}{r}.npy"))) for r in range(world)]
+            errs = [rel_err(torch, x, want) for x in got]
+            secs = [[round(t, 3) for t in r["forward"][name]["s"]]
+                    for r in ranks]
+            peaks = [round(r["forward"][name]["peak"] / 2**30, 3)
+                     for r in ranks]
+            print(f"depth (a) {name}: infer_volume_depth_sharded of the "
+                  f"shipped Generator3D on a {len(want)}-slice 512^2 series, "
+                  f"halo {DEPTH_HALO}, {world} ranks {how}, vs one process's "
+                  f"forward of the symmetric-extended series, cropped: max "
+                  f"error by rank {errs}"
+                  + (f" (tol {GEN_TOL})" if name == "float32" else "")
+                  + f"; the ranks' outputs bit-equal "
+                  f"{all(torch.equal(x, got[0]) for x in got)}; seconds of "
+                  f"{DEPTH_FWD_CALLS} calls by rank {secs} (one process "
+                  f"{[round(t, 3) for t in one_s]}); peak memory by rank "
+                  f"{peaks} GiB (one process {one_peak / 2**30:.3f} GiB) "
+                  f"[{card}]", flush=True)
+            if any(tuple(x.shape) != tuple(want.shape) for x in got) or \
+                    (name == "float32" and not max(errs) <= GEN_TOL):
+                fail(f"depth (a): the sharded {name} forward differs from "
+                     "one process's")
+        # (b)
+        for run in runs:
+            res = [r["runs"][run["name"]] for r in ranks]
+            if run["patch"] != DEPTH_DEEP:
+                held = _sp_run_held(torch, card, tmp, run, refs[run["name"]],
+                                    res, world, how, yaml, dev)
+            else:
+                held = _depth_deep_held(card, run, refs[run["name"]], res,
+                                        world, how)
+            for k, n in held.items():
+                counts[k] += n
+        print(f"depth: the world's wall from the go {wall:.1f} s; seconds "
+              f"from the launch to each rank's start, group, go, (a) and "
+              f"each run done "
+              f"{[[round(m - t_wall, 1) for m in r['marks']] for r in ranks]}"
+              f" [{card}]", flush=True)
+    return counts
+
+
+def _depth_deep_held(card, run, one, ranks, world, how):
+    """The DEPTH_DEEP steps: each rank's bytes against
+    :func:`_depth_expect` exactly (the slab's depth does not enter), no
+    launch, the replicas bit-identical after each step, the first-step
+    losses within FAMILY_ROUTE_TOL of one f32 process's; each rank's peak
+    memory and each step's wall beside the one process's. Returns the
+    ranks' launches."""
+    expect = run["expect"]
+    for r, res in enumerate(ranks):
+        step_bytes = {k: sorted({s["bytes"] for s in res[k]})
+                      for k in ("gather", "reduce", "scatter")}
+        print(f"depth {run['name']} ({run['mesh']}, patch_depth "
+              f"{run['patch']}) rank {r} of {world} {how}: a step's bytes "
+              f"{step_bytes} (expected {expect}); peak memory "
+              f"{res['peak'] / 2**30:.3f} GiB (one process "
+              f"{one['peak'] / 2**30:.3f} GiB); steps "
+              f"{[round(t * 1e3, 1) for t in res['step_s']]} ms (one "
+              f"process {[round(t * 1e3, 1) for t in one['step_s']]}; a "
+              f"single step: its shapes' first); losses {res['losses']} "
+              f"(one process {one['losses']}) [{card}]", flush=True)
+        if res["counts"] != counts_of() or any(
+                step_bytes[k] != [expect[k]] for k in step_bytes):
+            fail(f"depth {run['name']}: rank {r}'s launches {res['counts']} "
+                 f"or bytes {step_bytes}, expected {expect}")
+    same = [len(set(d)) == 1 for d in zip(*(res["digests"] for res in ranks))]
+    if len(same) != run["steps"] or not all(same):
+        fail(f"depth {run['name']}: the ranks' weights differ after a step "
+             f"{same}")
+    first = max(abs(ranks[0]["losses"][0][k] - v) / max(abs(v), 1e-12)
+                for k, v in one["losses"][0].items())
+    if first > FAMILY_ROUTE_TOL:
+        fail(f"depth {run['name']}: first-step losses {first:.2e} from one "
+             "process's")
+    counts = dict.fromkeys(SOURCES, 0)
+    for res in ranks:
+        for k in counts:
+            counts[k] += res["counts"].get(k, 0)
     return counts
 
 
@@ -5185,7 +5655,8 @@ MAIN_PATHS = {"serving": check_serving,
               "dp": check_dp,
               "fsdp": check_fsdp,
               "tp": check_tp,
-              "sp": check_sp}
+              "sp": check_sp,
+              "depth": check_depth}
 
 
 def main():
@@ -5221,6 +5692,8 @@ def main():
     if args.dp_worker:
         if args.dp_name == "sp":
             return sp_worker(torch, args.dp_worker)
+        if args.dp_name == "depth":
+            return depth_worker(torch, args.dp_worker)
         return dp_worker(torch, args.dp_worker, args.dp_name)
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} cuda "

@@ -30,7 +30,9 @@ modes and flags::
   under ``image_save`` (``--no-write`` skips the writeback).
 - ``train_test``: ``train``, then ``test`` with the same trainer.
 - ``infer --series DIR``: a whole SE0 series through the generator
-  (``parallel/serve.py::infer_series``) into ``<image_save>/volume/SE2``.
+  (``parallel/serve.py::infer_series``) into ``<image_save>/volume/SE2``;
+  a P3d config with ``infer_depth_sharded: true`` runs JAX's exact
+  depth-sharded forward over the ranks of a group, one a visible card.
 - ``figures``: qualitative PNG panels of the first test slices under
   ``<image_save>/panels`` (``TrainerBase.make_figures``), from the weights
   the trainer has (``--resume`` reads the newest checkpoint), as JAX's.
@@ -46,20 +48,22 @@ of the trainer's prefix in ``save_root``, else seeded weights; its EMA with
 ``ema_decay`` > 0. Every mode runs on the CUDA card unless ``--device cpu``
 is given; with no card and no ``--device`` they stop with an error.
 
-Several cards (the dp, fsdp, tp and sp plans, ``parallel/mesh.py``): with
-``data_parallel: true`` (the default) and more than one visible card,
-``train`` and ``train_test`` start one rank per card themselves through
-``torchrun`` (``mesh: {dp: M, fsdp: N}``, ``{dp: M, tp: N}`` or ``{dp: M,
-sp: N}``: M × N ranks), after building the kernels once, and each rank
-trains ``batchSize`` rows of every global batch (under tp and sp the N
-ranks of a dp column the same rows, under sp each its strip of them).
-Under
-``torchrun`` (its env set) the process joins the launcher's group:
-``torchrun --nproc-per-node N -m ctagan_tpu_torch ...``, with ``--device
-cpu`` a gloo group on the CPU. ``infer``, ``figures``, ``export`` and
-``serve`` run in one process, as in JAX. ``--supervise`` wraps the
-launcher, which exits nonzero when a rank does, so the whole world is
-relaunched.
+Several cards (the dp, fsdp, tp, sp and depth plans,
+``parallel/mesh.py``): with ``data_parallel: true`` (the default) and more
+than one visible card, ``train`` and ``train_test`` start one rank per
+card themselves through ``torchrun`` (``mesh: {dp: M, fsdp: N}``, ``{dp:
+M, tp: N}``, ``{dp: M, sp: N}`` or ``{dp: M, depth: N}``: M × N ranks),
+after building the kernels once, and each rank trains ``batchSize`` rows
+of every global batch (under tp, sp and depth the N ranks of a dp column
+the same rows, under sp each its strip of them, under depth each its
+slab of every volume). ``infer`` with ``infer_depth_sharded: true``
+starts one rank per visible card likewise (JAX's branch uses every device
+of its host). Under ``torchrun`` (its env set) the process joins the
+launcher's group: ``torchrun --nproc-per-node N -m ctagan_tpu_torch
+...``, with ``--device cpu`` a gloo group on the CPU. ``figures``,
+``export``, ``serve`` and ``infer`` without that key run in one process,
+as in JAX. ``--supervise`` wraps the launcher, which exits nonzero when a
+rank does, so the whole world is relaunched.
 """
 from __future__ import annotations
 
@@ -273,8 +277,11 @@ def main(argv=None) -> int:
         config.resume = True
     config.generator_ckpt = opts.generator_ckpt or config.generator_ckpt
     device = _device(opts.device)
+    # the 3-D family's depth-sharded infer runs over the ranks of a group
+    sharded_infer = (opts.mode == "infer" and config.name == "P3d"
+                     and config.infer_depth_sharded)
     if dist.launched():
-        if opts.mode not in _DP_MODES:
+        if opts.mode not in _DP_MODES and not sharded_infer:
             if int(os.environ["WORLD_SIZE"]) > 1:
                 raise SystemExit(f"--mode {opts.mode} runs in one process, "
                                  "not over the ranks of a group")
@@ -284,12 +291,14 @@ def main(argv=None) -> int:
                 return _run(opts, config, device)
             finally:
                 dist.shutdown()
-    elif opts.mode in ("train", "train_test"):
-        n = dp_ranks(config, device, opts.device)
+    elif opts.mode in ("train", "train_test") or sharded_infer:
+        n = (card_ranks(device, opts.device) if sharded_infer
+             else dp_ranks(config, device, opts.device))
         if n > 1:
-            from ctagan_tpu_torch.ops import _build
+            if not sharded_infer:  # the 3-D forward launches no kernel
+                from ctagan_tpu_torch.ops import _build
 
-            _build.build()  # once, before the ranks would race on it
+                _build.build()  # once, before the ranks would race on it
             return subprocess.call([sys.executable, "-m",
                                     "torch.distributed.run", "--standalone",
                                     f"--nproc-per-node={n}", "-m",
@@ -297,20 +306,27 @@ def main(argv=None) -> int:
     return _run(opts, config, device)
 
 
+def card_ranks(device: torch.device, device_arg: Optional[str]) -> int:
+    """One rank a visible card on an unnamed CUDA device, else one."""
+    if device.type != "cuda" or device_arg not in (None, "cuda"):
+        return 1
+    return torch.cuda.device_count()
+
+
 def dp_ranks(config: Config, device: torch.device,
              device_arg: Optional[str]) -> int:
     """The ranks ``--mode train`` starts itself outside a launcher: one a
-    visible card under the dp, fsdp, tp and sp plans (``mesh: {dp: M,
-    fsdp: N}``, ``{dp: M, tp: N}`` or ``{dp: M, sp: N}``: M × N, which the
-    cards must hold; else
-    every card with ``data_parallel``), one on the CPU, on a named card or
-    with ``data_parallel: false``."""
+    visible card under the dp, fsdp, tp, sp and depth plans (``mesh: {dp:
+    M, fsdp: N}``, ``{dp: M, tp: N}``, ``{dp: M, sp: N}`` or ``{dp: M,
+    depth: N}``: M × N, which the cards must hold; else every card with
+    ``data_parallel``), one on the CPU, on a named card or with
+    ``data_parallel: false``."""
     if device.type != "cuda" or device_arg not in (None, "cuda"):
         return 1
     cards = torch.cuda.device_count()
     if config.mesh:
         n = 1
-        for axis in ("dp", "fsdp", "tp", "sp"):
+        for axis in ("dp", "fsdp", "tp", "sp", "depth"):
             n *= int(config.mesh.get(axis, 1))
         if n > cards:
             raise SystemExit(f"mesh {config.mesh} needs {n} devices, have "

@@ -22,6 +22,16 @@ modules' ``dtype``. Parameter names: ``head``, ``down.{0,1}``,
 ``body.{i}.conv{1,2}``, ``up.{0,1}``, ``tail`` (G) and ``convs.{0..4}``
 (D), each with ``weight`` in torch's layout and ``bias``
 (``models/convert.py`` maps JAX's trees onto them).
+
+The depth plan's context (``models/layers.py::sp_scope``, set by
+``parallel/volume.py``): while it is set, the D axis of every tensor is a
+slab of a larger volume. :func:`instance_norm3d` then asks it for the
+statistics over the whole volume (``norm3d``); with a context that
+exchanges slices (training) every conv asks it for the slices its window
+reaches beyond the slab (``conv3d``, ``conv_transpose3d``) and D's logit
+for the mean over the whole volume (``pool_logit3d``). Under the sharded
+inference's context (which exchanges nothing) ``Generator3D`` refuses a
+depth stride, as JAX's does.
 """
 from __future__ import annotations
 
@@ -32,7 +42,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ctagan_tpu_torch.models.layers import _cast, _uniform_, acc_dtype
+from ctagan_tpu_torch.models.layers import (
+    _cast,
+    _uniform_,
+    acc_dtype,
+    sp_context,
+    sp_rows,
+)
 
 EPS = 1e-5
 
@@ -40,7 +56,11 @@ EPS = 1e-5
 def instance_norm3d(x: torch.Tensor, eps: float = EPS) -> torch.Tensor:
     """Per-(sample, channel) normalisation over (D, H, W) of an NCDHW
     tensor: two passes (mean, then the mean of squared deviations), the
-    statistics in f32 for f32/bf16 input and f64 for f64, cast back."""
+    statistics in f32 for f32/bf16 input and f64 for f64, cast back; under
+    the depth plan's context over the whole volume of the slabs."""
+    ctx = sp_context()
+    if ctx is not None:
+        return ctx.norm3d(x, eps)
     xf = x.to(acc_dtype(x.dtype))
     mean = xf.mean(dim=(2, 3, 4), keepdim=True)
     d = xf - mean
@@ -64,10 +84,11 @@ class Conv3dTorch(nn.Module):
         self.bias = nn.Parameter(torch.empty(cout))
 
     def forward(self, x):
-        return F.conv3d(_cast(x, self.dtype),
-                        _cl(_cast(self.weight, self.dtype)),
-                        _cast(self.bias, self.dtype), stride=self.stride,
-                        padding=self.padding)
+        x, w = _cast(x, self.dtype), _cl(_cast(self.weight, self.dtype))
+        b, ctx = _cast(self.bias, self.dtype), sp_rows()
+        if ctx is not None:  # a slab: the slices beyond it from its neighbours
+            return ctx.conv3d(x, w, b, self.stride, self.padding)
+        return F.conv3d(x, w, b, stride=self.stride, padding=self.padding)
 
 
 class ConvTranspose3dTorch(nn.Module):
@@ -86,10 +107,13 @@ class ConvTranspose3dTorch(nn.Module):
         self.bias = nn.Parameter(torch.empty(cout))
 
     def forward(self, x):
-        return F.conv_transpose3d(
-            _cast(x, self.dtype), _cl(_cast(self.weight, self.dtype)),
-            _cast(self.bias, self.dtype), stride=self.stride, padding=1,
-            output_padding=self.output_padding)
+        x, w = _cast(x, self.dtype), _cl(_cast(self.weight, self.dtype))
+        b, ctx = _cast(self.bias, self.dtype), sp_rows()
+        if ctx is not None:
+            return ctx.conv_transpose3d(x, w, b, self.stride,
+                                        self.output_padding)
+        return F.conv_transpose3d(x, w, b, stride=self.stride, padding=1,
+                                  output_padding=self.output_padding)
 
 
 def _reset(module: nn.Module, seed: int) -> nn.Module:
@@ -171,6 +195,11 @@ class Generator3D(nn.Module):
         """``fused_body`` is accepted for the trainers' eval call and
         ignored: no kernel route exists in 3-D (JAX's ``g_eval`` keeps the
         training model for this family)."""
+        ctx = sp_context()
+        if ctx is not None and not ctx.exchanges \
+                and self.depth_strides != (1, 1):
+            raise ValueError(
+                "depth-halo sharding requires depth_strides=(1, 1)")
         h = torch.relu(instance_norm3d(self.head(_ncdhw(x))))
         for conv in self.down:
             h = torch.relu(instance_norm3d(conv(h)))
@@ -184,7 +213,8 @@ class Generator3D(nn.Module):
 class Discriminator3D(nn.Module):
     """3-D PatchGAN on NDHWC input -> (N, 1) logit: (3, 4, 4) convs, stride
     (1, 2, 2) ×3 then 1, LeakyReLU 0.2, InstanceNorm after all but the
-    first, and the last map's mean over (D, H, W)."""
+    first, and the last map's mean over (D, H, W) (under the depth plan's
+    training context over the whole volume)."""
 
     def __init__(self, input_nc: int = 2,
                  dtype: Optional[torch.dtype] = None):
@@ -203,4 +233,6 @@ class Discriminator3D(nn.Module):
         h = F.leaky_relu(self.convs[0](_ncdhw(x)), 0.2)
         for conv in self.convs[1:4]:
             h = F.leaky_relu(instance_norm3d(conv(h)), 0.2)
-        return self.convs[4](h).mean(dim=(2, 3, 4))
+        h = self.convs[4](h)
+        ctx = sp_rows()
+        return h.mean(dim=(2, 3, 4)) if ctx is None else ctx.pool_logit3d(h)

@@ -198,6 +198,12 @@ def mesh_groups(dp: int, fsdp: int) -> Tuple[object, Optional[object]]:
     return block, column
 
 
+def first_ranks(n: int):
+    """A group of the first ``n`` ranks (``new_group``, which every rank
+    calls, in the same order): the handle, or None for a group of one."""
+    return tdist.new_group(list(range(n))) if n > 1 else None
+
+
 def column_rank(n: int) -> int:
     """This rank's place in its dp column of a mesh of blocks of ``n``
     (:func:`mesh_groups`): which rows of the global batch it reads under

@@ -24,7 +24,8 @@ fused body off under ``spatial_axis``), so it launches no kernel.
 """
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,7 +38,11 @@ from ctagan_tpu_torch.parallel.spatial import SpMesh, make_sp_mesh
 
 class _HaloNorm:
     """The inference context: the layers run as they are on the strip and
-    its ghost rows; InstanceNorm's statistics are the extended image's."""
+    its ghost rows; InstanceNorm's statistics are the extended image's
+    (:meth:`norm`, NHWC, the rows along H), or the extended volume's
+    (:meth:`norm3d`, the 3-D family's NCDHW, the slices along D:
+    ``parallel/volume.py``). ``rows`` is the strip's or the slab's extent
+    with its ghosts, at the input's level."""
 
     exchanges = False
 
@@ -48,23 +53,37 @@ class _HaloNorm:
         return t if self.mesh.n == 1 else dist.all_reduce_sum_(
             t, self.mesh.group)
 
-    def norm(self, x: torch.Tensor, eps: float) -> torch.Tensor:
+    def _masked(self, x: torch.Tensor, eps: float, dim: int,
+                dims: Tuple[int, ...]) -> torch.Tensor:
+        """Normalised over ``dims``, the ghost rows along ``dim`` weighing 0
+        except the outer halos of the first and last rank, the sums and
+        the count over the block, the variance in two passes."""
         xf = x.to(acc_dtype(x.dtype))
-        n, h, w, c = xf.shape
+        h = xf.shape[dim]
         ghost = self.halo * h // self.rows  # halo // div at this level
         weight = xf.new_ones(h)
         if self.mesh.index != 0:
             weight[:ghost] = 0
         if self.mesh.index != self.mesh.n - 1:
             weight[h - ghost:] = 0
-        weight = weight.view(1, h, 1, 1)
-        s = self._sum(torch.cat([(xf * weight).sum(dim=(1, 2)).reshape(-1),
-                                 (weight.sum() * w).reshape(1)]))
+        shape = [1] * xf.dim()
+        shape[dim] = h
+        weight = weight.view(shape)
+        per = math.prod(xf.shape[k] for k in dims if k != dim)
+        s = self._sum(torch.cat([(xf * weight).sum(dim=dims).reshape(-1),
+                                 (weight.sum() * per).reshape(1)]))
         count = s[-1]
-        mean = (s[:-1] / count).view(n, 1, 1, c)
-        s2 = self._sum((((xf - mean) ** 2) * weight).sum(dim=(1, 2)))
-        var = s2.view(n, 1, 1, c) / count
+        keep = [1 if k in dims else e for k, e in enumerate(xf.shape)]
+        mean = (s[:-1] / count).view(keep)
+        s2 = self._sum((((xf - mean) ** 2) * weight).sum(dim=dims))
+        var = s2.view(keep) / count
         return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+
+    def norm(self, x: torch.Tensor, eps: float) -> torch.Tensor:
+        return self._masked(x, eps, 1, (1, 2))
+
+    def norm3d(self, x: torch.Tensor, eps: float) -> torch.Tensor:
+        return self._masked(x, eps, 2, (2, 3, 4))
 
 
 def _validate(h: int, n: int, halo: int) -> int:

@@ -18,8 +18,12 @@ M, sp: N}``): M × N ranks, the rows of every activation split over each
 block of N (``parallel/spatial.py``), the batch over the M dp columns, as
 JAX's ``P(data, spatial)`` replicates the batch's rows over ``spatial``:
 the N ranks of a block read the same images and each trains on its strip.
-The other model axes (depth, pp) are validated as in JAX and raise naming
-their ROADMAP item.
+The depth plan (``{depth: N}``, or ``{dp: M, depth: N}``): M × N ranks,
+the D axis of every volume split over each block of N
+(``parallel/volume.py``), the batch over the M dp columns, as JAX's
+``P(data, depth)``; JAX's depth placement shards axis 1 of a 2-D
+family's NHWC batch, its H, so the 2-D families take the sp plan's step
+there. pp is validated as in JAX and raises naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -30,14 +34,15 @@ import numpy as np
 
 MODEL_AXES = ("fsdp", "tp", "sp", "depth", "pp")
 # the ROADMAP item of each model axis not ported yet
-_ITEMS = {"pp": "M12e", "depth": "M12f"}
+_ITEMS = {"pp": "M12e"}
 
 
 @dataclass(frozen=True)
 class MeshPlan:
-    """``kind`` names the plan (``"dp"``, ``"fsdp"``, ``"tp"`` or
-    ``"sp"``); ``batch_scale`` is how many ways the global batch splits:
-    the number of ranks, ``dp`` × ``fsdp``, or ``dp`` under tp and sp."""
+    """``kind`` names the plan (``"dp"``, ``"fsdp"``, ``"tp"``, ``"sp"``
+    or ``"depth"``); ``batch_scale`` is how many ways the global batch
+    splits: the number of ranks, ``dp`` × ``fsdp``, or ``dp`` under tp, sp
+    and depth."""
 
     kind: str
     batch_scale: int
@@ -45,17 +50,19 @@ class MeshPlan:
     fsdp: int = 1
     tp: int = 1
     sp: int = 1
+    depth: int = 1
 
     def batch_rank(self, rank: int) -> int:
         """Which of the ``batch_scale`` blocks of a global batch rank
-        ``rank`` reads: its own, or under tp and sp its dp column's."""
-        return rank // (self.tp * self.sp)
+        ``rank`` reads: its own, or under tp, sp and depth its dp
+        column's."""
+        return rank // (self.tp * self.sp * self.depth)
 
     def describe(self) -> str:
-        """JAX's "mesh plan" line: the mesh's axes and extents; under tp
-        and sp also that its step runs no kernel."""
+        """JAX's "mesh plan" line: the mesh's axes and extents; under tp,
+        sp and depth also that its step runs no kernel."""
         model = {"fsdp": ("fsdp", self.fsdp), "tp": ("model", self.tp),
-                 "sp": ("spatial", self.sp)}
+                 "sp": ("spatial", self.sp), "depth": ("depth", self.depth)}
         if self.kind == "dp":
             axes = {"data": self.dp}
         else:
@@ -69,6 +76,10 @@ class MeshPlan:
         elif self.kind == "sp":
             line += ("; the strips run the layer route, so the sp step "
                      "launches no kernel (JAX's gate)")
+        elif self.kind == "depth":
+            line += ("; the slabs run cuDNN's 3-D convs (2-D families: the "
+                     "sp step's strips, the layer route), so the depth step "
+                     "launches no kernel (JAX's gate)")
         return line
 
 
@@ -76,11 +87,11 @@ def plan_from_spec(spec, world: int) -> MeshPlan:
     """A plan from a ``config.mesh`` dict (keys dp/fsdp/tp/sp/depth/pp, each
     an axis extent, default 1) for a group of ``world`` ranks, validated as
     JAX's: unknown axes, extents below 1 and more than one model axis above
-    1 raise ValueError. depth or pp above 1 then raises
-    NotImplementedError naming its ROADMAP item, whatever the world. ``{dp:
-    M}`` (or ``{}``, M = 1), ``{dp: M, fsdp: N}``, ``{dp: M, tp: N}`` and
-    ``{dp: M, sp: N}`` need exactly ``world`` = M × N ranks: more raise
-    JAX's "needs M × N devices", fewer that the group is larger than the
+    1 raise ValueError. pp above 1 then raises NotImplementedError naming
+    its ROADMAP item, whatever the world. ``{dp: M}`` (or ``{}``, M = 1),
+    ``{dp: M, fsdp: N}``, ``{dp: M, tp: N}``, ``{dp: M, sp: N}`` and ``{dp:
+    M, depth: N}`` need exactly ``world`` = M × N ranks: more raise JAX's
+    "needs M × N devices", fewer that the group is larger than the
     plan."""
     spec: Dict[str, int] = dict(spec or {})
     unknown = set(spec) - {"dp", *MODEL_AXES}
@@ -99,9 +110,11 @@ def plan_from_spec(spec, world: int) -> MeshPlan:
         kind = model_axes[0]
         raise NotImplementedError(
             f"mesh {spec}: the {kind} plan is not ported yet (ROADMAP "
-            f"{_ITEMS[kind]}); the port runs the dp, fsdp, tp and sp plans")
+            f"{_ITEMS[kind]}); the port runs the dp, fsdp, tp, sp and "
+            "depth plans")
     dp, fsdp, tp, sp = sizes["dp"], sizes["fsdp"], sizes["tp"], sizes["sp"]
-    total = dp * fsdp * tp * sp
+    depth = sizes["depth"]
+    total = dp * fsdp * tp * sp * depth
     if total > world:
         raise ValueError(f"mesh {spec} needs {total} devices, have {world}")
     if total < world:
@@ -113,6 +126,8 @@ def plan_from_spec(spec, world: int) -> MeshPlan:
         return MeshPlan("tp", dp, dp, tp=tp)
     if sp > 1:
         return MeshPlan("sp", dp, dp, sp=sp)
+    if depth > 1:
+        return MeshPlan("depth", dp, dp, depth=depth)
     return MeshPlan("fsdp" if fsdp > 1 else "dp", total, dp, fsdp)
 
 

@@ -11,9 +11,13 @@ newest checkpoint of its prefix in ``save_root`` (a port ``.pt`` or a JAX
 with ``fused_body``, else the training model's (on the card the body through
 K1), and the EMA with ``ema_decay`` > 0. The 3-D family (``P3d``) runs
 ``Generator3D`` over overlapping windows of ``patch_depth`` slices blended
-along depth (``parallel/volume.py::infer_volume_3d``); JAX's exact
-depth-sharded branch (``infer_depth_sharded: true``) waits for ROADMAP M12f
-and raises.
+along depth (``parallel/volume.py::infer_volume_3d``), or with
+``infer_depth_sharded: true`` JAX's exact branch: the whole series once,
+its D split over the first n ranks of the process group
+(``infer_volume_depth_sharded``), n = min(ranks, max(1, D // halo))
+lowered until it divides D, halo the depth receptive field; a model it
+refuses (a ``depth_downsample`` variant) prints JAX's message and takes
+the Hann windows. Rank 0 writes the series.
 """
 from __future__ import annotations
 
@@ -28,7 +32,13 @@ from ctagan_tpu_torch.data.native import (
     dual_window_native,
     resize_nearest_native,
 )
-from ctagan_tpu_torch.parallel.volume import infer_volume, infer_volume_3d
+from ctagan_tpu_torch.parallel import dist
+from ctagan_tpu_torch.parallel.volume import (
+    infer_volume,
+    infer_volume_3d,
+    infer_volume_depth_sharded,
+    make_depth_mesh,
+)
 
 
 def load_series_fullrange(series_dir: str, size: Optional[int] = None
@@ -69,15 +79,13 @@ def infer_series(trainer, series_dir: str, out_root: str,
     series to ``<out_root>/volume/SE2`` (each file named as its source,
     resized back to its rows, ``(img + 1) · 0.5 · 4095`` stored) and returns
     that directory. ``times``, when given, receives the seconds of the
-    three parts: ``load``, ``forward`` and ``writeback``."""
+    three parts: ``load``, ``forward`` and ``writeback``. In a process
+    group (``infer_depth_sharded``) every rank calls it and rank 0
+    writes."""
     import torch
 
     cfg = trainer.config
     three_d = getattr(trainer, "family", "") == "p3d"
-    if three_d and cfg.infer_depth_sharded:
-        raise NotImplementedError(
-            "infer_series: infer_depth_sharded (the depth axis halo-sharded "
-            "over a mesh) is not ported yet (ROADMAP M12f)")
     trainer.load_inference_generator()
     t0 = time.perf_counter()
     volume, paths = load_series_fullrange(series_dir, size=cfg.size)
@@ -85,9 +93,10 @@ def infer_series(trainer, series_dir: str, out_root: str,
         volume = context_stack(volume, cfg.context_slices)
     t1 = time.perf_counter()
     model = trainer._eval_model()
-    if three_d:
-        fake = infer_volume_3d(lambda x: model(x.to(trainer.device)),
-                               volume, depth=cfg.patch_depth)
+    if three_d and cfg.infer_depth_sharded:
+        fake = _depth_sharded(model, volume, cfg.patch_depth, trainer.device)
+    elif three_d:
+        fake = _windows(model, volume, cfg.patch_depth, trainer.device)
     else:
         fused = cfg.fused_body
         fake = infer_volume(lambda x: model(x, fused_body=fused), volume,
@@ -96,6 +105,9 @@ def infer_series(trainer, series_dir: str, out_root: str,
         torch.cuda.synchronize(trainer.device)
     t2 = time.perf_counter()
     out_dir = os.path.join(out_root, "volume", "SE2")
+    if not dist.is_host0():
+        dist.barrier()  # rank 0 writes the series
+        return out_dir
     os.makedirs(out_dir, exist_ok=True)
     uid = generate_uid()
     for i, path in enumerate(paths):
@@ -110,5 +122,37 @@ def infer_series(trainer, series_dir: str, out_root: str,
     if times is not None:
         times.update(load=t1 - t0, forward=t2 - t1,
                      writeback=time.perf_counter() - t2)
+    dist.barrier()
     return out_dir
+
+
+def _windows(model, volume: np.ndarray, depth: int, device) -> np.ndarray:
+    """The Hann-blended depth windows of ``depth`` slices."""
+    return infer_volume_3d(lambda x: model(x.to(device)), volume, depth=depth)
+
+
+def _depth_sharded(model, volume: np.ndarray, depth: int, device
+                   ) -> Optional[np.ndarray]:
+    """JAX's ``infer_depth_sharded`` branch: the exact forward of the whole
+    series over the first n ranks (each slab covering the depth receptive
+    field; n = 1 is the unsharded forward of the symmetric-extended
+    volume), or on a ValueError JAX's message and the Hann windows on
+    rank 0. None on a rank that holds no result."""
+    halo = 6 + 2 * len(model.body)
+    d = volume.shape[0]
+    n = min(dist.world(), max(1, d // halo))
+    while n > 1 and d % n:
+        n -= 1
+    mesh = make_depth_mesh(n)  # every rank: a group of the first n
+    if mesh is None:
+        return None
+    try:
+        return infer_volume_depth_sharded(model, volume, mesh=mesh,
+                                          halo=halo)
+    except ValueError as e:  # e.g. depth_downsample model variants
+        if mesh.index != 0:
+            return None
+        print(f"infer_depth_sharded unavailable ({e}); falling back to "
+              "Hann depth windows", flush=True)
+        return _windows(model, volume, depth, device)
 

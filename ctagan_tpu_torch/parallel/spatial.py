@@ -70,7 +70,9 @@ class SpMesh:
     ``n`` ranks of its sp block (``group``) split the rows, ``index`` is
     its strip; ``column`` is its place in its dp column (``dp_group``, None
     when ``dp`` is 1), the rows of the global batch it and its block
-    read."""
+    read. ``axis`` is JAX's name of the split axis (``"spatial"``, or
+    ``"depth"`` for the depth plan's mesh, ``parallel/volume.py``), which
+    its messages name."""
 
     n: int
     index: int
@@ -78,6 +80,7 @@ class SpMesh:
     dp: int = 1
     column: int = 0
     dp_group: Optional[object] = None
+    axis: str = "spatial"
 
     def __deepcopy__(self, memo):  # process groups are handles, shared
         return self
@@ -115,33 +118,39 @@ def shard_state_sp(state, mesh: SpMesh):
 
 # -- the rows a window reaches beyond the strip ------------------------------
 
-def _fill(x: torch.Tensor, rows: int, top: bool, fill: str) -> torch.Tensor:
-    """``rows`` rows beyond the image's true top (or bottom): zeros, the
-    reflection of ``x``'s rows about its edge row (ReflectionPad2d), or
-    the edge row repeated (a replicate pad: the clamp of a resize's sample
-    points)."""
-    h = x.shape[1]
+def _zeros(x: torch.Tensor, rows: int, dim: int) -> torch.Tensor:
+    """Zeros of ``x``'s shape with ``rows`` rows along ``dim``."""
+    shape = list(x.shape)
+    shape[dim] = rows
+    return x.new_zeros(shape)
+
+
+def _fill(x: torch.Tensor, rows: int, top: bool, fill: str,
+          dim: int) -> torch.Tensor:
+    """``rows`` rows beyond the image's true top (or bottom) along ``dim``:
+    zeros, the reflection of ``x``'s rows about its edge row
+    (ReflectionPad2d), or the edge row repeated (a replicate pad: the clamp
+    of a resize's sample points)."""
+    h = x.shape[dim]
     if fill == "zero":
-        return x.new_zeros((x.shape[0], rows, *x.shape[2:]))
+        return _zeros(x, rows, dim)
     if fill == "edge":
-        edge = x[:, :1] if top else x[:, h - 1:]
-        return edge.expand(x.shape[0], rows, *x.shape[2:])
-    part = x[:, 1:rows + 1] if top else x[:, h - 1 - rows:h - 1]
-    return part.flip(1)
+        shape = list(x.shape)
+        shape[dim] = rows
+        return x.narrow(dim, 0 if top else h - 1, 1).expand(shape)
+    return x.narrow(dim, 1 if top else h - 1 - rows, rows).flip(dim)
 
 
-def _fold(gx: torch.Tensor, g: torch.Tensor, top: bool, fill: str) -> None:
+def _fold(gx: torch.Tensor, g: torch.Tensor, top: bool, fill: str,
+          dim: int) -> None:
     """The fill's gradient ``g`` added back to the rows it copies, in
     place (nothing for a zero fill)."""
-    h, rows = gx.shape[1], g.shape[1]
+    h, rows = gx.shape[dim], g.shape[dim]
     if fill == "edge":
-        edge = slice(0, 1) if top else slice(h - 1, h)
-        gx[:, edge] += g.sum(dim=1, keepdim=True)
+        gx.narrow(dim, 0 if top else h - 1, 1).add_(
+            g.sum(dim=dim, keepdim=True))
     elif fill == "reflect":
-        if top:
-            gx[:, 1:rows + 1] += g.flip(1)
-        else:
-            gx[:, h - 1 - rows:h - 1] += g.flip(1)
+        gx.narrow(dim, 1 if top else h - 1 - rows, rows).add_(g.flip(dim))
 
 
 def _check(counts, mesh: SpMesh, top: int, below: int, bottom: int,
@@ -166,73 +175,72 @@ def _check(counts, mesh: SpMesh, top: int, below: int, bottom: int,
                          f"the stride {stride} of a conv")
 
 
-def _halo(x, mesh, top, below, bottom, stride, fill):
+def _halo(x, mesh, top, below, bottom, stride, fill, dim):
     """:class:`_HaloRows`' forward."""
     first, last = mesh.index == 0, mesh.index == mesh.n - 1
-    h = x.shape[1]
+    h = x.shape[dim]
     above = under = None
     if mesh.n > 1:
         # each rank's row count rides on the exchange: every rank checks
         # every strip, so all of them raise together
         tag = x.new_full((1,), float(h))
-        send_up = x[:, :below] if h >= below else x.new_zeros(
-            (x.shape[0], below, *x.shape[2:]))
-        send_down = x[:, h - top:] if h >= top else x.new_zeros(
-            (x.shape[0], top, *x.shape[2:]))
+        send_up = x.narrow(dim, 0, below) if h >= below else _zeros(
+            x, below, dim)
+        send_down = x.narrow(dim, h - top, top) if h >= top else _zeros(
+            x, top, dim)
         above, under, tags = dist.neighbour_rows(send_up, send_down,
                                                  mesh.group, tag)
         _check([int(t) for t in tags], mesh, top, below, bottom, stride,
                fill)
     else:
         _check([h], mesh, top, below, bottom, stride, fill)
-    parts = [_fill(x, top, True, fill) if first else above, x,
-             _fill(x, bottom, False, fill) if last else under]
-    return torch.cat(parts, dim=1)
+    parts = [_fill(x, top, True, fill, dim) if first else above, x,
+             _fill(x, bottom, False, fill, dim) if last else under]
+    return torch.cat(parts, dim=dim)
 
 
-def _halo_adjoint(g, mesh, top, below, bottom, fill):
+def _halo_adjoint(g, mesh, top, below, bottom, fill, dim):
     """:class:`_HaloRows`' backward: the ghost rows' gradient goes back to
     the rank that owns them and is added to its rows, and a fill's is
     folded back onto the rows it copies."""
     first, last = mesh.index == 0, mesh.index == mesh.n - 1
-    h = g.shape[1] - top - (bottom if last else below)
-    g_top, gx = g[:, :top], g[:, top:top + h].clone()
-    g_bot = g[:, top + h:]
+    h = g.shape[dim] - top - (bottom if last else below)
+    g_top, gx = g.narrow(dim, 0, top), g.narrow(dim, top, h).clone()
+    g_bot = g.narrow(dim, top + h, g.shape[dim] - top - h)
     if mesh.n > 1:
         # the ghost rows' gradient to their owners: the top rows' to the
         # rank above (its last rows), the bottom rows' to the rank below
         # (its first rows); the ends send zeros of the same shape
         up = g_top if not first else torch.zeros_like(g_top)
-        down = g_bot if not last else g.new_zeros(
-            (g.shape[0], below, *g.shape[2:]))
+        down = g_bot if not last else _zeros(g, below, dim)
         prev_bottom, next_top, _ = dist.neighbour_rows(up, down, mesh.group)
         if prev_bottom is not None:  # the rank above's bottom ghosts
-            gx[:, :below] += prev_bottom
+            gx.narrow(dim, 0, below).add_(prev_bottom)
         if next_top is not None:  # the rank below's top ghosts
-            gx[:, h - top:] += next_top
+            gx.narrow(dim, h - top, top).add_(next_top)
     if first:
-        _fold(gx, g_top, True, fill)
+        _fold(gx, g_top, True, fill, dim)
     if last:
-        _fold(gx, g_bot, False, fill)
+        _fold(gx, g_bot, False, fill, dim)
     return gx
 
 
 class _HaloRows(torch.autograd.Function):
-    """``x`` (N, h, W, C), this rank's strip, with ``top`` rows above it
-    and the rows below it: ``below`` from the next rank, or at the last
-    rank ``bottom`` rows of fill (zero, reflect or edge, as at the first
-    rank's top). Backward: :class:`_HaloAdjoint`, whose backward is this
-    Function again, so the exchange differentiates twice (the R1
-    penalty)."""
+    """``x``, this rank's strip of rows along ``dim`` (H of an NHWC
+    tensor), with ``top`` rows above it and the rows below it: ``below``
+    from the next rank, or at the last rank ``bottom`` rows of fill (zero,
+    reflect or edge, as at the first rank's top). Backward:
+    :class:`_HaloAdjoint`, whose backward is this Function again, so the
+    exchange differentiates twice (the R1 penalty)."""
 
     @staticmethod
-    def forward(ctx, x, mesh, top, below, bottom, stride, fill):
-        ctx.args = (mesh, top, below, bottom, stride, fill)
-        return _halo(x, mesh, top, below, bottom, stride, fill)
+    def forward(ctx, x, mesh, top, below, bottom, stride, fill, dim):
+        ctx.args = (mesh, top, below, bottom, stride, fill, dim)
+        return _halo(x, mesh, top, below, bottom, stride, fill, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return (_HaloAdjoint.apply(g, *ctx.args),) + (None,) * 6
+        return (_HaloAdjoint.apply(g, *ctx.args),) + (None,) * 7
 
 
 class _HaloAdjoint(torch.autograd.Function):
@@ -240,22 +248,23 @@ class _HaloAdjoint(torch.autograd.Function):
     backward is :class:`_HaloRows`."""
 
     @staticmethod
-    def forward(ctx, g, mesh, top, below, bottom, stride, fill):
-        ctx.args = (mesh, top, below, bottom, stride, fill)
-        return _halo_adjoint(g, mesh, top, below, bottom, fill)
+    def forward(ctx, g, mesh, top, below, bottom, stride, fill, dim):
+        ctx.args = (mesh, top, below, bottom, stride, fill, dim)
+        return _halo_adjoint(g, mesh, top, below, bottom, fill, dim)
 
     @staticmethod
     def backward(ctx, gg):
-        return (_HaloRows.apply(gg, *ctx.args),) + (None,) * 6
+        return (_HaloRows.apply(gg, *ctx.args),) + (None,) * 7
 
 
 def halo_rows(x: torch.Tensor, mesh: SpMesh, top: int, below: int,
-              bottom: int, stride: int = 1, fill: str = "zero"
-              ) -> torch.Tensor:
+              bottom: int, stride: int = 1, fill: str = "zero",
+              dim: int = 1) -> torch.Tensor:
     """:class:`_HaloRows`: ``x`` with the rows a window reaches beyond this
-    rank's strip; ``fill`` ("zero", "reflect" or "edge") at the image's
-    true borders."""
-    return _HaloRows.apply(x, mesh, top, below, bottom, stride, fill)
+    rank's strip along ``dim`` (H of an NHWC tensor; the 3-D family's D of
+    an NCDHW one, ``parallel/volume.py``); ``fill`` ("zero", "reflect" or
+    "edge") at the image's true borders."""
+    return _HaloRows.apply(x, mesh, top, below, bottom, stride, fill, dim)
 
 
 def _power_of_two(f: int) -> bool:

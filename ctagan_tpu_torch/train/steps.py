@@ -72,6 +72,13 @@ R's resizes, the warp and the flow smoothness read across the strips'
 seams through the context (``ops/resize.py``, ``ops/warp.py``); the R1
 penalty's score is pooled over the whole image (:func:`_r1_score`); the
 CycleGAN pools hold the whole fakes of one process (:func:`_pool`).
+
+The depth plan (``parallel/volume.py``; P3d, under ``{depth: N}`` and,
+as JAX's sp placement splits a volume's axis 1, under ``{sp: N}``): the
+ranks of a block flip their dp column's volumes alike and keep their
+slabs of D; the step runs under the 3-D layers' depth context, and
+:func:`_value_and_grad` sums each rank's part over the block and averages
+it over the dp column, as under sp.
 """
 from __future__ import annotations
 
@@ -93,7 +100,7 @@ from ctagan_tpu_torch.ops.losses import (
 )
 from ctagan_tpu_torch.ops.resize import interpolate_bilinear
 from ctagan_tpu_torch.ops.warp import smoothing_loss, warp2d, warp2d_local
-from ctagan_tpu_torch.parallel import dist, fsdp, spatial, tensor
+from ctagan_tpu_torch.parallel import dist, fsdp, spatial, tensor, volume
 from ctagan_tpu_torch.parallel.mesh import shard_rows
 from ctagan_tpu_torch.train.replay_buffer import ReplayBuffer, push_and_pop
 
@@ -170,9 +177,9 @@ def _value_and_grad(loss_fn: LossFn, nets: Sequence[torch.nn.Module],
     dtype, or under fsdp the losses so and each net's gradients by a
     reduce-scatter into its shard; under tp the gradients of split
     parameters over the rank's dp column alone (they differ between the
-    ranks of a tp block); under ``sp`` (the rank's sp mesh) all three,
-    each the part of this rank's rows, are summed over the sp block, then
-    averaged over the dp column."""
+    ranks of a tp block); under ``sp`` (the rank's sp mesh, or P3d's
+    depth mesh) all three, each the part of this rank's rows, are summed
+    over the sp block, then averaged over the dp column."""
     per_net = [list(net.parameters()) for net in nets]
     params = [p for ps in per_net for p in ps]
     lead = next(iter(batches.values())).shape[0]
@@ -278,6 +285,8 @@ class P2pState:
     g_ema: Optional[torch.nn.Module] = None
     tp: Optional[tensor.TpMesh] = None  # set by tensor.shard_state_tp
     sp: Optional[spatial.SpMesh] = None  # set by spatial.shard_state_sp
+    # P3d's, set by volume.shard_p3d_state_depth
+    depth: Optional[spatial.SpMesh] = None
     # each optimizer's nets, in its parameter order, and the EMA shadows
     OPT_NETS: ClassVar = {"g_opt": ("g_model",), "d_opt": ("d_model",)}
     EMA_NETS: ClassVar = ("g_ema",)
@@ -369,13 +378,24 @@ def p3d_train_step(state: P2pState, cfg: Dict,
     fake], then D on ``mse(D[A, G'(A)], 0) + mse(D[A, B], 1)`` (neither
     scaled nor halved) with G' the updated G, re-forwarded without grad;
     both at ``lr``. ``grad_accum`` K > 1 averages over K microbatches, as
-    JAX's ``_grad_accum_scan``."""
+    JAX's ``_grad_accum_scan``. Under the depth plan (``state.depth``) on
+    this rank's slabs of the flipped volumes."""
+    with volume.training_scope(state.depth):
+        return _p3d_step(state, cfg, batch, lr, flips)
+
+
+def _p3d_step(state: P2pState, cfg: Dict, batch: Dict[str, torch.Tensor],
+              lr: float, flips: Optional[Tuple[bool, bool]]
+              ) -> Dict[str, torch.Tensor]:
     g_model, d_model = state.g_model, state.d_model
     fh, fw = p3d_flips(state.gen) if flips is None else flips
     a, b = batch["A"], batch["B"]
     dims = [d for d, f in ((2, fh), (3, fw)) if f]
     if dims:
         a, b = torch.flip(a, dims), torch.flip(b, dims)
+    if state.depth is not None:
+        ab = volume.shard_batch_depth({"A": a, "B": b}, state.depth)
+        a, b = ab["A"], ab["B"]
     n_accum = int(cfg.get("grad_accum", 1))
     adv_w, l1_w = cfg["Adv_lamda"], cfg["P2P_lamda"]
 
@@ -390,7 +410,7 @@ def p3d_train_step(state: P2pState, cfg: Dict,
     ab = {"a": a, "b": b}
     fsdp.unshard(g_model, d_model)
     g_loss_v, g_aux, g_grads = _value_and_grad(g_loss, [g_model], ab,
-                                               n_accum)
+                                               n_accum, state.depth)
     _apply(state.g_opt, [g_model], g_grads, lr)
 
     def d_loss(mb):
@@ -401,7 +421,8 @@ def p3d_train_step(state: P2pState, cfg: Dict,
         return mse(pf, 0.0) + mse(pr, 1.0), {}
 
     fsdp.unshard(g_model)  # the updated G
-    d_loss_v, _, d_grads = _value_and_grad(d_loss, [d_model], ab, n_accum)
+    d_loss_v, _, d_grads = _value_and_grad(d_loss, [d_model], ab, n_accum,
+                                           state.depth)
     _apply(state.d_opt, [d_model], d_grads, lr)
     fsdp.reshard(g_model)
     _ema_update(state.g_ema, g_model, cfg.get("ema_decay", 0.999),

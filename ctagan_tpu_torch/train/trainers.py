@@ -66,8 +66,8 @@ the stage-2 bootstrap go through the one-process layout
 under any plan and any plan resumes from it, or from a JAX ``.ckpt``.
 validate() and test() gather the eval G for their pass, the panels for
 theirs. An emergency save is skipped: a rank that another rank's failure
-stopped may never reach the gather. depth and pp raise naming
-their ROADMAP M12 item.
+stopped may never reach the gather. pp raises naming its ROADMAP item
+(M12e).
 
 The tp plan (``mesh: {tp: N}`` or ``{dp: M, tp: N}``) trains over M × N
 ranks with the residual pairs of G and R split over each block of N after
@@ -87,8 +87,18 @@ replicated, so checkpoints, loads, validate() and test() run as under dp
 (the whole model, its configured route, each eval batch split over all M
 × N ranks). CycleGAN's pools hold one process's whole fakes, so its
 ``.pt`` is one process's too. The sp step runs no kernel
-(``Generator.forward``'s gate). P3d under sp raises naming ROADMAP M12f:
-JAX's sp placement shards a volume's depth, the depth plan's step.
+(``Generator.forward``'s gate).
+
+The depth plan (``mesh: {depth: N}`` or ``{dp: M, depth: N}``) trains P3d
+over M × N ranks with the D axis of every volume split over each block of
+N (``parallel/volume.py``); P3d under ``{sp: N}`` or ``{dp: M, sp: N}``
+takes the same depth step, as JAX's sp placement ``P(data, spatial)``
+splits axis 1 of the (N, D, H, W, 1) batch, a volume's depth (a D that
+does not split raises JAX's "needs H divisible"). The 2-D families under
+the depth plan take the sp step on their rows: JAX's depth placement
+splits axis 1 of their NHWC batch, its H, and jits the same plain step.
+The state stays replicated, so checkpoints, loads, validate() and test()
+run as under sp.
 """
 from __future__ import annotations
 
@@ -131,7 +141,7 @@ from ctagan_tpu_torch.models.convert import (
     regnet_state_dict,
 )
 from ctagan_tpu_torch.ops.lpips import make_lpips_fn
-from ctagan_tpu_torch.parallel import dist, fsdp, spatial, tensor
+from ctagan_tpu_torch.parallel import dist, fsdp, spatial, tensor, volume
 from ctagan_tpu_torch.parallel.mesh import (
     MeshPlan,
     pad_batch_to,
@@ -240,12 +250,6 @@ class TrainerBase:
         if config.context_slices > 1 and self.family != "p2p":
             raise ValueError(
                 "context_slices > 1 is supported by the P2p family only")
-        if int(config.mesh.get("sp", 1)) > 1 and self.family == "p3d":
-            raise NotImplementedError(
-                f"mesh {config.mesh}: P3d under sp is not ported yet "
-                "(ROADMAP M12f): JAX's sp placement P(data, spatial) shards "
-                "axis 1 of the (N, D, H, W, 1) batch, a volume's depth, so "
-                "P3d under sp is the depth plan's step")
         self.plan = self._plan(config)
         self.config = config
         self.device = torch.device(device)
@@ -273,9 +277,16 @@ class TrainerBase:
         elif self.plan.kind == "tp":
             tensor.shard_state_tp(self.state, tensor.make_tp_mesh(
                 self.plan.dp, self.plan.tp))
-        elif self.plan.kind == "sp":
-            spatial.shard_state_sp(self.state, spatial.make_sp_mesh(
-                self.plan.dp, self.plan.sp))
+        elif self.plan.kind in ("sp", "depth"):
+            plan = self.plan
+            n = plan.sp * plan.depth  # the one of them above 1
+            if self.family == "p3d":  # the depth step, whichever axis
+                mesh = (volume.make_dp_depth_mesh if plan.kind == "depth"
+                        else spatial.make_sp_mesh)(plan.dp, n)
+                volume.shard_p3d_state_depth(self.state, mesh)
+            else:  # the sp step on the rows of the 2-D families
+                spatial.shard_state_sp(self.state, spatial.make_sp_mesh(
+                    plan.dp, n))
         self.timer = StepTimer(self.device)
         if config.resume:
             self._try_resume()

@@ -12,18 +12,22 @@ lists or other flow collections. Keys that are not fields land in
 ``extras``, as in the JAX package (``serve_port``, ``serve_quantize``,
 ``max_batch`` and stage 2's ``num_d`` and ``pyramid`` are read from there).
 
-``mesh`` (the parallel plans) is validated as in JAX. The dp, fsdp, tp and
-sp plans are ported (``parallel/mesh.py``): ``data_parallel: true`` (JAX's
-default), ``mesh: {dp: N}``, ``{fsdp: N}``, ``{dp: M, fsdp: N}``, ``{tp:
-N}``, ``{dp: M, tp: N}``, ``{sp: N}`` or ``{dp: M, sp: N}`` trains over the
-ranks of a process group, one card each, ``batchSize`` rows per rank, or
-per dp column under tp and sp (under fsdp with the state sharded,
-``parallel/fsdp.py``; under tp with the residual pairs split,
-``parallel/tensor.py``; under sp with the rows of every activation split,
-``parallel/spatial.py``, the P2p family alone). depth or pp above 1 raises
-naming its ROADMAP M12 item when a trainer is built, as
-``infer_depth_sharded: true`` does in ``infer_series``. ``pp_microbatches``
-and ``pp_schedule`` are validated as in JAX whatever the mesh.
+``mesh`` (the parallel plans) is validated as in JAX. The dp, fsdp, tp, sp
+and depth plans are ported (``parallel/mesh.py``): ``data_parallel: true``
+(JAX's default), ``mesh: {dp: N}``, ``{fsdp: N}``, ``{dp: M, fsdp: N}``,
+``{tp: N}``, ``{dp: M, tp: N}``, ``{sp: N}``, ``{dp: M, sp: N}``, ``{depth:
+N}`` or ``{dp: M, depth: N}`` trains over the ranks of a process group,
+one card each, ``batchSize`` rows per rank, or per dp column under tp, sp
+and depth (under fsdp with the state sharded, ``parallel/fsdp.py``; under
+tp with the residual pairs split, ``parallel/tensor.py``; under sp with
+the rows of every activation split, ``parallel/spatial.py``: P2p,
+CycleGAN, RegGAN, HD stage 1 and stage 2, and P3d, whose sp step is the
+depth plan's; under depth with the D axis of every volume split,
+``parallel/volume.py``, the 2-D families on the sp step). pp above 1
+raises naming its ROADMAP item (M12e) when a trainer is built.
+``infer_depth_sharded: true`` runs JAX's exact depth-sharded forward in
+``infer_series``. ``pp_microbatches`` and ``pp_schedule`` are validated
+as in JAX whatever the mesh.
 
 The keys of the JAX package's TPU workarounds are accepted and ignored:
 ``checkpoint_backend`` (validated as in JAX, but it picks a JAX serialiser;
@@ -118,12 +122,14 @@ class Config:
     # --- the 3-D family (P3d) ---
     patch_depth: int = 8  # slices per depth window
     depth_downsample: int = 1  # the body's depth reduction: 1, 2 or 4
-    infer_depth_sharded: bool = False  # not ported (ROADMAP M12f): raises
+    # --mode infer: the exact forward of the whole series, its D split over
+    # the ranks (parallel/volume.py), not the Hann-blended windows
+    infer_depth_sharded: bool = False
     # train over every rank of the process group (--mode train starts one a
     # card), batchSize rows each; without ``mesh``
     data_parallel: bool = True
-    # the parallel plan, e.g. {dp: 2}, {fsdp: 2}, {tp: 2} or {sp: 2};
-    # depth or pp > 1 raises (ROADMAP M12)
+    # the parallel plan, e.g. {dp: 2}, {fsdp: 2}, {tp: 2}, {sp: 2} or
+    # {depth: 2}; pp > 1 raises (ROADMAP M12e)
     mesh: Dict[str, int] = field(default_factory=dict)
     # mesh.pp > 1: the microbatches a step's pipeline schedule runs
     # (batchSize must divide by them) and the schedule, 'gpipe' or '1f1b';

@@ -197,10 +197,12 @@ def test_config_pp_keys_checked_as_jax(raw, match):
     ({"pp": 3}, "M12e"), ({"dp": 2, "pp": 4}, "M12e"), ({"depth": 2}, "M12f"),
 ], ids=str)
 def test_model_axis_names_its_roadmap_item(spec, item):
-    if item == "M12d":  # the sp plan, ported: it needs dp × sp ranks
-        world = spec.get("dp", 1) * spec["sp"]
+    if item in ("M12d", "M12f"):  # the sp and depth plans, ported: they
+        # need dp × sp (dp × depth) ranks
+        kind = "sp" if item == "M12d" else "depth"
+        world = spec.get("dp", 1) * spec[kind]
         plan = plan_from_spec(spec, world)
-        assert (plan.kind, plan.batch_scale) == ("sp", spec.get("dp", 1))
+        assert (plan.kind, plan.batch_scale) == (kind, spec.get("dp", 1))
         with pytest.raises(ValueError, match=f"needs {world} devices"):
             plan_from_spec(spec, 1)
         return

@@ -17,7 +17,10 @@
 - ``sliding_window`` and ``infer_volume_3d`` against JAX on the same
   callables (a per-tile and a per-window mean removal, so the blend
   matters), within 1e-5.
-- ``infer_series`` refuses the 3-D family (M9).
+- ``infer_series`` of a 3-D generator with ``infer_depth_sharded`` runs
+  JAX's branch in one process: a G whose depth field fits the series gives
+  the forward of the symmetric-extended series, cropped; a ``depth_downsample``
+  G prints JAX's message and takes the Hann windows.
 - ``--mode infer --device cpu`` in a fresh interpreter.
 """
 import os
@@ -206,13 +209,46 @@ def test_infer_volume_3d_matches_jax(n, depth):
     np.testing.assert_allclose(got, want, rtol=0, atol=BLEND_TOL)
 
 
-def test_infer_series_refuses_the_3d_family(tmp_path):
-    """The 3-D family infers since M9 (tests/test_torch_port_p3d.py); its
-    exact depth-sharded branch is still refused, naming M12."""
-    stub = SimpleNamespace(family="p3d", config=load_config(
-        {"infer_depth_sharded": True}))
-    with pytest.raises(NotImplementedError, match="M12"):
-        serve.infer_series(stub, str(tmp_path), str(tmp_path))
+def _stored(out_dir, name):
+    return dicom.read_dicom(os.path.join(out_dir, name)).pixel_array(
+    ).astype(np.float64)
+
+
+def test_infer_series_runs_the_3d_depth_sharded_branch(tmp_path, capsys):
+    """JAX's ``infer_depth_sharded`` branch in one process: with no
+    residual block (depth field 6, the series' 6 slices) the exact forward
+    of the symmetric-extended series, cropped; at ``depth_downsample: 2``
+    JAX's message and the Hann windows of ``patch_depth`` slices."""
+    from ctagan_tpu_torch.models.volumetric import Generator3D
+
+    series = _series(str(tmp_path), SIZE)
+    cfg = load_config({"infer_depth_sharded": True, "size": SIZE,
+                       "patch_depth": 4})
+    vol, paths = serve.load_series_fullrange(series, size=SIZE)
+    for strides, tag in (((1, 1), "exact"), ((1, 2), "windows")):
+        g = Generator3D(1, 1, n_residual_blocks=0, base_features=8,
+                        depth_strides=strides).reset_parameters(5)
+        stub = SimpleNamespace(family="p3d", config=cfg,
+                               device=torch.device("cpu"), _eval_model=lambda: g,
+                               load_inference_generator=lambda: None)
+        out = serve.infer_series(stub, series, str(tmp_path / tag))
+        with torch.no_grad():
+            if tag == "exact":
+                ext = np.pad(vol, ((6, 6), (0, 0), (0, 0)), mode="symmetric")
+                want = g(torch.from_numpy(ext)[None, ..., None])[
+                    0, 6:-6, :, :, 0].numpy()
+            else:
+                want = volume.infer_volume_3d(g, vol, depth=4)
+        printed = capsys.readouterr().out
+        assert ("infer_depth_sharded unavailable (depth-halo sharding "
+                "requires depth_strides=(1, 1)); falling back to Hann depth "
+                "windows" in printed) == (tag == "windows")
+        assert sorted(os.listdir(out)) == sorted(
+            os.path.basename(p) for p in paths)
+        for i, p in enumerate(paths):
+            expect = (want[i].astype(np.float64) + 1.0) * 0.5 * 4095.0
+            assert np.abs(_stored(out, os.path.basename(p))
+                          - expect).max() <= STORED_TOL
 
 
 def test_infer_mode_on_the_cpu_in_a_fresh_interpreter(tmp_path):

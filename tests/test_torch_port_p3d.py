@@ -21,8 +21,9 @@ At 8 base features, 2 residual blocks, depth-4 windows of 32² slices:
 - ``P3dTrainer`` validate() and test() aggregates against JAX's
   ``P3dTrainer`` on converted weights (f32).
 - ``infer_series`` on a P3d config: the blended volume within 2e-5 of
-  JAX's ``infer_volume_3d``, the SE2 series written from it;
-  ``infer_depth_sharded`` raises naming M12.
+  JAX's ``infer_volume_3d``, the SE2 series written from it; with
+  ``infer_depth_sharded`` at world 1 the series of the direct forward of
+  the symmetric-extended volume, cropped.
 - ``--mode train``, ``test`` and ``infer --series`` on a P3d config on the
   CPU in a fresh interpreter without jax.
 
@@ -484,9 +485,19 @@ def test_infer_series_p3d_blends_as_jax(tmp_path, jax_params):
         assert np.abs(stored - expect).max() <= 1.0
     assert len(uids) == 1 and read_dicom(paths[0]).series_instance_uid \
         not in uids
+    # exact inference at world 1: the halo is the depth field, 6 + 2 × 2
     t.config.infer_depth_sharded = True
-    with pytest.raises(NotImplementedError, match="ROADMAP M12"):
-        infer_series(t, series, t.config.image_save)
+    out = infer_series(t, series, str(tmp_path / "exact"))
+    halo = 6 + 2 * SMALL["n_residual_blocks"]
+    ext = np.pad(volume, ((halo, halo), (0, 0), (0, 0)), mode="symmetric")
+    with torch.no_grad():
+        exact = t.g_model(torch.from_numpy(ext)[None, ..., None])[
+            0, halo:-halo, :, :, 0].numpy()
+    for i, p in enumerate(paths):
+        stored = read_dicom(os.path.join(out, os.path.basename(
+            p))).pixel_array().astype(np.float64)
+        expect = (exact[i].astype(np.float64) + 1.0) * 0.5 * 4095.0
+        assert np.abs(stored - expect).max() <= 1.0
 
 
 def test_p3d_train_test_infer_entry_points_on_cpu(tmp_path):

@@ -7,8 +7,8 @@ conftest's virtual devices in a child process.
 
 - (a) ``plan_from_spec``: ``{sp: 2}`` at world 2 and ``{dp: 2, sp: 2}`` at
   world 4 give JAX's kind, ``batch_scale`` and mesh axes; ``--mode train``
-  starts dp × sp ranks; Cyc, Reg and HD reach the plan's world check,
-  P3d raises naming M12f.
+  starts dp × sp ranks; Cyc, Reg, HD and P3d (whose sp step is the depth
+  plan's) reach the plan's world check.
 - (b) ``halo_conv`` (each kind of conv of G and D) and ``SumOverGroup``
   pass ``gradcheck`` on two ranks, as functions of an input every rank
   holds, and each conv's rows equal the whole image's conv; a strip too
@@ -334,15 +334,11 @@ def test_train_starts_dp_times_sp_ranks(monkeypatch):
 @pytest.mark.parametrize("cls", ["CycTrainer", "RegTrainer",
                                  "HdTrainerStage1", "HdTrainerStage2",
                                  "P3dTrainer"])
-def test_families_under_sp_reach_the_plan_or_name_m12f(cls, tmp_path):
-    """Cyc, Reg and HD build under the sp plan, which at world 1 refuses
-    as JAX's does; P3d under sp names M12f (the sp placement shards a
-    volume's depth)."""
+def test_families_under_sp_reach_the_plan(cls, tmp_path):
+    """Cyc, Reg, HD and P3d build under the sp plan (P3d on the depth
+    plan's step: the sp placement splits a volume's depth), which at world
+    1 refuses as JAX's does."""
     cfg = load_config(_p2p_cfg(tmp_path, "unused.txt", mesh={"sp": 2}))
-    if cls == "P3dTrainer":
-        with pytest.raises(NotImplementedError, match="ROADMAP M12f"):
-            getattr(trainers, cls)(cfg, torch.device("cpu"), quiet=True)
-        return
     with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         getattr(trainers, cls)(cfg, torch.device("cpu"), quiet=True)
 
